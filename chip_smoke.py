@@ -25,13 +25,35 @@ exits non-zero:
               must rise.  Prints TTFT, TPOT and tokens per second, then
               two ``torch.profiler`` breakdowns of device time: a decode
               step of a full batch and the 6000-token request's prefill.
+5. transform-parity — llama3-8b at full width, 2 layers, fp32, an engine
+              on two workers of the card (``devices=["cuda"] * 2``): the
+              stream of an engine transformed TP1x2 -> TP2 mid-decode
+              equals that of an engine started at TP2; a round trip
+              TP1x2 -> TP2 -> TP1x2 equals an untransformed engine; the
+              cache bytes are equal across a migration with no decode
+              between.
+6. transform-serve — llama3-8b at full width and depth in bf16 on two
+              workers of the card serves four prompts at TP1x2,
+              transforms to TP2 mid-decode, then serves a 6000-token
+              request, longer than TP1's 4096-token ceiling, and
+              transforms back.  Prints each session's steps and times
+              against the model, the bytes each KV step moved against
+              their bound, tokens per second inside and outside the
+              sessions, TTFT, TPOT, peak memory and the launches of all
+              six kernels; the three kernels of this path must launch.
+7. transform-w4 — four workers of the card, full width, 8 layers, fp32:
+              a TP1x4 -> TP4 -> TP1x4 round trip mid-decode gives the
+              stream of an untransformed engine.
 
-Then the card's name and power limit, one ``kernels`` line, and the last
-line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the repository around it, it fails before printing a result.
+The kernels phase also holds the page-migration and padded FFN kernels
+against their plain versions, at the shapes of phases 5-6.  Then the
+card's name and power limit, one ``kernels`` line, and the last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+the repository around it, it fails before printing a result.
 """
 import copy
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -54,21 +76,29 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # A wrong kernel, such as one dropping a page of a 4096-key context,
 # moves outputs of size ~0.03 by ~0.01 and fails this.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2.0 ** -7)}
+# The padded FFN in bf16 also gets 2^-8 of its output row's RMS: its sums
+# run 4096-14336 products deep on the tensor cores, whose accumulation
+# is coarser than an fp32 add, so their noise is absolute at the row's
+# scale (an attention output is a convex mix of values, an FFN output a
+# long sum); one bf16 ulp alone fails outputs near 0.
+FFN_ROW_TOL = 2.0 ** -8
 
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def max_err(what, out, want, dtype, rows=None):
+def max_err(what, out, want, dtype, rows=None, row_tol=0.0):
     """Max abs error of ``out`` against ``want`` (over the bool mask
     ``rows`` of leading axes if given); raises unless every element is
-    within ``TOL[dtype]``."""
+    within ``TOL[dtype]``, plus ``row_tol`` times the RMS of its row of
+    ``want`` (last axis)."""
     atol, rtol = TOL[dtype]
     o, w = out.float(), want.float()
     if rows is not None:
         o, w = o[rows], w[rows]
     diff = (o - w).abs()
+    atol = atol + row_tol * w.pow(2).mean(dim=-1, keepdim=True).sqrt()
     bad = int((diff > atol + rtol * w.abs()).sum())
     err = diff.max().item()
     assert bad == 0, (what, str(dtype), "max abs err", err, "elements "
@@ -281,10 +311,101 @@ def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128):
         library_ms=lib, bound_ms=bms, bound_by=by)
 
 
+def case_migrate(dtype, slots=4, cap=8192, W=2, kvs=8, P=64, dh=128):
+    """One layer of a TP1xW <-> TPW migration of a ``slots``-slot pool of
+    ``cap`` tokens a slot: worker 0's scale-up send buffer (gather) and
+    its scale-down placement (copy).  Pure copies: bit-equal, bound by
+    the bytes read and written.  ``library_ms``: the same move by one
+    advanced-indexing call (never on the path)."""
+    from repro_torch.kernels import page_migrate as PM
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    NP = slots * cap // P // W                 # a worker's local pages
+    hps = kvs // W
+    pool = torch.randn((NP, kvs, 2, P, dh), generator=g, device=dev
+                       ).to(dtype)
+    pages, hblk = PM.scale_up_send_index(NP, W, dev)
+    send = PM.gather_page_slices(pool, pages, hblk, heads_per_slice=hps)
+    assert torch.equal(send, ref.gather_page_slices_ref(pool, pages, hblk,
+                                                        hps)), "gather"
+    view = pool.view(NP, W, hps, 2, P, dh)
+    ids = torch.arange(W * NP, dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(ids)
+    dst = torch.zeros_like(pool)
+    PM.copy_page_slices(send, dst, ids, zeros, pages, hblk,
+                        heads_per_slice=hps)
+    want = ref.copy_page_slices_ref(send, torch.zeros_like(pool), ids,
+                                    zeros, pages, hblk, hps)
+    assert torch.equal(dst, want) and torch.equal(dst, pool), "copy"
+    move = 2 * nbytes(pool)                    # each byte read + written
+    idx = nbytes(pages, hblk)
+    case = f"{slots} slots x {cap} tokens, W={W}, kvs={kvs}, P={P}"
+    pl, hl = pages.long(), hblk.long()
+    dview = dst.view(NP, W, hps, 2, P, dh)
+    gather = dict(
+        kernel="gather_page_slices", case=case + ": scale-up send buffer",
+        max_abs_err=0.0, bit_equal=True,
+        ms=time_ms(lambda: PM.gather_page_slices(
+            pool, pages, hblk, heads_per_slice=hps), 50),
+        plain_ms=time_ms(lambda: ref.gather_page_slices_ref(
+            pool, pages, hblk, hps), 20),
+        library_ms=time_ms(lambda: view[pl, hl], 20),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(move + idx, 0, dtype))))
+    copy = dict(
+        kernel="copy_page_slices", case=case + ": scale-down placement",
+        max_abs_err=0.0, bit_equal=True,
+        ms=time_ms(lambda: PM.copy_page_slices(
+            send, dst, ids, zeros, pages, hblk, heads_per_slice=hps), 50),
+        plain_ms=time_ms(lambda: ref.copy_page_slices_ref(
+            send, dst, ids, zeros, pages, hblk, hps), 20),
+        library_ms=time_ms(lambda: dview.index_put_(
+            (pl, hl), send), 20),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(move + 2 * idx, 0, dtype))))
+    return [gather, copy]
+
+
+def case_ffn(dtype, T=4, tp=2, ff_full=14336, d=4096, W=2):
+    """The MLP of llama3-8b on the worker engine: the full replica
+    (``tp`` = W shards of the Eq. 2 layout, TP1xW) or one TP shard
+    (``tp=1`` over ff_full / W columns).  ``library_ms``: ``dense_mlp``
+    on cuBLAS, two ``torch.matmul`` and the activation."""
+    from repro_torch.kernels import padded_ffn as PF
+    from repro_torch.models import layers as Lyr
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    ff = ff_full if tp > 1 else ff_full // W
+    x = torch.randn((T, d), generator=g, device=dev).to(dtype)
+    wi = (torch.randn((d, 2 * ff), generator=g, device=dev) / d ** 0.5
+          ).to(dtype)
+    wo = (torch.randn((ff, d), generator=g, device=dev) / ff ** 0.5
+          ).to(dtype)
+    out = PF.padded_ffn(x, wi, wo, tp=tp, ff=ff)
+    row_tol = FFN_ROW_TOL if dtype == torch.bfloat16 else 0.0
+    err = max_err("padded_ffn", out, PF.plain(x, wi, wo, tp, ff), dtype,
+                  row_tol=row_tol)
+    flops = 2 * T * d * ff * 3
+    byt = nbytes(x, wi, wo, out)
+    bms, by = bound_ms(byt, flops, dtype)
+    what = "full replica" if tp > 1 else "one TP2 shard"
+    return dict(
+        kernel="padded_ffn", case=f"T={T} {what} (d={d}, ff={ff}, tp={tp})",
+        max_abs_err=err, tol=tol_text(dtype) + (
+            f" + {row_tol:g}*rms(row)" if row_tol else ""),
+        ms=time_ms(lambda: PF.padded_ffn(x, wi, wo, tp=tp, ff=ff), 20),
+        plain_ms=time_ms(lambda: PF.plain(x, wi, wo, tp, ff), 5),
+        library_ms=time_ms(lambda: Lyr.dense_mlp(x, wi, wo, "swiglu"), 20),
+        library="dense_mlp on cuBLAS (2 matmuls + activation)",
+        bound_ms=bms, bound_by=by)
+
+
 def phase_kernels():
     """Every case in fp32 and bf16; returns the bf16 main-path cases by
-    kernel name (the serve phase runs bf16)."""
+    kernel name (the serve phases run bf16)."""
     main = {}
+    t0 = time.monotonic()
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(case_decode, {}),
                  # the serve phase's decode: 4 slots of 8192 tokens, 2048 live
@@ -292,14 +413,20 @@ def phase_kernels():
                  (case_chunk, {}),
                  (case_chunk, dict(S=200, done=1536, cap=1024, window=1024,
                                    pad=8)),
-                 (case_flash, {}), (case_flash, dict(S=1000))]
+                 (case_flash, {}), (case_flash, dict(S=1000)),
+                 (case_migrate, {}),
+                 (case_ffn, {}), (case_ffn, dict(T=512)),
+                 (case_ffn, dict(tp=1)), (case_ffn, dict(T=512, tp=1))]
         for fn, kw in cases:
-            r = fn(dtype, **kw)
-            r["dtype"] = str(dtype).replace("torch.", "")
-            r["tol"] = tol_text(dtype)
-            emit(phase="kernels", **r)
-            if dtype == torch.bfloat16 and not kw:
-                main[r["kernel"]] = r
+            got = fn(dtype, **kw)
+            for r in got if isinstance(got, list) else [got]:
+                r["dtype"] = str(dtype).replace("torch.", "")
+                r.setdefault("tol", "bit-equal" if r.get("bit_equal")
+                             else tol_text(dtype))
+                emit(phase="kernels", **r)
+                if dtype == torch.bfloat16 and not kw:
+                    main[r["kernel"]] = r
+    emit(phase="kernels", seconds=time.monotonic() - t0)
     return main
 
 
@@ -417,6 +544,283 @@ def phase_serve(smi: str):
     return launches
 
 
+def free_card():
+    """Drop what earlier phases left on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _worker_engine(cfg, W=2, **kw):
+    from repro_torch.serving import Engine
+    return Engine(cfg, devices=["cuda"] * W, seed=0, **kw)
+
+
+def _drive(eng, reqs, before=0, plan=()):
+    """Submit, step ``before`` times, then transform through each degree
+    of ``plan`` (stepping until the session lands), then run to done."""
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(before):
+        eng.step()
+    for tp in plan:
+        eng.transform(tp)
+        while eng.transforming:
+            eng.step()
+            eng.check_capacity_invariant()
+    eng.run_until_done()
+    return [r.generated for r in reqs]
+
+
+def phase_transform_parity():
+    """Full width, 2 layers, fp32, two workers on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.serving import ServeRequest
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                              dtype="float32")
+    t0 = time.monotonic()
+    prompts = _prompts(torch.Generator().manual_seed(9), (60, 150, 250, 90),
+                       cfg.vocab_size)
+    kw = dict(max_batch=4, max_seq=512, page_tokens=64,
+              prefill_policy=PrefillPolicy(token_budget=128, mode="mixed"))
+
+    def reqs():
+        return [ServeRequest(p, max_new_tokens=16) for p in prompts]
+
+    streams = {}
+    for name, before, plan in (("tp2", 0, None), ("mid", 6, (2,)),
+                               ("round_trip", 6, (2, 1)),
+                               ("untransformed", 0, ())):
+        eng = _worker_engine(cfg, **kw)
+        if plan is None:               # started at TP2
+            eng.transform(2)
+            while eng.transforming:
+                eng.step()
+            plan = ()
+        streams[name] = _drive(eng, reqs(), before, plan)
+        del eng
+        free_card()
+    assert streams["mid"] == streams["tp2"], streams
+    assert streams["round_trip"] == streams["untransformed"], streams
+    eng = _worker_engine(cfg, **kw)
+    for r in reqs():
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    before = [(c.pool.clone(), c.page_table.clone(), c.seq_lens.clone(),
+               c.positions.clone()) for c in eng.global_caches()]
+    eng.transform(2)
+    while not eng._session.done:
+        eng._session.step()
+    eng._finish_transform()
+    after = [(c.pool, c.page_table, c.seq_lens, c.positions)
+             for c in eng.global_caches()]
+    assert all(torch.equal(a, b) for x, y in zip(before, after)
+               for a, b in zip(x, y)), "cache bytes changed in migration"
+    del eng, before, after
+    free_card()
+    emit(phase="transform-parity", layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, workers=2,
+         prompts=[len(p) for p in prompts],
+         mid_decode_equals_tp2=True, round_trip_equals_untransformed=True,
+         tp2_equals_untransformed=streams["tp2"] == streams["untransformed"],
+         cache_bytes_equal_across_migration=True,
+         seconds=time.monotonic() - t0)
+
+
+def phase_transform_w4():
+    """Four workers on the card: full width, 8 layers, fp32.  A TP1x4 ->
+    TP4 -> TP1x4 round trip mid-decode gives the stream of an
+    untransformed engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeRequest
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=8,
+                              dtype="float32")
+    t0 = time.monotonic()
+    prompts = _prompts(torch.Generator().manual_seed(13),
+                       (70, 200, 130, 260), cfg.vocab_size)
+    streams = {}
+    for name, before, plan in (("untransformed", 0, ()),
+                               ("round_trip", 5, (4, 1))):
+        eng = _worker_engine(cfg, W=4, max_batch=4, max_seq=1024,
+                             page_tokens=64)
+        streams[name] = _drive(
+            eng, [ServeRequest(p, max_new_tokens=16) for p in prompts],
+            before, plan)
+        del eng
+        free_card()
+    assert streams["round_trip"] == streams["untransformed"], streams
+    emit(phase="transform-w4", layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, workers=4, prompts=[len(p) for p in prompts],
+         round_trip_equals_untransformed=True,
+         seconds=time.monotonic() - t0)
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import chunk_prefill as CP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import padded_ffn as PF
+    from repro_torch.kernels import page_migrate as PM
+    from repro_torch.kernels import paged_attention as PA
+    return {"paged_attention": PA.launches, "chunk_prefill": CP.launches,
+            "flash_attention": FA.launches, "padded_ffn": PF.launches,
+            "copy_page_slices": PM.copy_launches,
+            "gather_page_slices": PM.gather_launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import chunk_prefill as CP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import padded_ffn as PF
+    from repro_torch.kernels import page_migrate as PM
+    from repro_torch.kernels import paged_attention as PA
+    PA.launches = CP.launches = FA.launches = PF.launches = 0
+    PM.copy_launches = PM.gather_launches = 0
+
+
+def session_summary(log: dict, reports, W: int) -> dict:
+    """One session's steps and times against the model, and the bytes
+    its KV steps moved against the least a migration must move: the
+    (W-1)/W foreign head slices of every page, each read once and
+    written once (``kv_transform.sharded_migration_stats``), over the
+    card's memory rate."""
+    kv = [r for r in reports if r.kv_pool_bytes]
+    mlp = [r for r in reports if not r.kv_pool_bytes]
+    bound_b = 2 * kv[0].kv_pool_bytes * (W - 1) // W
+    return {
+        "tp_from": log["tp_from"], "tp_to": log["tp_to"],
+        "steps": log["steps"], "wall_s": log["wall_s"],
+        "sum_seconds": log["measured_s"], "sum_blocked_s": log["exposed_s"],
+        "sum_modeled_s": log["modeled_s"],
+        "kv_steps": len(kv),
+        "kv_step_seconds_mean": sum(r.seconds for r in kv) / len(kv),
+        "kv_step_blocked_s_mean": sum(r.blocked_s for r in kv) / len(kv),
+        "kv_step_modeled_s": kv[0].modeled_s,
+        "kv_step_pool_bytes": kv[0].kv_pool_bytes,
+        "kv_step_bytes_moved": kv[0].kv_bytes,
+        "kv_step_bytes_bound": bound_b,
+        "kv_step_bound_ms": bound_b / HBM_BPS * 1e3,
+        "mlp_step_seconds_mean": (sum(r.seconds for r in mlp) / len(mlp)
+                                  if mlp else None),
+    }
+
+
+def step_summary(steps) -> dict:
+    """Engine steps by where they ran (a layout, or a session): all of
+    them, and the decode-only ones (no prefill work) with their mean
+    wall, the figure an exposed transform cost is read against."""
+    out = {}
+    for where in dict.fromkeys(w for w, _, _, _ in steps):
+        mine = [s for s in steps if s[0] == where]
+        dec = [s for s in mine if not s[3] and s[2] > 0]
+        out[where] = {
+            "steps": len(mine), "wall_s": sum(s[1] for s in mine),
+            "decode_tokens": sum(s[2] for s in mine),
+            "decode_only_steps": len(dec),
+            "decode_only_step_ms_mean": (
+                sum(s[1] for s in dec) / len(dec) * 1e3 if dec else None),
+            "decode_only_batch_mean": (
+                sum(s[2] for s in dec) / len(dec) if dec else None)}
+    return out
+
+
+def phase_transform_serve(smi: str):
+    """Full-size llama3-8b, bf16, two workers on the card: TP1x2 ->
+    TP2 mid-decode, a request only TP2 can hold, TP2 -> TP1x2."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeRequest
+
+    cfg = get_config("llama3-8b")
+    t0 = time.monotonic()
+    eng = _worker_engine(cfg, max_batch=4, max_seq=8192, page_tokens=64)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(11)
+    warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []   # (where, wall s, decode tokens, prefill work this step?)
+
+    def step():
+        before = (len(eng.waiting),
+                  sum(p["done"] for p in eng._prefilling.values()))
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        where = (f"TP{eng.tp}" if not eng.transforming
+                 else f"TP{eng.tp}->TP{eng.tp_pending}")
+        out = eng.step()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        prefill = (out["emitted"] > out["decode_emitted"] or before != (
+            len(eng.waiting),
+            sum(p["done"] for p in eng._prefilling.values())))
+        steps.append((where, wall, out["decode_emitted"], prefill))
+
+    lens = (300, 1200, 2500, 3500)
+    reqs = [ServeRequest(p, max_new_tokens=128)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    t_run = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    while any(not r.generated for r in reqs):
+        step()
+    for _ in range(16):        # the TP1x2 decode baseline, full batch
+        step()
+    assert eng.tp == 1 and all(r.slot is not None for r in reqs)
+    n_up = eng.transform(2)
+    while eng.transforming:
+        step()
+    assert eng.tp == 2 and eng.max_seq() == 8192
+    long_ = ServeRequest(_prompts(gen, (6000,), cfg.vocab_size)[0],
+                         max_new_tokens=32)
+    assert eng.max_seq_at(1) < long_.total_tokens <= eng.max_seq(), (
+        "the long request must fit TP2 only")
+    eng.submit(long_)
+    while eng.waiting or any(s is not None for s in eng.slots):
+        step()
+        assert eng.tp == 2
+    n_down = eng.transform(1)
+    while eng.transforming:
+        step()
+    wall = time.monotonic() - t_run
+    assert eng.tp == 1 and eng.max_seq_alloc == 4096
+    launches = launch_counts()
+    for r in reqs + [long_]:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert len(long_.generated) == 32
+    assert all(launches[k] > 0 for k in ("padded_ffn", "copy_page_slices",
+                                          "gather_page_slices")), launches
+    up_reps = eng.transform_reports[:n_up]
+    down_reps = eng.transform_reports[n_up:]
+    assert len(down_reps) == n_down
+    sessions = [session_summary(eng.transform_log[0], up_reps, eng.W),
+                session_summary(eng.transform_log[1], down_reps, eng.W)]
+    assert all(r.kernel_plane for r in eng.transform_reports
+               if any(o.component == "kv" for o in r.ops))
+    emit(phase="transform-serve", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=eng.W, prompts=list(lens),
+         long_prompt=6000, weights_init_s=t_init, wall_s=wall,
+         sessions=sessions, steps_by_layout=step_summary(steps),
+         tokens_per_s_in_session=(
+             sum(n for w, _, n, _ in steps if "->" in w)
+             / sum(t for w, t, _, _ in steps if "->" in w)),
+         tokens_per_s_outside=(
+             sum(n for w, _, n, _ in steps if "->" not in w)
+             / sum(t for w, t, _, _ in steps if "->" not in w)),
+         ttft_s=[r.ttft for r in reqs + [long_]],
+         tpot_s=[r.tpot for r in reqs + [long_]],
+         launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+    del eng
+    free_card()
+    return launches
+
+
 def device_activity(prof, wall_s: float, per: int) -> dict:
     """The card's own events of a ``torch.profiler`` window: kernels and
     copies only, never the CPU ops that launched them (whose device time
@@ -523,6 +927,12 @@ KERNEL_META = {
                       "src/repro/kernels/chunk_prefill.py:168"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:83"),
+    "padded_ffn": ("src/repro_torch/kernels/csrc/padded_ffn.cu",
+                   "src/repro/kernels/padded_ffn.py:54"),
+    "copy_page_slices": ("src/repro_torch/kernels/csrc/page_migrate.cu",
+                         "src/repro/kernels/page_migrate.py:61"),
+    "gather_page_slices": ("src/repro_torch/kernels/csrc/page_migrate.cu",
+                           "src/repro/kernels/page_migrate.py:107"),
 }
 
 
@@ -542,6 +952,13 @@ def main():
     main_cases = phase_kernels()
     phase_parity()
     launches = phase_serve(smi)
+    free_card()
+    phase_transform_parity()
+    # kernels 1-3 count on the single-engine serve path (phase 4), the
+    # padded FFN and the page migration on the transform path (phase 6)
+    launches.update({k: v for k, v in phase_transform_serve(smi).items()
+                     if k not in launches})
+    phase_transform_w4()
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = main_cases[name]

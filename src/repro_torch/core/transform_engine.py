@@ -1,0 +1,401 @@
+"""Transformation orchestration (paper §4.3).
+
+The counterpart of ``repro.core.transform_engine``.  Schedules:
+
+  * MLP-first on scale-up: MLP weights re-split before the KV migration
+    starts, so the freed memory absorbs incoming remote KV;
+  * layer-staggered on scale-down: one (or a few) layers a step bounds
+    the transient memory spike, KV first;
+  * reversed traversal: last layer first.
+
+``TransformSession`` executes a schedule step by step against the
+per-worker layers of an engine (``core.instance.WorkerLayer``), keeping
+the reference's call structure: stage a step, prime one layer group,
+stream one group per decode layer (``on_decode_layer``), drain.
+
+Differences from the reference:
+
+  * The port runs eagerly and keeps ONE per-layer representation, so
+    ``unstack_decode_state`` / ``restack_decode_state`` have no
+    counterpart: a session flips each layer's layout in place, and
+    ``close_owner_session`` flips the owner's ``tp``.
+  * An ``mlp`` op re-splits the layer's MLP weights (scale-up: each
+    worker keeps its shard as a compact tensor of its own and drops the
+    replica; scale-down: each worker gathers the shards into a full
+    replica).  A ``kv`` op runs the sharded migration of the layer's
+    pages and moves the attention weights with them, so each half of a
+    layer is at one layout at any time (the reference's ``mlp`` op
+    moves the whole layer's weights; GSPMD computes the mixed state).
+  * Everything is issued on the current stream; overlapping a step
+    under decode on a side CUDA stream is later work.  A step's
+    ``seconds`` run from staging to ``torch.cuda.synchronize`` after
+    its last op (wall clock on the CPU), and ``blocked_s`` is the host
+    time issuing it plus that wait.
+  * Embedding and head are replicated in both layouts, so the final
+    step carries no static-parameter span.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Literal, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import instance as I
+from repro_torch.core import kv_transform as KT
+from repro_torch.core import weight_transform as WT
+from repro_torch.core.padding import PaddingPlan
+from repro_torch.launch.mesh import InstanceMesh, Layout
+
+Component = Literal["mlp", "kv"]
+
+
+@dataclass(frozen=True)
+class TransformOp:
+    layer: int
+    component: Component
+    overlap: bool = True
+
+
+@dataclass
+class Schedule:
+    direction: str                 # "up" | "down"
+    tp_from: int
+    tp_to: int
+    steps: List[List[TransformOp]] = field(default_factory=list)
+    layout_from: Optional[Layout] = None
+    layout_to: Optional[Layout] = None
+
+    @property
+    def n_steps(self) -> int:
+        return len(self.steps)
+
+    def resolved_layouts(self) -> Tuple[Layout, Layout]:
+        return (self.layout_from or Layout.of(self.tp_from),
+                self.layout_to or Layout.of(self.tp_to))
+
+
+def scale_up_schedule(n_layers: int, layers_per_step: int = 0,
+                      tp_from: int = 1, tp_to: int = 4,
+                      coherent: bool = False) -> Schedule:
+    """MLP-first, reversed order, then KV migration per layer.
+    ``coherent=True``: each step moves a layer's MLP and KV together."""
+    lps = layers_per_step or n_layers
+    order = list(range(n_layers - 1, -1, -1))
+    steps: List[List[TransformOp]] = []
+    if coherent:
+        for i in range(0, n_layers, lps):
+            chunk = order[i:i + lps]
+            steps.append([TransformOp(l, "mlp") for l in chunk]
+                         + [TransformOp(l, "kv") for l in chunk])
+        return Schedule("up", tp_from, tp_to, steps)
+    for i in range(0, n_layers, lps):
+        steps.append([TransformOp(l, "mlp") for l in order[i:i + lps]])
+    for i in range(0, n_layers, lps):
+        steps.append([TransformOp(l, "kv") for l in order[i:i + lps]])
+    return Schedule("up", tp_from, tp_to, steps)
+
+
+def schedule_is_layer_coherent(sched: Schedule) -> bool:
+    """True iff every layer named in a step has both its components in
+    that same step."""
+    for step in sched.steps:
+        by_layer: Dict[int, set] = {}
+        for op in step:
+            by_layer.setdefault(op.layer, set()).add(op.component)
+        if any(comps != {"mlp", "kv"} for comps in by_layer.values()):
+            return False
+    return True
+
+
+def scale_down_schedule(n_layers: int, layers_per_step: int = 1,
+                        tp_from: int = 4, tp_to: int = 1) -> Schedule:
+    """Layer-staggered, reversed order; KV first so freed head shards
+    make room for the incoming MLP weight gather."""
+    order = list(range(n_layers - 1, -1, -1))
+    steps: List[List[TransformOp]] = []
+    for i in range(0, n_layers, layers_per_step):
+        chunk = order[i:i + layers_per_step]
+        steps.append([TransformOp(l, "kv") for l in chunk]
+                     + [TransformOp(l, "mlp") for l in chunk])
+    return Schedule("down", tp_from, tp_to, steps)
+
+
+def _mlp_stats(sched: Schedule, cfg: ModelConfig, plan: PaddingPlan,
+               method: str) -> WT.WeightTransformStats:
+    if sched.direction == "up":
+        return WT.account_scale_up(cfg, plan, sched.tp_to, method)
+    return WT.account_scale_down(cfg, plan, sched.tp_from, method)
+
+
+def schedule_cost(sched: Schedule, cfg: ModelConfig, plan: PaddingPlan,
+                  kv_stats_per_layer: KT.MigrationStats,
+                  link: KT.LinkModel, method: str = "padded",
+                  overlap: bool = True) -> Tuple[float, List[float]]:
+    """Modeled total transformation time and per-step times."""
+    per_step = []
+    for step in sched.steps:
+        t = 0.0
+        for op in step:
+            if op.component == "mlp":
+                t += _mlp_stats(sched, cfg, plan, method).time_s(
+                    link, overlap=overlap and op.overlap)
+            else:
+                t += kv_stats_per_layer.time_s(
+                    link, overlap=overlap and op.overlap)
+        per_step.append(t)
+    return sum(per_step), per_step
+
+
+def seesaw_cost(cfg: ModelConfig, plan: PaddingPlan, n_layers: int,
+                link: KT.LinkModel, host_bw: float = 25e9) -> float:
+    """Seesaw-style baseline: weights bounce through host memory, every
+    byte crossing PCIe twice."""
+    w_bytes = WT.mlp_layer_bytes(cfg, plan, padded=False) * n_layers
+    return 2.0 * w_bytes / host_bw
+
+
+# ---------------------------------------------------------------------------
+# Schedule execution
+# ---------------------------------------------------------------------------
+
+def open_owner_session(owner, tp_to: int, layers_per_step: int = 1,
+                       storage_layout: str = "header_centric"
+                       ) -> "TransformSession":
+    """Open a session on anything owning ``layers/cfg/plan/tp/mesh/
+    page_tokens/_session`` (the serving engine): a full merge
+    (TP1 x W -> TPW) or decompose (TPW -> TP1 x W)."""
+    assert owner._session is None, "transformation already in progress"
+    tp_from, W = owner.tp, owner.mesh.W
+    assert {tp_from, tp_to} == {1, W}, (tp_from, tp_to, W)
+    n = len(owner.layers)
+    if tp_to > tp_from:
+        sched = scale_up_schedule(n, layers_per_step, tp_from, tp_to)
+    else:
+        sched = scale_down_schedule(n, layers_per_step, tp_from, tp_to)
+    sched.layout_from, sched.layout_to = Layout.of(tp_from), Layout.of(tp_to)
+    session = TransformSession(
+        owner.layers, sched, owner.cfg, owner.plan,
+        mesh_to=InstanceMesh(owner.mesh.devices, tp_to),
+        page_tokens=owner.page_tokens, storage_layout=storage_layout)
+    owner._session = session
+    return session
+
+
+def close_owner_session(owner) -> "TransformSession":
+    """Flip the owner's mesh and ``tp`` to the drained session's target."""
+    session = owner._session
+    assert session is not None and session.done, "schedule steps remain"
+    owner.mesh = session.mesh_to
+    owner.tp = session.schedule.tp_to
+    owner._session = None
+    return session
+
+
+@dataclass
+class StepReport:
+    """What one executed schedule step did, measured vs. modeled.
+    ``seconds`` spans staging to the synchronize after its last op;
+    ``blocked_s`` is the exposed cost (host time issuing the ops plus
+    the wait); ``modeled_s`` the accounting plane's prediction (a
+    model, see ``core.kv_transform``)."""
+    ops: List[TransformOp]
+    seconds: float
+    modeled_s: float
+    kernel_plane: bool = False     # gather/scatter kernels + all-to-all?
+    dispatch_s: float = 0.0
+    blocked_s: float = 0.0
+    overlapped: bool = False
+    # (layer, components, start_rel_s, duration_s) a layer group
+    layer_spans: List[Tuple] = field(default_factory=list)
+    # bytes the kv ops' kernels and exchange read and wrote, and the
+    # bytes of the pools they migrated
+    kv_bytes: int = 0
+    kv_pool_bytes: int = 0
+
+
+def _sync(devices) -> None:
+    for d in {d for d in devices if d.type == "cuda"}:
+        torch.cuda.synchronize(d)
+
+
+class TransformSession:
+    """Executes a ``Schedule`` step by step against per-worker layers.
+    Between steps the owner keeps serving through the per-layer walks
+    (``models.model.walk_layers``), which read each layer's layouts as
+    they reach it."""
+
+    def __init__(self, layers: List[I.WorkerLayer], schedule: Schedule,
+                 cfg: ModelConfig, plan: PaddingPlan, mesh_to,
+                 page_tokens: int, link: KT.LinkModel = KT.LinkModel(),
+                 storage_layout: str = "header_centric"):
+        self.layers = layers
+        self.schedule = schedule
+        self.cfg, self.plan = cfg, plan
+        self.mesh_to = mesh_to
+        self.page_tokens = page_tokens
+        self.link = link
+        self.storage_layout = storage_layout
+        self.reports: List[StepReport] = []
+        self._next = 0               # completed steps
+        self._dispatched = 0         # staged steps (>= completed)
+        self._pending: Optional[Dict] = None
+        self.target = I.TP if schedule.direction == "up" else I.REP
+
+    # -- progress -------------------------------------------------------
+    @property
+    def done(self) -> bool:
+        return self._next >= self.schedule.n_steps
+
+    @property
+    def all_dispatched(self) -> bool:
+        return self._dispatched >= self.schedule.n_steps
+
+    # -- ops ------------------------------------------------------------
+    def _modeled_op_s(self, op: TransformOp, layer: I.WorkerLayer) -> float:
+        sched = self.schedule
+        if op.component == "mlp":
+            return _mlp_stats(sched, self.cfg, self.plan, "padded").time_s(
+                self.link, overlap=op.overlap)
+        pool = layer.cache[0].pool
+        W = self.mesh_to.W
+        if layer.attn_layout == I.TP:
+            NPt, kvs = pool.shape[0], pool.shape[1] * W
+        else:
+            NPt, kvs = pool.shape[0] * W, pool.shape[1]
+        k = max(sched.tp_from, sched.tp_to) // max(
+            1, min(sched.tp_from, sched.tp_to))
+        stats = KT.account_scale_up(
+            self.storage_layout, max(2, k), max(1, NPt // k), kvs,
+            self.page_tokens, pool.shape[-1],
+            dtype_bytes=pool.element_size())
+        return stats.time_s(self.link, overlap=op.overlap)
+
+    def _run_mlp(self, layer: I.WorkerLayer) -> None:
+        mesh = self.mesh_to
+        if self.target == I.TP:
+            layer.mlp = [I.shard_mlp(p, w, mesh.W)
+                         for w, p in enumerate(layer.mlp)]
+        else:
+            layer.mlp = I.gather_mlp(layer.mlp, mesh)
+        layer.mlp_layout = self.target
+
+    def _run_kv(self, layer: I.WorkerLayer) -> Tuple[int, int]:
+        """Migrate the layer's pages and attention weights; returns the
+        bytes the gather, exchange and scatter read and wrote, and the
+        bytes of the migrated pool."""
+        mesh = self.mesh_to
+        pools = [c.pool for c in layer.cache]
+        pool_bytes = sum(p.numel() * p.element_size() for p in pools)
+        if self.target == I.TP:
+            new = KT.migrate_scale_up_sharded(pools, mesh)
+            layer.cache = I.cache_to_tp(layer.cache, new, mesh)
+            layer.attn = [I.shard_attn(p, w, mesh.W)
+                          for w, p in enumerate(layer.attn)]
+            moved = 4 * pool_bytes       # gather r+w, exchange r+w
+        else:
+            new = KT.migrate_scale_down_sharded(pools, mesh)
+            layer.cache = I.cache_to_rep(layer.cache, new, mesh)
+            layer.attn = I.gather_attn(layer.attn, mesh)
+            moved = 6 * pool_bytes       # gather, exchange, scatter
+        layer.attn_layout = self.target
+        return moved, pool_bytes
+
+    # -- execution ------------------------------------------------------
+    def dispatch_step_begin(self) -> None:
+        """Stage the next schedule step: its ops grouped per layer
+        (first-occurrence order), none issued yet."""
+        assert self._pending is None, "previous step not completed"
+        assert self._dispatched < self.schedule.n_steps, (
+            "schedule exhausted")
+        ops = self.schedule.steps[self._dispatched]
+        groups: List[List] = []
+        by_layer: Dict[int, List[TransformOp]] = {}
+        for op in ops:
+            if op.layer not in by_layer:
+                by_layer[op.layer] = []
+                groups.append([op.layer, by_layer[op.layer]])
+            by_layer[op.layer].append(op)
+        self._pending = {"ops": ops, "t0": time.perf_counter(),
+                         "modeled": 0.0, "kernel": False, "dispatch_s": 0.0,
+                         "groups": groups, "spans": [], "kv_bytes": 0,
+                         "kv_pool_bytes": 0}
+        self._dispatched += 1
+
+    def dispatch_step_advance(self) -> bool:
+        """Issue ONE staged layer group.  Returns False when nothing is
+        left to issue."""
+        p = self._pending
+        if p is None or not p["groups"]:
+            return False
+        td = time.perf_counter()
+        layer_idx, ops = p["groups"].pop(0)
+        layer = self.layers[layer_idx]
+        for op in ops:
+            p["modeled"] += self._modeled_op_s(op, layer)
+            if op.component == "mlp":
+                self._run_mlp(layer)
+            else:
+                moved, pool_bytes = self._run_kv(layer)
+                p["kv_bytes"] += moved
+                p["kv_pool_bytes"] += pool_bytes
+                p["kernel"] = True
+        dt = time.perf_counter() - td
+        p["dispatch_s"] += dt
+        p["spans"].append((layer_idx, tuple(op.component for op in ops),
+                           td - p["t0"], dt))
+        return True
+
+    def dispatch_step_drain(self) -> None:
+        while self.dispatch_step_advance():
+            pass
+
+    def dispatch_step(self) -> None:
+        self.dispatch_step_begin()
+        self.dispatch_step_drain()
+
+    def on_decode_layer(self, i: int) -> None:
+        """Walk hook: after layer ``i`` has been issued, issue the next
+        staged group, if the walk has not reached its layer yet."""
+        p = self._pending
+        if p is not None and p["groups"] and p["groups"][0][0] > i:
+            self.dispatch_step_advance()
+
+    def complete_step(self, overlapped: bool = True
+                      ) -> Optional[StepReport]:
+        """Drain the pending step, wait for the device, record its
+        report.  No-op (None) when nothing is pending."""
+        if self._pending is None:
+            return None
+        self.dispatch_step_drain()
+        p, self._pending = self._pending, None
+        t_wait = time.perf_counter()
+        _sync(self.mesh_to.devices)
+        wait_s = time.perf_counter() - t_wait
+        rep = StepReport(ops=p["ops"],
+                         seconds=time.perf_counter() - p["t0"],
+                         modeled_s=p["modeled"], kernel_plane=p["kernel"],
+                         dispatch_s=p["dispatch_s"],
+                         blocked_s=p["dispatch_s"] + wait_s,
+                         overlapped=overlapped, layer_spans=p["spans"],
+                         kv_bytes=p["kv_bytes"],
+                         kv_pool_bytes=p["kv_pool_bytes"])
+        self.reports.append(rep)
+        self._next += 1
+        return rep
+
+    def step(self) -> StepReport:
+        """Execute the next schedule step synchronously."""
+        assert not self.done, "schedule exhausted"
+        self.dispatch_step()
+        return self.complete_step(overlapped=False)
+
+    def run(self, between_steps: Optional[Callable[[StepReport], None]]
+            = None) -> List[StepReport]:
+        while not self.done:
+            rep = self.step()
+            if between_steps is not None:
+                between_steps(rep)
+        return self.reports

@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attention", "chunk_prefill", "flash_attention")
+SOURCES = ("paged_attention", "chunk_prefill", "flash_attention",
+           "page_migrate", "padded_ffn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,6 +42,13 @@ SIGNATURES = {
     },
     "flash_attention": {
         "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    },
+    "page_migrate": {
+        "repro_copy_page_slices": [_P] * 6 + [_I] * 9 + [_P],
+        "repro_gather_page_slices": [_P] * 4 + [_I] * 7 + [_P],
+    },
+    "padded_ffn": {
+        "repro_padded_ffn": [_P] * 5 + [_I] * 7 + [_P],
     },
 }
 

@@ -100,3 +100,63 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0
     pos = pos[None, :].expand(B, S)
     return Lyr.chunked_attention(q, k, v, pos, pos, causal=causal,
                                  window=window)
+
+
+def copy_page_slices_ref(src: torch.Tensor, dst: torch.Tensor,
+                         src_pages: torch.Tensor, src_hblocks: torch.Tensor,
+                         dst_pages: torch.Tensor, dst_hblocks: torch.Tensor,
+                         heads_per_slice: int) -> torch.Tensor:
+    """Segment ``i`` (``heads_per_slice`` heads from head block
+    ``src_hblocks[i]`` of page ``src_pages[i]``) written into ``dst`` IN
+    PLACE at (``dst_pages[i]``, ``dst_hblocks[i]``); every other byte of
+    ``dst`` is kept.  Returns ``dst``.  src: (NPs, Hs, 2, P, dh);
+    dst: (NPd, Hd, 2, P, dh)."""
+    hps = heads_per_slice
+    NPs, Hs = src.shape[:2]
+    NPd, Hd = dst.shape[:2]
+    seg = src.reshape(NPs, Hs // hps, hps, *src.shape[2:])[
+        src_pages.long(), src_hblocks.long()]
+    dst.view(NPd, Hd // hps, hps, *dst.shape[2:])[
+        dst_pages.long(), dst_hblocks.long()] = seg.to(dst.dtype)
+    return dst
+
+
+def gather_page_slices_ref(pool: torch.Tensor, pages: torch.Tensor,
+                           hblocks: torch.Tensor, heads_per_slice: int
+                           ) -> torch.Tensor:
+    """Pack segments into a send buffer: row ``i`` is head block
+    ``hblocks[i]`` of page ``pages[i]``.  pool: (NP, H, 2, P, dh) ->
+    (n, heads_per_slice, 2, P, dh)."""
+    hps = heads_per_slice
+    NP, H = pool.shape[:2]
+    return pool.reshape(NP, H // hps, hps, *pool.shape[2:])[
+        pages.long(), hblocks.long()]
+
+
+def real_ff_index(ff: int, ffp: int, tp: int, device=None) -> torch.Tensor:
+    """Padded column of each real ff column: real column j of shard
+    ``j // (ff/tp)`` sits at ``shard * (ffp/tp) + j % (ff/tp)``."""
+    j = torch.arange(ff, device=device)
+    real, per = ff // tp, ffp // tp
+    return (j // real) * per + j % real
+
+
+def padded_ffn_ref(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                   tp: int, ff: int, activation: str = "swiglu"
+                   ) -> torch.Tensor:
+    """Gated FFN over per-shard padded weights (paper Eq. 2), visiting
+    only the real columns; the port of ``repro.kernels.ref.padded_ffn_ref``
+    with the TPU kernel's column walk.  x: (T, d); wi: (d, 2*ffp) fused
+    [gate | up], each of ``tp`` shards ``ff/tp`` real columns then zeros;
+    wo: (ffp, d).  The products accumulate in fp32; h = f(gate) * up is
+    rounded to x's type before the down product, as the kernel does.
+    ``gelu`` (ungated) ignores the up half, as the TPU kernel does."""
+    ffp = wi.shape[1] // 2
+    cols = real_ff_index(ff, ffp, tp, x.device)
+    xf = x.float()
+    g = xf @ wi[:, cols].float()
+    if activation == "gelu":
+        h = Lyr._act("gelu", g)
+    else:
+        h = Lyr._act(activation, g) * (xf @ wi[:, ffp + cols].float())
+    return (h.to(x.dtype).float() @ wo[cols].float()).to(x.dtype)

@@ -9,8 +9,10 @@ Attention goes through the kernel wrappers, which run the hand-written
 CUDA kernel for tensors on the card and the plain version on the CPU:
 ``attention_seq`` -> flash prefill, ``attention_chunk`` -> chunk prefill
 with its in-place scatter, ``attention_decode`` -> paged decode over the
-pool in place (no gather).  The query/key/value/output projections and
-the MLP are plain ``torch.matmul``.
+pool in place (no gather).  The query/key/value/output projections are
+plain ``torch.matmul``; so is the single-device engine's MLP
+(``apply_mlp``), while an engine with workers runs the padded FFN kernel
+(``apply_padded_mlp``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.configs.base import (ATTN, MLSTM, MOE, RGLRU, SLIDING,
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.kernels import chunk_prefill as CP
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import padded_ffn as PF
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as Lyr
 from repro_torch.paged import pool as pp
@@ -87,9 +90,10 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """x: (B,S,d) -> q: (B,S,Hq,dh); k,v replicated to kv_slots."""
     B, S, d = x.shape
     dh = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, plan.q_heads_padded, dh)
-    k = (x @ p["wk"]).reshape(B, S, plan.kv_padded, dh)
-    v = (x @ p["wv"]).reshape(B, S, plan.kv_padded, dh)
+    # heads by -1: a worker's TP shard holds a slice of them
+    q = (x @ p["wq"]).reshape(B, S, -1, dh)
+    k = (x @ p["wk"]).reshape(B, S, -1, dh)
+    v = (x @ p["wv"]).reshape(B, S, -1, dh)
     q = Lyr.apply_rope(q, positions, cfg.rope_theta)
     k = Lyr.apply_rope(k, positions, cfg.rope_theta)
     if plan.kv_replication > 1:
@@ -168,6 +172,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, plan: PaddingPlan,
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return Lyr.dense_mlp(x, p["wi"], p["wo"], cfg.activation)
+
+
+def apply_padded_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, tp: int,
+                     ff: int) -> torch.Tensor:
+    """The MLP of an engine with workers: the padded FFN kernel over
+    weights in the per-shard Eq. 2 layout (``tp`` shards of ``ff/tp``
+    real columns each).  x: (..., d)."""
+    shape = x.shape
+    out = PF.padded_ffn(x.reshape(-1, shape[-1]), p["wi"], p["wo"], tp=tp,
+                        ff=ff, activation=cfg.activation)
+    return out.reshape(shape)
 
 
 # ===========================================================================

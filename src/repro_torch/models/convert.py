@@ -10,6 +10,13 @@ The reference stacks the layers of each pattern position over G groups
 (``vmap`` in ``init_params``) and keeps R remainder layers apart; the
 port's layer ``g * len(unit) + i`` is ``blocks[i][...][g]`` and the R
 remainder layers follow.
+
+A gated MLP is re-laid for the plan's ``max_tp`` shards
+(``core.weight_transform.relayout_mlp_for_tp``): the reference pads
+``d_ff`` at the global tail, the port at the tail of every shard (the
+Eq. 2 layout its padded FFN kernel and its workers' shards read).  The
+padding is zero, so the function is the same; at ``max_tp = 1`` the two
+layouts are one.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.padding import PaddingPlan
+from repro_torch.core.weight_transform import relayout_mlp_for_tp
 from repro_torch.models.blocks import dtype_of
 
 
@@ -60,8 +68,10 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
         state[pre + "ln2"] = t(p["ln2"])
         for k in ("wq", "wk", "wv", "wo"):
             state[pre + "attn." + k] = t(p["attn"][k])
-        for k in ("wi", "wo"):
-            state[pre + "mlp." + k] = t(p["mlp"][k])
+        wi, wo = t(p["mlp"]["wi"]), t(p["mlp"]["wo"])
+        if cfg.activation in ("swiglu", "geglu"):
+            wi, wo = relayout_mlp_for_tp(wi, wo, cfg.d_ff, plan.max_tp)
+        state[pre + "mlp.wi"], state[pre + "mlp.wo"] = wi, wo
     return state
 
 

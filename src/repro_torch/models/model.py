@@ -15,12 +15,13 @@ Entry points (methods of ``Model``):
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import instance as I
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as Lyr
@@ -133,14 +134,13 @@ class Model(nn.Module):
 
     # -- head -------------------------------------------------------------
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = Lyr.rmsnorm(x, self.final_ln, self.cfg.norm_eps)
-        head = self.embed.T if self.lm_head is None else self.lm_head
-        logits = (x @ head).float()
-        # the padding plan's extra vocabulary columns never win
-        vp = self.plan.vocab_padded
-        mask = torch.where(torch.arange(vp, device=x.device)
-                           < self.plan.vocab, 0.0, Lyr.NEG_INF)
-        return logits + mask
+        return lm_logits(self.static(), self.plan, self.cfg, x)
+
+    def static(self) -> Dict[str, torch.Tensor]:
+        """The non-layer weights: embed, final_ln and lm_head (None when
+        tied to the embedding)."""
+        return {"embed": self.embed, "final_ln": self.final_ln,
+                "lm_head": self.lm_head}
 
     # -- forward passes ---------------------------------------------------
     def prefill(self, tokens: torch.Tensor, caches: List[pp.PagedState]
@@ -188,9 +188,164 @@ class Model(nn.Module):
         return self.lm_logits(x)[:, 0, :]
 
 
+def lm_logits(static: Dict[str, torch.Tensor], plan: PaddingPlan,
+              cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head; the padding plan's extra vocabulary columns
+    never win."""
+    x = Lyr.rmsnorm(x, static["final_ln"], cfg.norm_eps)
+    head = (static["embed"].T if static["lm_head"] is None
+            else static["lm_head"])
+    logits = (x @ head).float()
+    vp = plan.vocab_padded
+    mask = torch.where(torch.arange(vp, device=x.device) < plan.vocab, 0.0,
+                       Lyr.NEG_INF)
+    return logits + mask
+
+
 def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, device="cpu"
           ) -> Model:
     """``Model.random`` from an integer seed, generated on ``device``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return Model.random(cfg, plan, gen, device)
+
+
+# ---------------------------------------------------------------------------
+# Per-worker layer walks (an engine spread over W workers)
+# ---------------------------------------------------------------------------
+#
+# The counterpart of the reference's per-layer paths
+# (``repro.models.model.decode_step_layers`` / ``prefill_chunk_layers``).
+# Each layer's attention and MLP sit at a layout of ``core.instance``
+# (REP or TP) and, mid-transform, layers (and the two halves of a layer)
+# may sit at different layouts.  Activations of a row set (the decode
+# batch, or one prefilling slot) follow the layout of the sub-layer
+# about to run: at REP worker w holds the rows of its own slots; at TP
+# every worker holds all rows.  At a layout boundary they are joined
+# (an all-gather) or re-split (each worker slices its own copy): the
+# counterpart of ``_boundary_put``.  A TP sub-layer ends in an
+# all-reduce-sum of the workers' partial outputs, after the attention
+# ``wo`` and after the MLP ``wo``.
+
+
+class RowSet:
+    """Global slots ``rows`` (sorted) of a ``batch``-slot engine on W
+    workers; ``span(layout, w)`` is the index range into ``rows`` that
+    worker w holds at that layout."""
+
+    def __init__(self, rows: Sequence[int], batch: int, W: int):
+        self.rows, self.batch, self.W = list(rows), batch, W
+
+    def span(self, layout: str, w: int) -> Tuple[int, int]:
+        if layout == I.TP:
+            return 0, len(self.rows)
+        lo, hi = I.rows_of(I.REP, self.batch, self.W, w)
+        idx = [i for i, r in enumerate(self.rows) if lo <= r < hi]
+        return (idx[0], idx[-1] + 1) if idx else (0, 0)
+
+    def views(self, layer: "I.WorkerLayer", w: int
+              ) -> Optional[pp.PagedState]:
+        """Worker w's cache for these rows: the whole cache for the full
+        batch, else a batch-1 in-place view of the one slot (None when
+        worker w holds none of the rows)."""
+        lo, hi = self.span(layer.attn_layout, w)
+        if hi == lo:
+            return None
+        cache = layer.cache[w]
+        if len(self.rows) == self.batch:
+            return cache
+        assert len(self.rows) == 1, "row sets are one slot or the batch"
+        base = I.rows_of(layer.attn_layout, self.batch, self.W, w)[0]
+        return pp.slot_view(cache, self.rows[0] - base)
+
+
+def relayout(xs: List[torch.Tensor], src: str, dst: str, rows: RowSet,
+             mesh) -> List[torch.Tensor]:
+    """Move a row set's activations from layout ``src`` to ``dst``."""
+    if src == dst:
+        return xs
+    if dst == I.TP:                      # join: every worker, all rows
+        return mesh.all_gather(xs, 0)
+    out = []                             # re-split: own rows of own copy
+    for w, x in enumerate(xs):
+        lo, hi = rows.span(I.REP, w)
+        out.append(x[lo:hi])
+    return out
+
+
+def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
+                cfg: ModelConfig, plan: PaddingPlan, mesh, rows: RowSet,
+                tokens: torch.Tensor, positions: torch.Tensor, mode: str,
+                first_chunk: bool = False,
+                on_layer: Optional[Callable[[int], None]] = None
+                ) -> torch.Tensor:
+    """One forward pass of a row set over per-worker layers.
+
+    tokens, positions: (R, S) for the R rows (host tensors).  ``mode``:
+    ``decode`` (S = 1: append at the cursor, paged decode kernel),
+    ``seq`` (a whole prompt from position 0: flash kernel, then the
+    cache fill) or ``chunk`` (the chunk-prefill kernel with its
+    scatter).  ``on_layer(i)`` runs after layer i has been issued (the
+    transform session's hook).  Returns the last token's logits
+    (R, vocab_padded) on worker 0's device."""
+    W, devs = mesh.W, mesh.devices
+    eps = cfg.norm_eps
+    lay = layers[0].attn_layout if layers else I.TP
+
+    def part(t: torch.Tensor, layout: str, w: int) -> torch.Tensor:
+        lo, hi = rows.span(layout, w)
+        return t[lo:hi].to(devs[w])
+
+    xs = [static[w]["embed"][part(tokens, lay, w)] for w in range(W)]
+    for i, layer in enumerate(layers):
+        window = B._window_of(layer.kind, cfg)
+        xs = relayout(xs, lay, layer.attn_layout, rows, mesh)
+        lay = layer.attn_layout
+        outs: List[Optional[torch.Tensor]] = []
+        for w in range(W):
+            x, cache = xs[w], rows.views(layer, w)
+            if cache is None:
+                outs.append(None)
+                continue
+            h = Lyr.rmsnorm(x, layer.ln1[w], eps)
+            pos = part(positions, lay, w)
+            p = layer.attn[w]
+            if mode == "decode":
+                o, _ = B.attention_decode(p, h, cfg, plan, pos, cache,
+                                          window=window)
+            elif mode == "seq":
+                o, (k, v) = B.attention_seq(p, h, cfg, plan, pos,
+                                            window=window)
+                pp.write_prefill(cache, k, v)
+            else:
+                o, _ = B.attention_chunk(p, h, cfg, plan, pos, cache,
+                                         window=window,
+                                         first_chunk=first_chunk)
+            outs.append(o)
+        xs = _residual(xs, outs, lay, mesh)
+        xs = relayout(xs, lay, layer.mlp_layout, rows, mesh)
+        lay = layer.mlp_layout
+        tp, ff = (W, cfg.d_ff) if lay == I.REP else (1, cfg.d_ff // W)
+        outs = []
+        for w in range(W):
+            if xs[w].shape[0] == 0:
+                outs.append(None)
+                continue
+            h = Lyr.rmsnorm(xs[w], layer.ln2[w], eps)
+            outs.append(B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff))
+        xs = _residual(xs, outs, lay, mesh)
+        if on_layer is not None:
+            on_layer(i)
+    if lay == I.TP:
+        return lm_logits(static[0], plan, cfg, xs[0][:, -1:])[:, 0]
+    parts = [lm_logits(static[w], plan, cfg, x[:, -1:])[:, 0].to(devs[0])
+             for w, x in enumerate(xs) if x.shape[0]]
+    return torch.cat(parts)
+
+
+def _residual(xs, outs, layout: str, mesh) -> List[torch.Tensor]:
+    """x + sub-layer output; a TP sub-layer's partial outputs are summed
+    over the workers first."""
+    if layout == I.TP:
+        outs = mesh.all_reduce_sum(outs)
+    return [x if o is None else x + o for x, o in zip(xs, outs)]

@@ -58,3 +58,18 @@ def to_layout(pool: torch.Tensor, src: str, dst: str) -> torch.Tensor:
 
 def block_axis(layout: str) -> int:
     return LAYOUTS[layout].index("block")
+
+
+def contiguous_segments_per_block(layout: str, kv_slots: int,
+                                  page_tokens: int, tp: int) -> int:
+    """How many contiguous memory segments one block splits into when its
+    kv heads are repartitioned across ``tp`` workers (paper Fig. 5):
+    ``tp`` for header_centric; every (kv, token) row fragments for the
+    token-first layouts."""
+    order = LAYOUTS[layout]
+    sizes = {"block": 1, "kv": 2, "token": page_tokens}
+    n = 1
+    for a in order[:order.index("head")]:
+        if a != "block":
+            n *= sizes[a]
+    return n * tp

@@ -18,12 +18,32 @@ place).  Greedy sampling is ``argmax``.
 Where the reference extracts a batch-1 copy of a slot's cache and adopts
 it back, the port computes on in-place slot VIEWS of the engine's
 caches (``paged.pool.slot_view``): the same bytes land in the pool
-without a copy.  Recurrent block kinds, meshes, live transformation,
-merges and KV spill are not ported yet (ROADMAP queue 1 items 5-10).
+without a copy.
+
+Two placements, as in the reference:
+
+  * one device (``devices=None``, the default): one ``Model`` and one
+    cache per layer;
+  * ``devices=[...]``: the engine spreads over W workers
+    (``launch.mesh.InstanceMesh``; the entries may repeat, e.g. two
+    workers on one card) starting at TP1 x W, its layers held per worker
+    (``core.instance.WorkerLayer``), with the MLP on the padded FFN
+    kernel.  ``transform(tp_to)`` opens a §4.3 session, and each
+    ``step()`` executes one schedule step around its decode iteration,
+    so page migration (gather/scatter kernels and an all-to-all)
+    interleaves with serving.  Only full merges and decompositions
+    (TP1 x W <-> TPW) are ported; partial degrees and SP layouts are
+    ROADMAP queue 1 items 5 and 6.
+
+The capacity contract is the reference's (``max_seq_at``): ``seq_quantum``
+is the per-worker admission share, ``max_seq_at(tp) = seq_quantum * tp``
+and the physical per-slot pool ``max_seq_alloc`` follows the TP degree.
+Recurrent block kinds, merges across engines and KV spill are not
+ported yet (ROADMAP queue 1 items 8 and 10).
 
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
-caller asks for ``device="cpu"``, where every kernel call runs its
-plain PyTorch version.
+caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
+every kernel call runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -34,8 +54,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, SLIDING, ModelConfig
+from repro_torch.core import instance as I
+from repro_torch.core import kv_transform as KT
+from repro_torch.core import transform_engine as TE
+from repro_torch.core import weight_transform as WT
 from repro_torch.core.padding import make_plan
 from repro_torch.core.scheduler import PrefillPolicy
+from repro_torch.launch.mesh import InstanceMesh
 from repro_torch.models import model as M
 from repro_torch.models.blocks import _window_of
 from repro_torch.paged import pool as pp
@@ -61,29 +86,52 @@ class Engine:
                  max_batch: int = 4, max_seq: int = 256,
                  page_tokens: int = 16, seed: int = 0,
                  prefill_policy: Optional[PrefillPolicy] = None,
-                 device=None):
-        """``params`` is a ``Model`` already on ``device``; without one
-        the engine builds random weights from ``seed``.  The KV pools are
-        header-centric (the kernels' canonical layout)."""
+                 device=None, devices: Optional[List] = None):
+        """``params`` is a ``Model``; without one the engine builds random
+        weights from ``seed``.  The KV pools are header-centric (the
+        kernels' canonical layout).
+
+        One device (``devices=None``): ``params`` lives on ``device``.
+        W workers (``devices=[...]``): ``params`` is planned for
+        ``make_plan(cfg, W, mode="page")`` with its MLP in the per-shard
+        Eq. 2 layout (``models.convert.params_from_jax`` gives that);
+        worker 0 takes its tensors, every other worker a copy, and the
+        engine never writes a weight in place."""
         self.cfg = cfg
-        self.device = resolve_device(device)
         self._clock = time.monotonic
-        self.plan = make_plan(cfg, 1)
         self.max_batch = max_batch
         self.max_seq_alloc = max_seq
         self.page_tokens = page_tokens
-        if params is None:
-            params = M.build(cfg, self.plan, seed, self.device)
-        if params.device != self.device:
-            raise ValueError(f"params live on {params.device}, the engine "
-                             f"on {self.device}")
-        self.model = params
+        self.tp = 1
+        self.tp_pending: Optional[int] = None
+        self.mesh = None
+        self._session: Optional[TE.TransformSession] = None
+        self._session_t0 = 0.0
+        self.transform_reports: List[TE.StepReport] = []
+        self.transform_log: List[Dict] = []
+        if devices is None:
+            self.devices = None
+            self.W = 1
+            self.device = resolve_device(device)
+            self.plan = make_plan(cfg, 1)
+            if params is None:
+                params = M.build(cfg, self.plan, seed, self.device)
+            if params.device != self.device:
+                raise ValueError(f"params live on {params.device}, the "
+                                 f"engine on {self.device}")
+            self.model = params
+            self.caches: List[pp.PagedState] = self.model.init_decode_caches(
+                max_batch, max_seq, page_tokens)
+        else:
+            if device is not None:
+                raise ValueError("pass device= or devices=, not both")
+            self._init_workers(params, [resolve_device(d) for d in devices],
+                               seed)
+        self.seq_quantum = max_seq // self.W
         # temperature sampling only: not comparable with the reference,
         # which samples with jax.random
         self.gen = torch.Generator(device="cpu")
         self.gen.manual_seed(seed)
-        self.caches: List[pp.PagedState] = self.model.init_decode_caches(
-            max_batch, max_seq, page_tokens)
         self.slots: List[Optional[ServeRequest]] = [None] * max_batch
         self.waiting: List[ServeRequest] = []
         self.prefill_policy = prefill_policy or PrefillPolicy()
@@ -91,6 +139,59 @@ class Engine:
         # plan and its progress (the KV lives in the slot's pool pages)
         self._prefilling: Dict[int, Dict] = {}
         self._prefill_deferred = 0   # consecutive decode-priority defers
+
+    def _init_workers(self, params: Optional[M.Model], devs: List,
+                      seed: int) -> None:
+        """Spread the engine over the workers at TP1 x W."""
+        cfg, W = self.cfg, len(devs)
+        assert self.max_seq_alloc % W == 0, (
+            f"max_seq={self.max_seq_alloc} must divide over the {W} "
+            "workers (per-worker admission quantum must be whole)")
+        assert self.max_seq_alloc % self.page_tokens == 0, (
+            f"max_seq={self.max_seq_alloc} must be page-aligned "
+            f"(page_tokens={self.page_tokens}) so pool resizes stay pure "
+            "page-range copies")
+        assert self.max_batch % W == 0, (
+            f"max_batch={self.max_batch} must be divisible by the worker "
+            f"count {W}: slots split over the workers at TP1")
+        self.devices, self.W, self.device = devs, W, devs[0]
+        self.plan = make_plan(cfg, W, mode="page")
+        if self.plan.kv_replication != 1:
+            raise NotImplementedError(
+                f"{cfg.name}: fewer kv heads than workers (replicated kv "
+                "heads) is not ported yet (ROADMAP queue 1 item 5)")
+        if cfg.activation not in ("swiglu", "geglu"):
+            raise NotImplementedError(
+                f"{cfg.name}: the worker engine's padded FFN takes gated "
+                "MLPs only")
+        if params is None:
+            params = M.build(cfg, self.plan, seed, devs[0])
+            for blk in params.layers:
+                blk.mlp["wi"].data, blk.mlp["wo"].data = \
+                    WT.relayout_mlp_for_tp(blk.mlp["wi"].data,
+                                           blk.mlp["wo"].data, cfg.d_ff, W)
+        self.mesh = InstanceMesh(devs, 1)
+        self.model = self.caches = None
+        mps = -(-self.max_seq_alloc // self.page_tokens)
+
+        def per_worker(t):
+            return [I.own_copy(t.detach(), d, w) for w, d in enumerate(devs)]
+
+        def dicts(p):
+            cols = {k: per_worker(v) for k, v in p.items()}
+            return [{k: v[w] for k, v in cols.items()} for w in range(W)]
+
+        self.layers: List[I.WorkerLayer] = []
+        for blk in params.layers:
+            self.layers.append(I.WorkerLayer(
+                blk.kind, I.REP, I.REP, per_worker(blk.ln1),
+                per_worker(blk.ln2), dicts(blk.attn), dicts(blk.mlp),
+                I.init_worker_caches(self.plan.kv_slots, self.page_tokens,
+                                     cfg.resolved_head_dim, self.max_batch,
+                                     mps, params.embed.dtype, devs)))
+        self.static = [{k: None if v is None else I.own_copy(v.detach(), d, w)
+                        for k, v in params.static().items()}
+                       for w, d in enumerate(devs)]
 
     def _min_chunk_cap(self) -> int:
         """Largest chunk one prefill call may carry: the smallest
@@ -105,16 +206,47 @@ class Engine:
                 caps.append(-(-cap // self.page_tokens) * self.page_tokens)
         return min(caps) if caps else self.max_seq_alloc
 
-    # -- InstanceView accessors (no mesh) ---------------------------------
+    # -- the capacity contract (InstanceView accessors) ---------------------
+    @property
+    def max_tp(self) -> int:
+        """Largest TP degree this engine can transform to in place."""
+        return self.W
+
+    @property
+    def width(self) -> int:
+        """Workers this engine spans."""
+        return self.W
+
     def max_seq_at(self, tp: int) -> int:
-        """Admission ceiling (tokens per request): a single-device engine
-        has no transformable axis and exposes its allocation at any
-        degree."""
+        """Admission ceiling (tokens per request) at TP degree ``tp``:
+        ``seq_quantum * tp``, the per-worker share frozen at construction
+        times the degree.  ``max_seq_alloc``, the physical per-slot pool,
+        always backs the active degree (``check_capacity_invariant``).
+        A single-device engine has no transformable axis and exposes its
+        allocation at any degree."""
         assert tp >= 1, tp
-        return self.max_seq_alloc
+        if self.devices is None:
+            return self.max_seq_alloc
+        return self.seq_quantum * tp
 
     def max_seq(self) -> int:
-        return self.max_seq_at(1)
+        """Admission ceiling at the policy degree: while a scale-up is in
+        flight the engine admits at its target capacity."""
+        return self.max_seq_at(self.tp_pending or self.tp)
+
+    def check_capacity_invariant(self) -> None:
+        """Physical backs policy: ``seq_quantum * (tp_pending or tp) <=
+        max_seq_alloc <= seq_quantum * W``."""
+        if self.devices is None:
+            return
+        assert (self.seq_quantum * (self.tp_pending or self.tp)
+                <= self.max_seq_alloc
+                <= self.seq_quantum * self.W), (
+            self.max_seq_alloc, self.seq_quantum, self.tp,
+            self.tp_pending, self.W)
+        assert (self.tp_pending or self.tp) <= self.W, (
+            self.tp, self.tp_pending, self.W)
+        assert self.max_seq() <= self.max_seq_alloc
 
     def kv_capacity_tokens(self) -> int:
         """Slot-partitioned pools: every slot owns max_seq() tokens."""
@@ -155,10 +287,23 @@ class Engine:
         return sum(1 for r in self.slots
                    if r is not None and r.state == State.DECODE)
 
+    def _admittable_now(self, req: ServeRequest) -> bool:
+        """While a transform that grows the ceiling is in flight, a
+        request longer than the current pool waits in the queue instead
+        of admitting into a slot it would overflow."""
+        return not (req.total_tokens > self.max_seq_alloc
+                    and self.tp_pending is not None)
+
     # -- slot views (the reference's extract / adopt) -----------------------
     def _slot_caches(self, slot: int) -> List[pp.PagedState]:
-        """Batch-1 in-place views of ``slot`` in every layer's cache."""
-        return [pp.slot_view(c, slot) for c in self.caches]
+        """Batch-1 in-place views of ``slot`` in every layer's cache (on
+        every worker that holds it, for an engine with workers)."""
+        if self.mesh is None:
+            return [pp.slot_view(c, slot) for c in self.caches]
+        rows = M.RowSet([slot], self.max_batch, self.W)
+        return [v for layer in self.layers
+                for v in (rows.views(layer, w) for w in range(self.W))
+                if v is not None]
 
     # -- chunked prefill ----------------------------------------------------
     def _begin_prefill(self, req: ServeRequest, slot: int) -> None:
@@ -179,14 +324,18 @@ class Engine:
                                   "done": 0}
 
     def _prefill_step(self) -> int:
-        """Admit at most one waiting request, then spend the policy's
-        token quota advancing partially-prefilled slots in its service
-        order.  Returns tokens emitted (a finished prefill emits the
-        first token)."""
+        """Admit at most one waiting request (FCFS over the admittable
+        queue), then spend the policy's token quota advancing
+        partially-prefilled slots in its service order.  Prefills keep
+        running during transform sessions.  Returns tokens emitted (a
+        finished prefill emits the first token)."""
         if self.waiting:
             slot = self._free_slot()
             if slot is not None:
-                self._begin_prefill(self.waiting.pop(0), slot)
+                for i, req in enumerate(self.waiting):
+                    if self._admittable_now(req):
+                        self._begin_prefill(self.waiting.pop(i), slot)
+                        break
         if not self._prefilling:
             self._prefill_deferred = 0
             return 0
@@ -216,25 +365,32 @@ class Engine:
 
     def _run_chunk(self, slot: int) -> int:
         """Advance the slot's prefill by one chunk; returns 1 when the
-        prefill completed (first token emitted), else 0."""
+        prefill completed (first token emitted), else 0.  A one-chunk
+        plan outside a transform session runs whole (flash kernel);
+        mid-session it runs as one first chunk, as in the reference."""
         prog = self._prefilling[slot]
         req = prog["req"]
         if req.t_prefill_start is None:
             req.t_prefill_start = self._clock()
-        if len(prog["chunks"]) == 1:
+        if len(prog["chunks"]) == 1 and self._session is None:
             self._prefill_whole(req, slot)
             del self._prefilling[slot]
             return 1
         start = prog["done"]
         size = prog["chunks"][prog["ci"]]
         tokens = torch.tensor(req.prompt[start:start + size],
-                              dtype=torch.long, device=self.device)[None]
-        start_a = torch.full((1,), start, dtype=torch.int32,
-                             device=self.device)
-        views = self._slot_caches(slot)
-        self._sanitize_sub(views, start)
-        logits = self.model.prefill_chunk(tokens, start_a, views,
-                                          first_chunk=start == 0)
+                              dtype=torch.long)[None]
+        self._sanitize_sub(self._slot_caches(slot), start)
+        if self.mesh is None:
+            logits = self.model.prefill_chunk(
+                tokens.to(self.device),
+                torch.full((1,), start, dtype=torch.int32,
+                           device=self.device),
+                self._slot_caches(slot), first_chunk=start == 0)
+        else:
+            positions = (start + torch.arange(size, dtype=torch.int32))[None]
+            logits = self._walk([slot], tokens, positions, "chunk",
+                                first_chunk=start == 0)[:, None]
         prog["done"] += size
         prog["ci"] += 1
         if prog["done"] >= len(req.prompt):
@@ -243,21 +399,32 @@ class Engine:
             return 1
         return 0
 
+    def _walk(self, rows: List[int], tokens: torch.Tensor,
+              positions: torch.Tensor, mode: str, first_chunk: bool = False
+              ) -> torch.Tensor:
+        """One pass of ``rows`` through the per-worker layers (an engine
+        with workers); mid-session the decode walk streams the session's
+        staged layer groups."""
+        hook = (self._session.on_decode_layer
+                if self._session is not None and mode == "decode" else None)
+        return M.walk_layers(self.layers, self.static, self.cfg, self.plan,
+                             self.mesh,
+                             M.RowSet(rows, self.max_batch, self.W), tokens,
+                             positions, mode, first_chunk=first_chunk,
+                             on_layer=hook)
+
     def _pin_prefill_cursors(self) -> None:
         """Decode iterations append masked filler for EVERY slot at its
         ``seq_lens`` cursor, mid-prefill slots included.  Re-pinning the
         cursor to ``done`` after each decode confines the filler to the
         one position the next chunk overwrites anyway (left alone, a
-        starved slot's filler would ring-wrap into its prefix)."""
+        starved slot's filler would ring-wrap into its prefix).  With
+        workers, on every worker holding the slot."""
         if not self._prefilling:
             return
-        idx = torch.tensor(sorted(self._prefilling), dtype=torch.long,
-                           device=self.device)
-        val = torch.tensor([self._prefilling[s]["done"]
-                            for s in sorted(self._prefilling)],
-                           dtype=torch.int32, device=self.device)
-        for c in self.caches:
-            c.seq_lens[idx] = val
+        for slot, prog in self._prefilling.items():
+            for v in self._slot_caches(slot):
+                v.seq_lens.fill_(prog["done"])
 
     @staticmethod
     def _sanitize_sub(views: List[pp.PagedState], done: int) -> None:
@@ -298,16 +465,117 @@ class Engine:
         """Single-call prefill straight into the slot's pages: every page
         of the slot's range is rewritten, exactly what the reference's
         fresh batch-1 cache + page-range adopt leaves there."""
-        prompt = torch.tensor(req.prompt, dtype=torch.long,
-                              device=self.device)[None]
-        logits = self.model.prefill(prompt, self._slot_caches(slot))
+        prompt = torch.tensor(req.prompt, dtype=torch.long)[None]
+        if self.mesh is None:
+            logits = self.model.prefill(prompt.to(self.device),
+                                        self._slot_caches(slot))
+        else:
+            positions = torch.arange(len(req.prompt),
+                                     dtype=torch.int32)[None]
+            logits = self._walk([slot], prompt, positions, "seq")[:, None]
         self._finish_prefill(req, slot, logits)
+
+    # -- §4.3 live transformation -------------------------------------------
+    def transform(self, tp_to: int, layers_per_step: int = 1) -> int:
+        """Begin a live transformation to degree ``tp_to``: a full merge
+        (TP1 x W -> TPW) or decompose (TPW -> TP1 x W).  Returns the
+        number of schedule steps; each later ``step()`` executes one of
+        them around its decode iteration, while requests keep decoding.
+        The pool grows to the target ceiling before the session (memory
+        follows the TP degree); the shrink half runs when it lands."""
+        assert self.mesh is not None, "transform requires devices="
+        assert self._session is None, "transformation already in progress"
+        if tp_to == self.tp:
+            return 0
+        if {self.tp, tp_to} != {1, self.W}:
+            raise NotImplementedError(
+                f"TP{self.tp} -> TP{tp_to} on {self.W} workers: only full "
+                "merges and decompositions (TP1 x W <-> TPW) are ported; "
+                "partial degree changes are ROADMAP queue 1 item 5")
+        if self.max_seq_alloc < self.seq_quantum * tp_to:
+            self._resize_pool(self.seq_quantum * tp_to)
+        session = TE.open_owner_session(self, tp_to, layers_per_step)
+        self.tp_pending = tp_to
+        self._session_t0 = time.monotonic()
+        return session.schedule.n_steps
+
+    @property
+    def transforming(self) -> bool:
+        return self._session is not None
+
+    def _finish_transform(self) -> None:
+        session = TE.close_owner_session(self)
+        self.tp_pending = None
+        self.transform_reports.extend(session.reports)
+        reps = session.reports
+        lay_from, lay_to = session.schedule.resolved_layouts()
+        self.transform_log.append({
+            "kind": "transform",
+            "tp_from": session.schedule.tp_from,
+            "tp_to": session.schedule.tp_to,
+            "layout_from": str(lay_from), "layout_to": str(lay_to),
+            "bytes": sum(c.pool.numel() * c.pool.element_size()
+                         for layer in self.layers for c in layer.cache),
+            "steps": session.schedule.n_steps,
+            "wall_s": time.monotonic() - self._session_t0,
+            "measured_s": sum(r.seconds for r in reps),
+            "exposed_s": sum(r.blocked_s for r in reps),
+            "modeled_s": sum(r.modeled_s for r in reps),
+            "step_drifts": [abs(r.seconds - r.modeled_s) / r.modeled_s
+                            for r in reps if r.modeled_s > 0.0],
+        })
+        # memory follows the TP degree: trim the pool to the landed
+        # degree's allocation, never below a live context's footprint
+        live = [s for s in self.slots if s is not None] + self.waiting
+        need = max((r.total_tokens for r in live), default=0)
+        need = -(-need // self.page_tokens) * self.page_tokens
+        target = max(self.seq_quantum * self.tp, need)
+        if target < self.max_seq_alloc:
+            self._resize_pool(target)
+        self.check_capacity_invariant()
+
+    def _resize_pool(self, new_max_seq: int) -> None:
+        """Reallocate every full-attention pool at ``new_max_seq`` tokens
+        a slot, on every worker (window caches keep their window)."""
+        if new_max_seq == self.max_seq_alloc:
+            return
+        old_cap = -(-self.max_seq_alloc // self.page_tokens) \
+            * self.page_tokens
+        new_mps = -(-new_max_seq // self.page_tokens)
+        for layer in self.layers:
+            lo, hi = I.rows_of(layer.attn_layout, self.max_batch, self.W, 0)
+            layer.cache = [
+                c if c.capacity != old_cap
+                else KT.resize_slot_capacity(c, new_mps, hi - lo)
+                for c in layer.cache]
+        self.max_seq_alloc = new_max_seq
+
+    def global_caches(self) -> List[pp.PagedState]:
+        """Every layer's cache as the reference's global arrays hold it
+        (``core.instance.join_cache``): equal bytes before and after a
+        migration."""
+        if self.mesh is None:
+            return self.caches
+        return [I.join_cache(l.cache, l.attn_layout) for l in self.layers]
 
     # -- one engine iteration -----------------------------------------------
     @torch.no_grad()
     def step(self) -> Dict[str, int]:
         """One engine iteration: policy-driven prefill work, then one
-        batched decode step for every decoding slot."""
+        batched decode step for every decoding slot.  While a transform
+        session is open, the iteration first completes the previous
+        schedule step, then stages the next one and primes one layer
+        group; the decode's layer walk issues the rest, one group per
+        layer, and the final step completes after the decode."""
+        if self._session is not None:
+            s = self._session
+            s.complete_step()
+            if s.done:
+                self._finish_transform()
+            else:
+                s.dispatch_step_begin()
+                s.dispatch_step_advance()
+        in_session = self._session is not None
         emitted = self._prefill_step()
         decode_emitted = 0
         active = [r for r in self.slots
@@ -320,9 +588,8 @@ class Engine:
                 positions[r.slot] = r.context_len - 1
             # one batched step over every slot: idle and prefilling rows
             # compute masked filler whose outputs are dropped
-            logits = self.model.decode_step(
-                self.caches, torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(positions).to(self.device))
+            logits = self._decode(torch.from_numpy(tokens),
+                                  torch.from_numpy(positions))
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             for r in active:
                 tok = int(nxt[r.slot])
@@ -338,12 +605,33 @@ class Engine:
                     r.t_done = self._clock()
                     self.slots[r.slot] = None
             self._pin_prefill_cursors()
+        if self._session is not None and self._session.all_dispatched:
+            self._session.complete_step()
+            if self._session.done:
+                self._finish_transform()
         return {"active": len(active), "waiting": len(self.waiting),
-                "emitted": emitted, "decode_emitted": decode_emitted}
+                "emitted": emitted, "decode_emitted": decode_emitted,
+                "transforming": int(in_session)}
+
+    def _decode(self, tokens: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        """One decode step over every slot; mid-session, the groups the
+        walk could not issue (their layer was already walked) go out
+        after it."""
+        if self.mesh is None:
+            return self.model.decode_step(self.caches,
+                                          tokens.to(self.device),
+                                          positions.to(self.device))
+        logits = self._walk(list(range(self.max_batch)), tokens[:, None],
+                            positions[:, None], "decode")
+        if self._session is not None:
+            self._session.dispatch_step_drain()
+        return logits
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
-            if not self.waiting and all(s is None for s in self.slots):
+            if (not self.waiting and not self.transforming
+                    and all(s is None for s in self.slots)):
                 return
             self.step()
         raise RuntimeError("engine did not drain")

@@ -3,7 +3,8 @@ llama3-8b, float32, weights carried over by ``params_from_jax``).
 
 Greedy token streams must be EQUAL, for whole-prompt prefill, budgeted
 mixed-mode chunked prefill, and more requests than slots.  Without a GPU
-``Engine(cfg)`` must raise rather than drop to the CPU.
+``Engine(cfg)``, with or without workers, must raise rather than drop to
+the CPU.
 """
 import dataclasses
 
@@ -86,6 +87,9 @@ def test_engine_without_gpu_raises(monkeypatch):
     cfg = tget("llama3-8b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TEngine(cfg, max_seq=32, page_tokens=8)
+    for devices in (None, ["cuda"] * 2):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TEngine(cfg, max_seq=32, page_tokens=8, devices=devices)
     with pytest.raises(RuntimeError):
         tengine.resolve_device("cuda")
     assert tengine.resolve_device("cpu").type == "cpu"

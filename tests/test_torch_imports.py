@@ -34,6 +34,10 @@ def test_no_jax_or_reference_import(path):
 
 def test_every_port_module_imports_without_gpu():
     assert len(PORT) > 20
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT}
+    assert {"launch/mesh.py", "core/instance.py", "core/kv_transform.py",
+            "core/weight_transform.py", "core/transform_engine.py",
+            "kernels/page_migrate.py", "kernels/padded_ffn.py"} <= names
     for p in PORT:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(rel.parts)
