@@ -8,13 +8,19 @@ exits non-zero:
 
 1. build    — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``
               (one nvcc per source, in parallel) into
-              ``build/repro_torch_kernels/``.
+              ``build/repro_torch_kernels/``; print each library's
+              registers and spills and its HGMMA (wgmma) and UTMALDG
+              (TMA load) counts from ``cuobjdump -sass``, which must not
+              be 0 for the two prefill libraries.
 2. kernels  — every kernel against its plain PyTorch version on the card
               at llama3-8b attention shapes (Hq=32, kvs=8, dh=128), fp32
-              and bf16, each element within TOL: error, kernel / plain /
+              and bf16, each element within TOL (bf16 prefill also within
+              BF16_ROW_TOL of the row's RMS): error, kernel / plain /
               one-PyTorch-call times, and the least time the card could
               take (bound).  Decode also runs at the serve phase's own
-              shape; one chunk case carries padding tokens.
+              shape; one chunk case carries padding tokens; the 6000-token
+              request's two chunks, 16-token pages and a ragged 600-token
+              prompt are the main path's own prefill shapes.
 3. parity   — llama3-8b at full width, 2 layers, fp32, weights from one
               seed: the same requests through ``Engine(device="cuda")``
               and ``Engine(device="cpu")`` give equal greedy streams, and
@@ -24,7 +30,9 @@ exits non-zero:
               request that must chunk; every kernel's launch counter
               must rise.  Prints TTFT, TPOT and tokens per second, then
               two ``torch.profiler`` breakdowns of device time: a decode
-              step of a full batch and the 6000-token request's prefill.
+              step of a full batch and the 6000-token request's prefill,
+              and the host time a prefill wrapper call takes (its bf16
+              tensor-map encoding included).
 5. transform-parity — llama3-8b at full width, 2 layers, fp32, an engine
               on two workers of the card (``devices=["cuda"] * 2``): the
               stream of an engine transformed TP1x2 -> TP2 mid-decode
@@ -75,6 +83,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # nothing else is allowed (the atol covers fp32 noise on outputs near 0).
 # A wrong kernel, such as one dropping a page of a 4096-key context,
 # moves outputs of size ~0.03 by ~0.01 and fails this.
+# The bf16 prefill kernels (tensor-core tile) also get
+# ``flash_attention.BF16_ROW_TOL`` = 2^-7 of the output row's RMS: they
+# round P to bf16 before P.V, as every tensor-core attention does.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2.0 ** -7)}
 # The padded FFN in bf16 also gets 2^-8 of its output row's RMS: its sums
 # run 4096-14336 products deep on the tensor cores, whose accumulation
@@ -153,6 +164,23 @@ def expand_kv(k, rep):
 
 
 # ---------------------------------------------------------------------------
+# libraries whose SASS must hold tensor-core products and TMA loads
+TENSOR_CORE_LIBS = ("flash_attention", "chunk_prefill")
+
+
+def sass_counts(lib) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a library's
+    SASS, from ``cuobjdump -sass``."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ops = re.findall(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     sass, flags=re.M)
+    return {op: sum(x == op for x in ops) for op in ("HGMMA", "UTMALDG")}
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.monotonic()
@@ -165,8 +193,13 @@ def phase_build():
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln][:12]
             for name, log in logs.items()}
+    sass = {name: sass_counts(_build._lib_path(name))
+            for name in _build.SOURCES}
+    for name in TENSOR_CORE_LIBS:
+        assert all(sass[name].values()), (name, "no HGMMA or UTMALDG in "
+                                          "its SASS", sass[name])
     emit(phase="build", seconds=secs, built=sorted(logs),
-         ptxas=regs)
+         ptxas=regs, sass=sass)
 
 
 def case_decode(dtype, B=8, ctx=4096, cap=None, Hq=32, kvs=8, dh=128,
@@ -221,9 +254,10 @@ def case_decode(dtype, B=8, ctx=4096, cap=None, Hq=32, kvs=8, dh=128,
 
 
 def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
-               kvs=8, dh=128, P=64):
+               kvs=8, dh=128, P=64, attend_prefix=True):
     """A chunk of S tokens at position ``done``; its last ``pad`` tokens
-    are padding (position -1): no keys, no pool bytes, rows unread."""
+    are padding (position -1): no keys, no pool bytes, rows unread.
+    ``attend_prefix=False`` is a prompt's first chunk (no prefix walk)."""
     from repro_torch.kernels import chunk_prefill as CP
     from repro_torch.paged import pool as pp
     dev = "cuda"
@@ -240,12 +274,14 @@ def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
     q = torch.randn((1, S, Hq, dh), generator=g, device=dev).to(dtype)
     k = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
     v = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
+    kw = dict(window=window, attend_prefix=attend_prefix)
     pool = pool0.clone()
-    out = CP.chunk_prefill_attention(q, k, v, pool, pt, kvpos, qpos,
-                                     window=window)
+    out = CP.chunk_prefill_attention(q, k, v, pool, pt, kvpos, qpos, **kw)
     pool_ref = pool0.clone()
-    want = CP.plain(q, k, v, pool_ref, pt, kvpos, qpos, window=window)
-    err = max_err("chunk prefill", out, want, dtype, rows=qpos >= 0)
+    want = CP.plain(q, k, v, pool_ref, pt, kvpos, qpos, **kw)
+    row_tol = CP.BF16_ROW_TOL if dtype == torch.bfloat16 else 0.0
+    err = max_err("chunk prefill", out, want, dtype, rows=qpos >= 0,
+                  row_tol=row_tol)
     state = pp.PagedState(pool0.clone(), pt, torch.zeros(
         1, dtype=torch.int32, device=dev), kvpos.clone())
     pp.write_chunk(state, k, v, qpos)
@@ -253,11 +289,13 @@ def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
     assert torch.equal(pool_ref, state.pool), "plain pool != write_chunk's"
     # yardstick: one SDPA call on the gathered prefix + chunk keys
     rep = Hq // kvs
-    kk = torch.cat([pool0[:, :, 0].permute(0, 2, 1, 3).reshape(1, cap, kvs,
-                                                               dh), k], 1)
-    vv = torch.cat([pool0[:, :, 1].permute(0, 2, 1, 3).reshape(1, cap, kvs,
-                                                               dh), v], 1)
-    kpos = torch.cat([kvpos, qpos], 1)
+    kk, vv, kpos = k, v, qpos
+    if attend_prefix:
+        kk = torch.cat([pool0[:, :, 0].permute(0, 2, 1, 3).reshape(
+            1, cap, kvs, dh), k], 1)
+        vv = torch.cat([pool0[:, :, 1].permute(0, 2, 1, 3).reshape(
+            1, cap, kvs, dh), v], 1)
+        kpos = torch.cat([kvpos, qpos], 1)
     mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
     if window:
         mask &= kpos[:, None, :] > qpos[:, :, None] - window
@@ -265,20 +303,23 @@ def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask[:, None]), 20)
     pairs = visible_pairs(qpos, kpos, window)
-    live_prefix = int((kvpos >= 0).sum())
+    live_prefix = int((kvpos >= 0).sum()) if attend_prefix else 0
     byt = (live_prefix * kvs * 2 * dh * pool.element_size()
-           + nbytes(q, k, v, out, kvpos, qpos)
+           + nbytes(q, k, v, out, qpos)
+           + (nbytes(kvpos) if attend_prefix else 0)
            + (S - pad) * kvs * 2 * dh * pool.element_size())  # scatter
     bms, by = bound_ms(byt, 4 * pairs * Hq * dh, dtype)
     return dict(
         kernel="chunk_prefill",
         case=(f"S={S} prefix={done} cap={cap} window={window} pad={pad} "
-              f"P={P}"),
+              f"P={P} attend_prefix={attend_prefix}"),
         max_abs_err=err, pool_equal=True,
+        tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
+                               else ""),
         ms=time_ms(lambda: CP.chunk_prefill_attention(
-            q, k, v, pool, pt, kvpos, qpos, window=window), 20),
+            q, k, v, pool, pt, kvpos, qpos, **kw), 20),
         plain_ms=time_ms(lambda: CP.plain(
-            q, k, v, pool_ref, pt, kvpos, qpos, window=window), 3),
+            q, k, v, pool_ref, pt, kvpos, qpos, **kw), 3),
         library_ms=lib, bound_ms=bms, bound_by=by)
 
 
@@ -291,7 +332,8 @@ def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128):
     v = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
     out = FA.flash_attention(q, k, v, window=window)
     want = FA.plain(q, k, v, window=window)
-    err = max_err("flash", out, want, dtype)
+    row_tol = FA.BF16_ROW_TOL if dtype == torch.bfloat16 else 0.0
+    err = max_err("flash", out, want, dtype, row_tol=row_tol)
     rep = Hq // kvs
     kd, vd, qd = expand_kv(k, rep), expand_kv(v, rep), q.transpose(1, 2)
     if window:
@@ -306,6 +348,8 @@ def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128):
     return dict(
         kernel="flash_attention", case=f"S={S} window={window}",
         max_abs_err=err,
+        tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
+                               else ""),
         ms=time_ms(lambda: FA.flash_attention(q, k, v, window=window), 20),
         plain_ms=time_ms(lambda: FA.plain(q, k, v, window=window), 3),
         library_ms=lib, bound_ms=bms, bound_by=by)
@@ -413,7 +457,14 @@ def phase_kernels():
                  (case_chunk, {}),
                  (case_chunk, dict(S=200, done=1536, cap=1024, window=1024,
                                    pad=8)),
+                 # the serve phase's 6000-token request: its two chunks
+                 (case_chunk, dict(S=4096, done=0, cap=8192,
+                                   attend_prefix=False)),
+                 (case_chunk, dict(S=1904, done=4096, cap=8192)),
+                 # the engine's default 16-token pages
+                 (case_chunk, dict(P=16)),
                  (case_flash, {}), (case_flash, dict(S=1000)),
+                 (case_flash, dict(S=600)),   # a ragged whole prompt
                  (case_migrate, {}),
                  (case_ffn, {}), (case_ffn, dict(T=512)),
                  (case_ffn, dict(tp=1)), (case_ffn, dict(T=512, tp=1))]
@@ -532,16 +583,55 @@ def phase_serve(smi: str):
     tpot = [r.tpot for r in reqs]
     profiles = (decode_profile(eng, cfg, gen),
                 prefill_profile(eng, cfg, gen))
+    host_us = wrapper_host_us()
+    # host time of this run's prefill wrapper calls, at the measured cost
+    # of one call (the tensor-map encoding is the bf16 - fp32 part)
+    prefill_host_ms = sum(launches[k] * host_us[k]["bfloat16"]
+                          for k in host_us) / 1e3
     emit(phase="serve", model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, prompts=list(lens), new_tokens=32,
          weights_init_s=t_init, wall_s=wall,
          ttft_s=ttft, tpot_s=tpot,
          tokens_per_s=sum(len(r.generated) for r in reqs) / wall,
-         launches=launches,
+         launches=launches, prefill_wrapper_host_us=host_us,
+         prefill_wrapper_host_ms=prefill_host_ms,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
     for p in profiles:
         emit(phase="profile", gpu=smi, **p)
     return launches
+
+
+def wrapper_host_us(calls: int = 200) -> dict:
+    """Host microseconds a prefill wrapper call takes to enqueue its
+    launches (no synchronise inside the window), at a tiny shape so the
+    card never holds the host back.  The bf16 calls encode their TMA
+    tensor maps on the host (3 for flash, 4 for chunk), the fp32 calls
+    none: the difference is the encoding's cost."""
+    from repro_torch.kernels import chunk_prefill as CP
+    from repro_torch.kernels import flash_attention as FA
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 64, 32, 128), device="cuda").to(dtype)
+        k = torch.randn((1, 64, 8, 128), device="cuda").to(dtype)
+        pool = torch.zeros((2, 8, 2, 64, 128), device="cuda", dtype=dtype)
+        pt = torch.arange(2, dtype=torch.int32, device="cuda")[None]
+        kvpos = torch.full((1, 128), -1, dtype=torch.int32, device="cuda")
+        qpos = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+        calls_of = {
+            "flash_attention": lambda: FA.flash_attention(q, k, k),
+            "chunk_prefill": lambda: CP.chunk_prefill_attention(
+                q, k, k, pool, pt, kvpos, qpos)}
+        for name, fn in calls_of.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            out.setdefault(name, {})[str(dtype).replace("torch.", "")] = (
+                (t1 - t0) / calls * 1e6)
+    return out
 
 
 def free_card():
@@ -860,6 +950,7 @@ def device_activity(prof, wall_s: float, per: int) -> dict:
 # kernel-name fragments by kind, for the profiles' breakdown
 KINDS = (("paged decode (port)", ("paged_decode",)),
          ("prefill attention (port)", ("attn_tile_kernel",
+                                       "attn_wgmma_kernel",
                                        "chunk_scatter")),
          ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
          ("copies", ("Memcpy", "Memset")))

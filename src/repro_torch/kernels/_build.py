@@ -37,7 +37,8 @@ SIGNATURES = {
         "repro_paged_decode": [_P] * 9 + [_I] * 9 + [_P],
     },
     "chunk_prefill": {
-        "repro_chunk_prefill_attention": [_P] * 8 + [_I] * 10 + [_P],
+        "repro_chunk_prefill_attention": ([_P] * 4 + [_I] + [_P] * 4
+                                          + [_I] * 10 + [_P]),
         "repro_chunk_scatter": [_P] * 5 + [_I] * 7 + [_P],
     },
     "flash_attention": {

@@ -3,6 +3,10 @@ kernel ``csrc/chunk_prefill.cu`` (replacing the TPU kernel
 ``repro/kernels/chunk_prefill.py``) and its plain version
 ``ref.chunk_prefill_ref``.
 
+bf16 runs on the tensor-core tile (``csrc/attn_wgmma.cuh``), fp32 on the
+CUDA-core tile (``csrc/attn_tile.cuh``); the bf16 tolerance is
+``flash_attention.BF16_ROW_TOL``.
+
 Both update ``pool`` IN PLACE (the TPU kernel returns an aliased new
 pool) and return the chunk's attention; the pool's bytes equal
 ``paged.pool.write_chunk``'s exactly.  The caller applies the metadata
@@ -13,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.flash_attention import BF16_ROW_TOL  # noqa: F401
 
 #: kernel launches since the last reset (the card only; one per call,
 #: counting the attention and scatter launches of a call as one)
@@ -21,6 +26,7 @@ plain = ref.chunk_prefill_ref
 
 HEAD_DIMS = (64, 128)
 TILE_ROWS = 64   # query rows per block: rep must divide it
+TILE_KEYS = 64   # keys of a bf16 tile
 
 
 def chunk_prefill_attention(q, k_new, v_new, pool, page_table,
@@ -61,13 +67,20 @@ def chunk_prefill_attention(q, k_new, v_new, pool, page_table,
                 f"capacity {n * P}")
     ops.check_cuda_inputs(q.dtype, (q, k_new, v_new, pool),
                           (page_table, kv_positions, q_positions))
+    if q.dtype == torch.bfloat16:
+        # a 64-key tile is whole pages or part of one page
+        ops.require(TILE_KEYS % P == 0 or P % TILE_KEYS == 0,
+                    f"the bf16 chunk prefill takes pages of a size that "
+                    f"divides {TILE_KEYS} or that {TILE_KEYS} divides, "
+                    f"not {P}")
+        ops.require_tma(q, k_new, v_new, pool)
     out = torch.empty_like(q)
     lib = _build.library("chunk_prefill")
     code, st = ops.dtype_code(q), ops.stream(q.device)
     # stream order: every block has attended the prefix before any byte
     # of it is overwritten
     err = lib.repro_chunk_prefill_attention(
-        ops.ptr(q), ops.ptr(k_new), ops.ptr(v_new), ops.ptr(pool),
+        ops.ptr(q), ops.ptr(k_new), ops.ptr(v_new), ops.ptr(pool), NP,
         ops.ptr(page_table), ops.ptr(kv_positions), ops.ptr(q_positions),
         ops.ptr(out), B, S, kvs, rep, dh, P, n, int(attend_prefix),
         int(window), code, st)

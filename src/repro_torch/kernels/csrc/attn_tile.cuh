@@ -1,5 +1,6 @@
 // Tiled online-softmax GQA attention shared by the flash-prefill and the
-// chunk-prefill kernels.
+// chunk-prefill kernels for fp32 inputs (bf16 runs on the tensor-core
+// tile, attn_wgmma.cuh; tensor cores would not hold the fp32 checks).
 //
 // One block of 128 threads owns one (batch row b, kv head g, query tile):
 // ROWS = 64 query rows = (64 / rep) tokens x the rep query heads of kv

@@ -15,12 +15,16 @@
 //
 // Design: TWO launches on the caller's stream.
 //   1. attention: one block per (b, kv head, tile of 64/rep query tokens)
-//      holding the rep query heads of the group (attn_tile.cuh).  It
-//      walks the prefix pages (none when attend_prefix=false), masking
-//      by the stored slot positions, then the chunk's own K/V straight
-//      from k_new / v_new — never from the pool.  Key tiles invisible to
-//      the whole query tile (empty slots, beyond the causal frontier,
-//      outside the window) are skipped before their bytes are read.
+//      holding the rep query heads of the group.  It walks the prefix
+//      pages (none when attend_prefix=false), masking by the stored slot
+//      positions, then the chunk's own K/V straight from k_new / v_new —
+//      never from the pool.  Key tiles invisible to the whole query tile
+//      (empty slots, beyond the causal frontier, outside the window) are
+//      skipped before their bytes are read.  bf16 runs on the tensor-core
+//      tile (attn_wgmma.cuh: wgmma products, TMA loads into an mbarrier
+//      ring; a paged tile is read as 64/P boxes of P pool rows each, at
+//      rows taken from the page table, or as part of one page when P >
+//      64); fp32 on the CUDA-core tile (attn_tile.cuh).
 //   2. scatter: every (b, token, kv head, K|V) row of the chunk is copied
 //      to page_table[b, (q_pos % cap) / P] at in-page offset q_pos % P.
 //      Tokens with a negative position (padding) keep the old bytes.
@@ -30,6 +34,7 @@
 // "attend the whole prefix, then scatter" on a ring cache, where the
 // chunk's writes evict prefix keys its own queries still need.
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -63,33 +68,57 @@ __global__ void chunk_scatter_kernel(const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int run_attention(const void* q, const void* k_new, const void* v_new,
-                  const void* pool, const int* page_table,
-                  const int* kv_pos, const int* q_pos, void* out, int B,
-                  int S, int kvs, int rep, int dh, int P, int n,
-                  int attend_prefix, int window, cudaStream_t stream) {
-  rt::TileArgs<T> a{};
-  a.q = static_cast<const T*>(q);
+int run_attention_f32(const void* q, const void* k_new, const void* v_new,
+                      const void* pool, const int* page_table,
+                      const int* kv_pos, const int* q_pos, void* out, int B,
+                      int S, int kvs, int rep, int dh, int P, int n,
+                      int attend_prefix, int window, cudaStream_t stream) {
+  rt::TileArgs<float> a{};
+  a.q = static_cast<const float*>(q);
   a.q_pos = q_pos;
-  a.out = static_cast<T*>(out);
+  a.out = static_cast<float*>(out);
   a.S = S;
   a.kvs = kvs;
   a.rep = rep;
-  a.pool = static_cast<const T*>(pool);
+  a.pool = static_cast<const float*>(pool);
   a.page_table = page_table;
   a.kv_pos = kv_pos;
   a.n_pages = attend_prefix ? n : 0;
   a.pt_cols = n;
   a.P = P;
-  a.k = static_cast<const T*>(k_new);
-  a.v = static_cast<const T*>(v_new);
+  a.k = static_cast<const float*>(k_new);
+  a.v = static_cast<const float*>(v_new);
   a.k_pos = q_pos;
   a.Sk = S;
   a.causal = 1;
   a.window = window;
   a.scale = 1.0f / sqrtf((float)dh);
-  return rt::launch_tile_dh<T>(a, dh, B, stream);
+  return rt::launch_tile_dh<float>(a, dh, B, stream);
+}
+
+int run_attention_bf16(const void* q, const void* k_new, const void* v_new,
+                       const void* pool, int NP, const int* page_table,
+                       const int* kv_pos, const int* q_pos, void* out, int B,
+                       int S, int kvs, int rep, int dh, int P, int n,
+                       int attend_prefix, int window, cudaStream_t stream) {
+  rt::wg::Args a{};
+  a.q_pos = q_pos;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.S = S;
+  a.kvs = kvs;
+  a.rep = rep;
+  a.page_table = page_table;
+  a.kv_pos = kv_pos;
+  a.n_pages = attend_prefix ? n : 0;
+  a.pt_cols = n;
+  a.P = P;
+  a.pool_rows = NP * kvs * 2 * P;
+  a.k_pos = q_pos;
+  a.Sk = S;
+  a.causal = 1;
+  a.window = window;
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)dh);
+  return rt::wg::launch_dh(a, dh, q, k_new, v_new, pool, B, stream);
 }
 
 template <typename T>
@@ -111,18 +140,18 @@ int run_scatter(const void* k_new, const void* v_new, const int* q_pos,
 
 extern "C" int repro_chunk_prefill_attention(
     const void* q, const void* k_new, const void* v_new, const void* pool,
-    const int* page_table, const int* kv_pos, const int* q_pos, void* out,
-    int B, int S, int kvs, int rep, int dh, int P, int n, int attend_prefix,
-    int window, int dtype, void* stream) {
+    int NP, const int* page_table, const int* kv_pos, const int* q_pos,
+    void* out, int B, int S, int kvs, int rep, int dh, int P, int n,
+    int attend_prefix, int window, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DT_F32)
-    return run_attention<float>(q, k_new, v_new, pool, page_table, kv_pos,
-                                q_pos, out, B, S, kvs, rep, dh, P, n,
-                                attend_prefix, window, st);
+    return run_attention_f32(q, k_new, v_new, pool, page_table, kv_pos,
+                             q_pos, out, B, S, kvs, rep, dh, P, n,
+                             attend_prefix, window, st);
   if (dtype == rt::DT_BF16)
-    return run_attention<__nv_bfloat16>(q, k_new, v_new, pool, page_table,
-                                        kv_pos, q_pos, out, B, S, kvs, rep,
-                                        dh, P, n, attend_prefix, window, st);
+    return run_attention_bf16(q, k_new, v_new, pool, NP, page_table, kv_pos,
+                              q_pos, out, B, S, kvs, rep, dh, P, n,
+                              attend_prefix, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,9 @@
 """Flash prefill attention: the CUDA kernel ``csrc/flash_attention.cu``
 (replacing the TPU kernel ``repro/kernels/flash_attention.py``) and its
-plain version ``ref.flash_attention_ref``."""
+plain version ``ref.flash_attention_ref``.
+
+bf16 runs on the tensor-core tile (``csrc/attn_wgmma.cuh``), fp32 on the
+CUDA-core tile (``csrc/attn_tile.cuh``)."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +16,11 @@ plain = ref.flash_attention_ref
 
 HEAD_DIMS = (64, 128)
 TILE_ROWS = 64   # query rows per block: rep must divide it
+#: The tensor-core tile rounds P to bf16 before P.V (the row sum is taken
+#: in fp32 before that), so its bf16 output differs from the plain
+#: version's by up to one bf16 ulp plus this share of the output row's
+#: RMS; ``tests/test_torch_prefill_numerics.py`` sizes it.
+BF16_ROW_TOL = 2.0 ** -7
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,6 +40,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"flash attention takes dh in {HEAD_DIMS} and rep "
                 f"dividing {TILE_ROWS}")
     ops.check_cuda_inputs(q.dtype, (q, k, v), ())
+    if q.dtype == torch.bfloat16:
+        ops.require_tma(q, k, v)
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
     err = lib.repro_flash_attention(

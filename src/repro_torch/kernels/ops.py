@@ -30,6 +30,12 @@ def require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
+def require_tma(*tensors: torch.Tensor) -> None:
+    """TMA (the bf16 prefill tile) reads from 16-byte aligned bases."""
+    for t in tensors:
+        require(t.data_ptr() % 16 == 0, "TMA takes 16-byte aligned tensors")
+
+
 def dtype_code(t: torch.Tensor) -> int:
     """The C entry points' dtype code (0 = float32, 1 = bfloat16)."""
     codes = {torch.float32: 0, torch.bfloat16: 1}

@@ -243,8 +243,8 @@ def apply_block_decode(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, plan: PaddingPlan,
-                     batch: int, max_seq: int, page_tokens: int,
-                     device="cpu") -> pp.PagedState:
+                     batch: int, max_seq: int, page_tokens: int, *,
+                     device) -> pp.PagedState:
     """The block's slot-partitioned header-centric paged cache (the
     kernels' canonical layout): full attention holds
     ``max_seq`` tokens per slot, a window holds ``min(max_seq, window)``

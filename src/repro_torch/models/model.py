@@ -76,7 +76,7 @@ class Model(nn.Module):
 
     @classmethod
     def random(cls, cfg: ModelConfig, plan: PaddingPlan,
-               gen: torch.Generator, device="cpu") -> "Model":
+               gen: torch.Generator, *, device) -> "Model":
         """Random weights in the reference's init scheme (padded slots
         zero); ``gen`` must live on ``device``."""
         d, dt = cfg.d_model, B.dtype_of(cfg)
@@ -98,7 +98,7 @@ class Model(nn.Module):
         return cls(cfg, plan, embed, blocks, zeros.clone(), head)
 
     @classmethod
-    def empty(cls, cfg: ModelConfig, plan: PaddingPlan, device="cpu"
+    def empty(cls, cfg: ModelConfig, plan: PaddingPlan, *, device
               ) -> "Model":
         """Uninitialized weights of the right shapes (to be loaded)."""
         d, dh, dt = cfg.d_model, cfg.resolved_head_dim, B.dtype_of(cfg)
@@ -202,12 +202,12 @@ def lm_logits(static: Dict[str, torch.Tensor], plan: PaddingPlan,
     return logits + mask
 
 
-def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, device="cpu"
+def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, *, device
           ) -> Model:
     """``Model.random`` from an integer seed, generated on ``device``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return Model.random(cfg, plan, gen, device)
+    return Model.random(cfg, plan, gen, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ class PagedState:
 def make_state(num_pages: int, kv_slots: int, page_tokens: int,
                head_dim: int, batch: int, max_pages_per_seq: int,
                dtype=torch.bfloat16, storage_layout: str = L.CANONICAL,
-               device="cpu") -> PagedState:
+               *, device) -> PagedState:
     pool = torch.zeros(L.pool_shape(storage_layout, num_pages, kv_slots,
                                     page_tokens, head_dim),
                        dtype=dtype, device=device)

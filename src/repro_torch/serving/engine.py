@@ -115,7 +115,7 @@ class Engine:
             self.device = resolve_device(device)
             self.plan = make_plan(cfg, 1)
             if params is None:
-                params = M.build(cfg, self.plan, seed, self.device)
+                params = M.build(cfg, self.plan, seed, device=self.device)
             if params.device != self.device:
                 raise ValueError(f"params live on {params.device}, the "
                                  f"engine on {self.device}")
@@ -165,7 +165,7 @@ class Engine:
                 f"{cfg.name}: the worker engine's padded FFN takes gated "
                 "MLPs only")
         if params is None:
-            params = M.build(cfg, self.plan, seed, devs[0])
+            params = M.build(cfg, self.plan, seed, device=devs[0])
             for blk in params.layers:
                 blk.mlp["wi"].data, blk.mlp["wo"].data = \
                     WT.relayout_mlp_for_tp(blk.mlp["wi"].data,

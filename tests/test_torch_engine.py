@@ -35,7 +35,7 @@ def pair():
     tcfg = dataclasses.replace(tget("llama3-8b").reduced(), dtype="float32")
     plan, tp = jplan(cfg, 1), tplan(tcfg, 1)
     params = JM.init_params(jax.random.PRNGKey(0), cfg, plan)
-    model = Model.empty(tcfg, tp)
+    model = Model.empty(tcfg, tp, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
                                           tcfg, tp))
     return cfg, tcfg, params, model

@@ -103,7 +103,7 @@ def _cfg(d_ff=512):
 def _model(reference, d_ff, W=2):
     cfg = _cfg(d_ff)
     plan = make_plan(cfg, W, mode="page")
-    model = Model.empty(cfg, plan)
+    model = Model.empty(cfg, plan, device="cpu")
     model.load_state_dict(params_from_jax(reference[d_ff]["params"], cfg,
                                           plan))
     return cfg, model
@@ -211,7 +211,7 @@ def test_round_trip_on_four_workers():
     cfg = _cfg()
     plan = make_plan(cfg, 4, mode="page")
     from repro_torch.models import model as M
-    model = M.build(cfg, plan, seed=3)
+    model = M.build(cfg, plan, seed=3, device="cpu")
     reqs = [ServeRequest(rid=i, prompt=list(range(3 + 2 * i, 19 + 3 * i)),
                          max_new_tokens=20) for i in range(4)]
     plain, _ = _serve(_engine(cfg, model, W=4, max_batch=4, max_seq=128),
@@ -224,7 +224,8 @@ def test_round_trip_on_four_workers():
 def test_only_full_merges_and_decompositions():
     cfg = _cfg()
     from repro_torch.models import model as M
-    eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 4, mode="page"), 0),
+    eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 4, mode="page"), 0,
+                                         device="cpu"),
                  devices=["cpu"] * 4, max_batch=4, max_seq=128,
                  page_tokens=16)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
@@ -243,7 +244,8 @@ def test_memory_and_ceiling_follow_the_degree():
     submitted mid-session is served in full at TP2."""
     cfg = _cfg()
     from repro_torch.models import model as M
-    eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 2, mode="page"), 0),
+    eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 2, mode="page"), 0,
+                                         device="cpu"),
                  devices=["cpu"] * 2, **KW)
     assert eng.max_seq_alloc == 64 and eng.max_seq() == 32
     for tp in (2, 1):
@@ -263,7 +265,8 @@ def test_memory_and_ceiling_follow_the_degree():
 def test_workers_hold_their_own_tensors():
     cfg = _cfg()
     from repro_torch.models import model as M
-    eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 2, mode="page"), 0),
+    eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 2, mode="page"), 0,
+                                         device="cpu"),
                  devices=["cpu"] * 2, **KW)
     for r in _reqs():
         eng.submit(r)

@@ -33,7 +33,7 @@ def pair():
     tcfg = dataclasses.replace(tget("llama3-8b").reduced(), dtype="float32")
     plan, tp = jplan(cfg, 1), tplan(tcfg, 1)
     params = JM.init_params(jax.random.PRNGKey(0), cfg, plan)
-    model = Model.empty(tcfg, tp)
+    model = Model.empty(tcfg, tp, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
                                           tcfg, tp))
     return cfg, plan, params, model
@@ -103,7 +103,8 @@ def test_prefill_chunk_matches_reference_and_whole_prompt(pair):
 def test_random_init_is_seeded_and_padded():
     cfg = dataclasses.replace(tget("llama3-8b").reduced(), dtype="float32")
     plan = tplan(cfg, 2)
-    a, b = build(cfg, plan, seed=3), build(cfg, plan, seed=3)
+    a, b = (build(cfg, plan, seed=3, device="cpu"),
+            build(cfg, plan, seed=3, device="cpu"))
     for (n, x), (_, y) in zip(a.state_dict().items(),
                               b.state_dict().items()):
         assert torch.equal(x, y), n
@@ -111,3 +112,23 @@ def test_random_init_is_seeded_and_padded():
     assert not a.lm_head[:, plan.vocab:].any()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         B.check_kind("moe")
+
+
+@pytest.mark.parametrize("builder", ["build", "random", "empty",
+                                     "init_block_cache", "make_state"])
+def test_builders_take_no_default_device(builder):
+    """A builder called without ``device`` raises instead of quietly
+    building on the CPU (the engine's own default is the card)."""
+    from repro_torch.paged import pool as pp
+    cfg = dataclasses.replace(tget("llama3-8b").reduced(), dtype="float32")
+    plan = tplan(cfg, 1)
+    calls = {
+        "build": lambda: build(cfg, plan, 0),
+        "random": lambda: Model.random(cfg, plan, torch.Generator()),
+        "empty": lambda: Model.empty(cfg, plan),
+        "init_block_cache": lambda: B.init_block_cache(
+            B.ATTN, cfg, plan, 1, 64, 16),
+        "make_state": lambda: pp.make_state(4, 2, 16, 8, 1, 4),
+    }
+    with pytest.raises(TypeError, match="device"):
+        calls[builder]()

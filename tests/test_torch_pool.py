@@ -44,7 +44,8 @@ def test_pool_ops_bit_identical(layout, identity):
     rng = np.random.default_rng(0)
     B, kvs, P, dh, mps = 2, 2, 4, 8, 3
     js = jp.make_state(B * mps, kvs, P, dh, B, mps, jnp.float32, layout)
-    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout)
+    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout,
+                       device="cpu")
     _same(js, ts)
     js = _both(jp.write_prefill, tp.write_prefill, js, ts,
                *_kv(rng, B, 7, kvs, dh), storage_layout=layout)
@@ -71,7 +72,8 @@ def test_write_prefill_ring_wrap_and_scattered_pages(layout):
     pt = rng.permutation(B * mps).reshape(B, mps).astype(np.int32)
     js = jp.make_state(B * mps, kvs, P, dh, B, mps, jnp.float32, layout)
     js = js._replace(page_table=jnp.asarray(pt))
-    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout)
+    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout,
+                       device="cpu")
     ts.page_table = torch.from_numpy(pt)
     js = _both(jp.write_prefill, tp.write_prefill, js, ts,
                *_kv(rng, B, 13, kvs, dh), storage_layout=layout)
@@ -90,7 +92,8 @@ def test_write_chunk_padding_keeps_old_bytes(layout):
     rng = np.random.default_rng(3)
     B, kvs, P, dh, mps = 2, 2, 4, 8, 3
     js = jp.make_state(B * mps, kvs, P, dh, B, mps, jnp.float32, layout)
-    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout)
+    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout,
+                       device="cpu")
     js = _both(jp.write_prefill, tp.write_prefill, js, ts,
                *_kv(rng, B, 7, kvs, dh), storage_layout=layout)
     k, v = _kv(rng, B, 6, kvs, dh)
@@ -110,7 +113,8 @@ def test_slot_view_writes_land_in_the_pool(layout):
     fresh batch-1 prefill adopted into that slot's page range."""
     rng = np.random.default_rng(2)
     B, kvs, P, dh, mps = 3, 2, 4, 8, 2
-    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout)
+    ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout,
+                       device="cpu")
     k, v = _kv(rng, 1, 6, kvs, dh)
     tp.write_prefill(tp.slot_view(ts, 1, layout), torch.from_numpy(k),
                      torch.from_numpy(v), layout)
