@@ -9,18 +9,32 @@ exits non-zero:
 1. build    — compile the CUDA kernels of ``src/repro_torch/kernels/csrc``
               (one nvcc per source, in parallel) into
               ``build/repro_torch_kernels/``; print each library's
-              registers and spills and its HGMMA (wgmma) and UTMALDG
-              (TMA load) counts from ``cuobjdump -sass``, which must not
-              be 0 for the two prefill libraries.
+              registers and spills and its HGMMA (wgmma), UTMALDG (TMA
+              load) and UBLKCP (bulk copy) counts from ``cuobjdump
+              -sass``: HGMMA and UTMALDG must not be 0 for the two
+              prefill libraries and the padded FFN, UBLKCP not for paged
+              decode.
 2. kernels  — every kernel against its plain PyTorch version on the card
               at llama3-8b attention shapes (Hq=32, kvs=8, dh=128), fp32
               and bf16, each element within TOL (bf16 prefill also within
-              BF16_ROW_TOL of the row's RMS): error, kernel / plain /
-              one-PyTorch-call times, and the least time the card could
-              take (bound).  Decode also runs at the serve phase's own
-              shape; one chunk case carries padding tokens; the 6000-token
-              request's two chunks, 16-token pages and a ragged 600-token
-              prompt are the main path's own prefill shapes.
+              BF16_ROW_TOL of the row's RMS, the bf16 FFN within
+              FFN_ROW_TOL): error, kernel / plain / one-PyTorch-call
+              times (device time: the card is held ahead of the host),
+              and the least time the card could take (bound).  Decode
+              also runs at the serve phase's own shape, on ragged rows in
+              8192-token slots, on 16-token pages and on a wrapped window
+              ring, timed with L2 evicted before every call; one chunk
+              case carries padding tokens; the 6000-token request's two
+              chunks, 16-token pages and a ragged 600-token prompt are
+              the main path's own prefill shapes.  The FFN also runs at
+              the worker engine's 128-token prefill chunk and a 44-token
+              remainder, and at the W = 4 plans of stablelm-12b and
+              minicpm-2b, whose shards carry zero tails.  The
+              ffn-tilings line holds both FFN tilings against the plain
+              version at 16 token counts from 1 to 512 (and times them),
+              the ffn-seeds line reads the FFN's error over four more
+              weight seeds, and the decode-walk line holds the decode
+              kernel's own page-range code against its host model.
 3. parity   — llama3-8b at full width, 2 layers, fp32, weights from one
               seed: the same requests through ``Engine(device="cuda")``
               and ``Engine(device="cpu")`` give equal greedy streams, and
@@ -32,7 +46,7 @@ exits non-zero:
               two ``torch.profiler`` breakdowns of device time: a decode
               step of a full batch and the 6000-token request's prefill,
               and the host time a prefill wrapper call takes (its bf16
-              tensor-map encoding included).
+              tensor-map encoding included) and a decode wrapper call.
 5. transform-parity — llama3-8b at full width, 2 layers, fp32, an engine
               on two workers of the card (``devices=["cuda"] * 2``): the
               stream of an engine transformed TP1x2 -> TP2 mid-decode
@@ -49,6 +63,9 @@ exits non-zero:
               their bound, tokens per second inside and outside the
               sessions, TTFT, TPOT, peak memory and the launches of all
               six kernels; the three kernels of this path must launch.
+              After that timed run, a second batch of the same prompts
+              gives two profiled windows of decode steps, at TP1x2 and
+              at TP2, with busy time beside the unprofiled wall.
 7. transform-w4 — four workers of the card, full width, 8 layers, fp32:
               a TP1x4 -> TP4 -> TP1x4 round trip mid-decode gives the
               stream of an untransformed engine.
@@ -122,18 +139,55 @@ def tol_text(dtype) -> str:
     return f"{atol:g} + {rtol:g}*|want|"
 
 
+def hold_card(iters: int) -> None:
+    """Keep the card busy (``torch.cuda._sleep``) for longer than the host
+    takes to enqueue ``iters`` timed calls, so the events time the card's
+    own work, not the host's launch rate (a small kernel's wrapper can
+    take longer on the host than the kernel on the card)."""
+    torch.cuda._sleep(int(2e5 * iters + 2e6))
+
+
 def time_ms(fn, iters: int) -> float:
-    """Mean milliseconds of ``fn`` on the card (CUDA events)."""
+    """Mean milliseconds of ``fn`` on the card (CUDA events, calls back
+    to back; device time only, see ``hold_card``)."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    hold_card(iters)
     t0.record()
     for _ in range(iters):
         fn()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2
+
+
+def time_ms_cold(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn`` on the card with its L2 evicted before
+    every call: a 64 MiB buffer is read (summed) between calls, outside
+    the timed window (an event pair around each call), so the call reads
+    its inputs from device memory, as a decode step's attention does
+    after the layer's matmuls have streamed their weights.  Reading, not
+    writing, leaves clean lines: the call pays no write-back of the
+    flush's bytes."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                       device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    hold_card(iters)
+    for t0, t1 in evs:
+        flush.sum()
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in evs) / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype):
@@ -164,13 +218,17 @@ def expand_kv(k, rep):
 
 
 # ---------------------------------------------------------------------------
-# libraries whose SASS must hold tensor-core products and TMA loads
-TENSOR_CORE_LIBS = ("flash_attention", "chunk_prefill")
+# libraries whose SASS must hold tensor-core products and TMA loads, and
+# the one whose SASS must hold bulk copies (cp.async.bulk without a
+# tensor map, UBLKCP in SASS)
+TENSOR_CORE_LIBS = ("flash_attention", "chunk_prefill", "padded_ffn")
+BULK_COPY_LIBS = ("paged_attention",)
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
 
 
 def sass_counts(lib) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a library's
-    SASS, from ``cuobjdump -sass``."""
+    """HGMMA (wgmma), UTMALDG (TMA load) and UBLKCP (bulk copy)
+    instructions in a library's SASS, from ``cuobjdump -sass``."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -178,7 +236,19 @@ def sass_counts(lib) -> dict:
                           text=True, check=True).stdout
     ops = re.findall(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                      sass, flags=re.M)
-    return {op: sum(x == op for x in ops) for op in ("HGMMA", "UTMALDG")}
+    return {op: sum(x == op for x in ops) for op in SASS_OPS}
+
+
+def ptxas_summary(log: str) -> dict:
+    """A library's ``ptxas -v`` report in brief: its kernels' register
+    counts (largest first) and every line that reports spills or stack
+    (the whole log is in build.log)."""
+    import re
+    regs = sorted((int(m) for m in re.findall(r"Used (\d+) registers", log)),
+                  reverse=True)
+    spills = [ln.strip() for ln in log.splitlines()
+              if re.search(r"[1-9]\d* bytes (spill|stack)", ln)]
+    return {"registers": regs, "spills": spills}
 
 
 def phase_build():
@@ -190,67 +260,105 @@ def phase_build():
     with open(_build.BUILD_DIR / "build.log", "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    regs = {name: [ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln][:12]
-            for name, log in logs.items()}
+    regs = {name: ptxas_summary(log) for name, log in logs.items()}
     sass = {name: sass_counts(_build._lib_path(name))
             for name in _build.SOURCES}
     for name in TENSOR_CORE_LIBS:
-        assert all(sass[name].values()), (name, "no HGMMA or UTMALDG in "
-                                          "its SASS", sass[name])
+        assert sass[name]["HGMMA"] and sass[name]["UTMALDG"], (
+            name, "no HGMMA or UTMALDG in its SASS", sass[name])
+    for name in BULK_COPY_LIBS:
+        assert sass[name]["UBLKCP"], (name, "no UBLKCP in its SASS",
+                                      sass[name])
     emit(phase="build", seconds=secs, built=sorted(logs),
          ptxas=regs, sass=sass)
 
 
+def stored_positions(qpos, cap: int):
+    """The positions a row's ``cap`` ring slots hold once positions
+    0..q_pos were written at slot p % cap (the pools' rule): slot s holds
+    the latest p <= q_pos with p % cap == s, or -1.  (B,) -> (B, cap)."""
+    s = torch.arange(cap, dtype=torch.int64, device=qpos.device)[None]
+    q = qpos.long()[:, None]
+    p = q - torch.remainder(q - s, cap)
+    return torch.where(p >= 0, p, -1).to(torch.int32).contiguous()
+
+
 def case_decode(dtype, B=8, ctx=4096, cap=None, Hq=32, kvs=8, dh=128,
-                P=64):
+                P=64, q_pos=None, window=0):
     """``ctx`` live keys per row in slots of ``cap`` tokens (the rest
-    empty, as in the engine's slots of max_seq tokens)."""
+    empty, as in the engine's slots of max_seq tokens); or rows at the
+    positions ``q_pos`` (ragged lengths, or past ``cap``: a wrapped
+    ring), each having written positions 0..q_pos.  ``ms`` and
+    ``library_ms`` are timed with L2 evicted before every call
+    (``time_ms_cold``); ``ms_warm_l2`` repeats the calls back to back."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
     dev = "cuda"
     cap = cap or ctx
     g = torch.Generator(device=dev).manual_seed(1)
+    if q_pos is None:
+        q_pos = [ctx - 1] * B
+    B = len(q_pos)
     n = cap // P
     NP = B * n
     pool = torch.randn((NP, kvs, 2, P, dh), generator=g, device=dev
                        ).to(dtype)
     pt = torch.randperm(NP, generator=g, device=dev).to(torch.int32
                                                         ).reshape(B, n)
-    slots = torch.arange(cap, dtype=torch.int32, device=dev)
-    kvpos = torch.where(slots < ctx, slots, -1)[None].repeat(B, 1
-                                                             ).contiguous()
-    qpos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+    qpos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    kvpos = stored_positions(qpos, cap)
     q = torch.randn((B, Hq, dh), generator=g, device=dev).to(dtype)
-    out = PA.paged_decode(q, pool, pt, kvpos, qpos)
-    want = PA.plain(q, pool, pt, kvpos, qpos)
+    kw = dict(window=window)
+    out = PA.paged_decode(q, pool, pt, kvpos, qpos, **kw)
+    want = PA.plain(q, pool, pt, kvpos, qpos, **kw)
     err = max_err("paged decode", out, want, dtype)
     # the TPU kernel's signature: ragged seq_lens
-    sl = torch.randint(1, ctx + 1, (B,), generator=g, device=dev,
-                       dtype=torch.int32)
+    sl = torch.randint(1, min(cap, max(q_pos) + 1) + 1, (B,), generator=g,
+                       device=dev, dtype=torch.int32)
     err_sl = max_err("paged_attention(seq_lens)",
                      PA.paged_attention(q, pool, pt, sl),
                      ref.paged_attention_ref(q, pool, pt, sl), dtype)
+    # yardstick: SDPA on the gathered keys; one length, no wrap and no
+    # window: the first ctx keys unmasked, else every slot with the mask
     rep = Hq // kvs
-    kd = pool[pt.long()][:, :, :, 0].permute(0, 2, 1, 3, 4).reshape(
-        B, kvs, cap, dh)[:, :, :ctx].repeat_interleave(rep, dim=1
-                                                       ).contiguous()
-    vd = pool[pt.long()][:, :, :, 1].permute(0, 2, 1, 3, 4).reshape(
-        B, kvs, cap, dh)[:, :, :ctx].repeat_interleave(rep, dim=1
-                                                       ).contiguous()
+    pages = pool[pt.long()]
+    kd, vd = (pages[:, :, :, i].permute(0, 2, 1, 3, 4).reshape(
+        B, kvs, cap, dh) for i in (0, 1))
     q4 = q[:, :, None, :].contiguous()
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, kd, vd), 20)
-    pairs = visible_pairs(qpos[:, None], kvpos, 0)
+    mask = None
+    uniform = len(set(q_pos)) == 1 and q_pos[0] < cap and not window
+    if uniform:
+        kd, vd = kd[:, :, :q_pos[0] + 1], vd[:, :, :q_pos[0] + 1]
+    else:
+        vis = (kvpos >= 0) & (kvpos <= qpos[:, None])
+        if window:
+            vis &= kvpos > qpos[:, None] - window
+        mask = vis[:, None, None, :]
+    kd = kd.repeat_interleave(rep, dim=1).contiguous()
+    vd = vd.repeat_interleave(rep, dim=1).contiguous()
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask)
+
+    def kern():
+        return PA.paged_decode(q, pool, pt, kvpos, qpos, **kw)
+
+    pairs = visible_pairs(qpos[:, None], kvpos, window)
     byt = pairs * kvs * 2 * dh * pool.element_size() + nbytes(
         q, out, kvpos, qpos, pt)
     bms, by = bound_ms(byt, 4 * pairs * Hq * dh, dtype)
+    what = (f"B={B} ctx={ctx} cap={cap} P={P}" if uniform else
+            f"q_pos={list(q_pos)} cap={cap} window={window} P={P}")
     return dict(
-        kernel="paged_attention", case=f"B={B} ctx={ctx} cap={cap} P={P}",
+        kernel="paged_attention", case=what,
         max_abs_err=err, max_abs_err_seq_lens=err_sl,
-        ms=time_ms(lambda: PA.paged_decode(q, pool, pt, kvpos, qpos), 50),
-        plain_ms=time_ms(lambda: PA.plain(q, pool, pt, kvpos, qpos), 5),
-        library_ms=lib, bound_ms=bms, bound_by=by)
+        ms=time_ms_cold(kern, 50), ms_warm_l2=time_ms(kern, 50),
+        plain_ms=time_ms(lambda: PA.plain(q, pool, pt, kvpos, qpos, **kw),
+                         5),
+        library_ms=time_ms_cold(lib, 20), library_ms_warm_l2=time_ms(lib, 20),
+        timing="L2 evicted before every call (a 64 MiB buffer read)",
+        bound_ms=bms, bound_by=by)
 
 
 def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
@@ -411,38 +519,172 @@ def case_migrate(dtype, slots=4, cap=8192, W=2, kvs=8, P=64, dh=128):
     return [gather, copy]
 
 
-def case_ffn(dtype, T=4, tp=2, ff_full=14336, d=4096, W=2):
-    """The MLP of llama3-8b on the worker engine: the full replica
-    (``tp`` = W shards of the Eq. 2 layout, TP1xW) or one TP shard
-    (``tp=1`` over ff_full / W columns).  ``library_ms``: ``dense_mlp``
-    on cuBLAS, two ``torch.matmul`` and the activation."""
+def row_term(out, want, dtype) -> float:
+    """The largest share of its row's RMS that an element of ``out``
+    needed beyond one bf16 ulp: what the FFN check's FFN_ROW_TOL term
+    covers (0: one ulp was enough)."""
+    atol, rtol = TOL[dtype]
+    w = want.float()
+    rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    beyond = ((out.float() - w).abs() - atol - rtol * w.abs()).clamp(min=0)
+    return (beyond / rms).max().item()
+
+
+def case_ffn(dtype, T=4, tp=2, ff_full=14336, d=4096, W=2, ffp=None,
+             model="llama3-8b", iters=20):
+    """The MLP of a worker engine: the full replica (``tp`` shards of the
+    Eq. 2 layout, TP1xW) or one TP shard (``tp=1`` over ff_full / W
+    columns).  ``ffp`` > ff pads each shard's ``ff/tp`` real columns with
+    a zero tail, as ``make_plan(cfg, W, mode="page")`` does for
+    stablelm-12b and minicpm-2b.  ``library_ms``: ``dense_mlp`` on
+    cuBLAS over the unpadded weights, two ``torch.matmul`` and the
+    activation.  ``row_term_used``: the largest share of its output
+    row's RMS that an element's error needed beyond one bf16 ulp (the
+    bf16 check allows FFN_ROW_TOL = 2^-8)."""
     from repro_torch.kernels import padded_ffn as PF
+    from repro_torch.kernels import ref
     from repro_torch.models import layers as Lyr
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
     ff = ff_full if tp > 1 else ff_full // W
+    ffp = ffp or ff
     x = torch.randn((T, d), generator=g, device=dev).to(dtype)
-    wi = (torch.randn((d, 2 * ff), generator=g, device=dev) / d ** 0.5
-          ).to(dtype)
-    wo = (torch.randn((ff, d), generator=g, device=dev) / ff ** 0.5
-          ).to(dtype)
+    wi_c = (torch.randn((d, 2 * ff), generator=g, device=dev) / d ** 0.5
+            ).to(dtype)
+    wo_c = (torch.randn((ff, d), generator=g, device=dev) / ff ** 0.5
+            ).to(dtype)
+    if ffp == ff:
+        wi, wo = wi_c, wo_c
+    else:   # each shard's real columns, then a zero tail
+        cols = ref.real_ff_index(ff, ffp, tp, dev)
+        wi = torch.zeros((d, 2 * ffp), dtype=dtype, device=dev)
+        wi[:, cols], wi[:, ffp + cols] = wi_c[:, :ff], wi_c[:, ff:]
+        wo = torch.zeros((ffp, d), dtype=dtype, device=dev)
+        wo[cols] = wo_c
     out = PF.padded_ffn(x, wi, wo, tp=tp, ff=ff)
+    want = PF.plain(x, wi, wo, tp, ff)
     row_tol = FFN_ROW_TOL if dtype == torch.bfloat16 else 0.0
-    err = max_err("padded_ffn", out, PF.plain(x, wi, wo, tp, ff), dtype,
-                  row_tol=row_tol)
+    err = max_err("padded_ffn", out, want, dtype, row_tol=row_tol)
     flops = 2 * T * d * ff * 3
-    byt = nbytes(x, wi, wo, out)
+    byt = nbytes(x, wi_c, wo_c, out)     # the real weights, read once
     bms, by = bound_ms(byt, flops, dtype)
-    what = "full replica" if tp > 1 else "one TP2 shard"
+    what = ("full replica" if tp > 1 and ffp == ff else
+            "one TP2 shard" if tp == 1 else f"{model} W={tp} plan")
     return dict(
-        kernel="padded_ffn", case=f"T={T} {what} (d={d}, ff={ff}, tp={tp})",
-        max_abs_err=err, tol=tol_text(dtype) + (
-            f" + {row_tol:g}*rms(row)" if row_tol else ""),
-        ms=time_ms(lambda: PF.padded_ffn(x, wi, wo, tp=tp, ff=ff), 20),
+        kernel="padded_ffn",
+        case=f"T={T} {what} (d={d}, ff={ff}, ffp={ffp}, tp={tp})",
+        max_abs_err=err, row_term_used=row_term(out, want, dtype),
+        tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
+                               else ""),
+        ms=time_ms(lambda: PF.padded_ffn(x, wi, wo, tp=tp, ff=ff), iters),
         plain_ms=time_ms(lambda: PF.plain(x, wi, wo, tp, ff), 5),
-        library_ms=time_ms(lambda: Lyr.dense_mlp(x, wi, wo, "swiglu"), 20),
+        library_ms=time_ms(lambda: Lyr.dense_mlp(x, wi_c, wo_c, "swiglu"),
+                           iters),
         library="dense_mlp on cuBLAS (2 matmuls + activation)",
         bound_ms=bms, bound_by=by)
+
+
+def padded_ffn_cases():
+    """The two configs whose W = 4 page plan pads d_ff (stablelm-12b:
+    3456 real of 4096 a shard; minicpm-2b: 1440 of 1536, a shard width
+    64 does not divide) at T = 1 and just above the decode/prefill
+    switch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.kernels import padded_ffn as PF
+    out = []
+    for name in ("stablelm-12b", "minicpm-2b"):
+        cfg = get_config(name)
+        ffp = make_plan(cfg, 4, mode="page").d_ff_padded
+        assert ffp > cfg.d_ff, (name, "its W=4 plan must pad d_ff")
+        for T in (1, PF.DECODE_MAX_T + 1):
+            out.append((case_ffn, dict(T=T, tp=4, ff_full=cfg.d_ff,
+                                       d=cfg.d_model, ffp=ffp, model=name,
+                                       iters=10)))
+    return out
+
+
+def ffn_tilings():
+    """The bf16 FFN of llama3-8b, the full replica at TP1x2 (tp 2) and
+    one TP2 shard (tp 1), under both tilings (``decode`` forced) at
+    token counts around the switch and at the worker engine's own
+    prefill chunks (128 tokens and remainders such as 44, 68 and 112):
+    each call held against the plain version at FFN_ROW_TOL.  The full
+    replica's times are what ``DECODE_MAX_T`` in ``kernels/padded_ffn.py``
+    rests on.  Then ``row_term_used`` of the plan's own tiling over four
+    more weight seeds at T = 4, 128 and 512, the margin of the whole-K
+    fp32 accumulator."""
+    from repro_torch.kernels import padded_ffn as PF
+    dev, d, bf = "cuda", 4096, torch.bfloat16
+
+    def weights(ff, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        wi = (torch.randn((d, 2 * ff), generator=g, device=dev) / d ** 0.5
+              ).to(bf)
+        wo = (torch.randn((ff, d), generator=g, device=dev) / ff ** 0.5
+              ).to(bf)
+        return g, wi, wo
+
+    def check(x, wi, wo, tp, ff, what, decode=None):
+        out = PF.padded_ffn(x, wi, wo, tp=tp, ff=ff, decode=decode)
+        want = PF.plain(x, wi, wo, tp, ff)
+        err = max_err(f"padded_ffn {what}", out, want, bf,
+                      row_tol=FFN_ROW_TOL)
+        return err, row_term(out, want, bf)
+
+    rows = []
+    for tp in (2, 1):
+        ff = 14336 // (3 - tp)
+        g, wi, wo = weights(ff, 6)
+        for T in (1, 4, 16, 32, 33, 40, 44, 48, 56, 64, 68, 96, 112, 128,
+                  256, 512):
+            x = torch.randn((T, d), generator=g, device=dev).to(bf)
+            row = {"T": T, "tp": tp}
+            for tiling, dec in (("decode", True), ("prefill", False)):
+                row[f"{tiling}_err"], row[f"{tiling}_row_term"] = check(
+                    x, wi, wo, tp, ff, f"{tiling} tiling T={T} tp={tp}", dec)
+                if tp == 2:
+                    row[f"{tiling}_ms"] = time_ms(
+                        lambda dec=dec: PF.padded_ffn(x, wi, wo, tp=tp,
+                                                      ff=ff, decode=dec), 20)
+            rows.append(row)
+    emit(phase="kernels", what="ffn-tilings", dtype="bfloat16",
+         case=f"d={d} ff=14336, tp 2 and 1", decode_max_t=PF.DECODE_MAX_T,
+         tol=tol_text(bf) + f" + {FFN_ROW_TOL:g}*rms(row)", rows=rows)
+    seeds = []
+    for seed in (7, 8, 9, 10):
+        for tp in (2, 1):
+            ff = 14336 // (3 - tp)
+            g, wi, wo = weights(ff, seed)
+            for T in (4, 128, 512):
+                x = torch.randn((T, d), generator=g, device=dev).to(bf)
+                err, term = check(x, wi, wo, tp, ff,
+                                  f"seed {seed} T={T} tp={tp}")
+                seeds.append({"seed": seed, "tp": tp, "T": T,
+                              "max_abs_err": err, "row_term_used": term})
+    emit(phase="kernels", what="ffn-seeds", dtype="bfloat16",
+         row_tol=FFN_ROW_TOL,
+         max_row_term_used=max(r["row_term_used"] for r in seeds),
+         rows=seeds)
+
+
+def decode_walk():
+    """The bf16 decode kernel's own range code (``walk_ranges`` on the
+    card) against its host model (``live_pages`` cut by
+    ``split_pages``, which the CPU tests hold against the JAX
+    reference): every 7th query position from -1 to past twice the
+    capacity, with and without a window, at several split counts."""
+    from repro_torch.kernels import paged_attention as PA
+    q = torch.arange(-1, 2 * 8192 + 100, 7, dtype=torch.int32)
+    layouts = ((128, 64, 0, 9), (128, 64, 0, 16), (512, 16, 0, 8),
+               (16, 64, 1024, 4), (64, 16, 333, 5))
+    for n, P, window, splits in layouts:
+        got = PA.walk_ranges(q.cuda(), n, P, window, splits).cpu()
+        want = PA.walk_ranges(q, n, P, window, splits)
+        bad = int((got != want).any(dim=-1).sum())
+        assert bad == 0, ("decode walk", n, P, window, splits, bad)
+    emit(phase="kernels", what="decode-walk", positions=q.numel(),
+         layouts=[list(x) for x in layouts], tol="bit-equal")
 
 
 def phase_kernels():
@@ -454,6 +696,12 @@ def phase_kernels():
         cases = [(case_decode, {}),
                  # the serve phase's decode: 4 slots of 8192 tokens, 2048 live
                  (case_decode, dict(B=4, ctx=2048, cap=8192)),
+                 # ragged live lengths in 8192-token slots; 16-token pages
+                 (case_decode, dict(q_pos=[99, 699, 2047, 5999], cap=8192)),
+                 (case_decode, dict(B=4, ctx=2048, cap=8192, P=16)),
+                 # a wrapped window ring: every row past its capacity
+                 (case_decode, dict(q_pos=[1500, 3000, 1100, 5000],
+                                    cap=1024, window=1024)),
                  (case_chunk, {}),
                  (case_chunk, dict(S=200, done=1536, cap=1024, window=1024,
                                    pad=8)),
@@ -467,7 +715,11 @@ def phase_kernels():
                  (case_flash, dict(S=600)),   # a ragged whole prompt
                  (case_migrate, {}),
                  (case_ffn, {}), (case_ffn, dict(T=512)),
-                 (case_ffn, dict(tp=1)), (case_ffn, dict(T=512, tp=1))]
+                 (case_ffn, dict(tp=1)), (case_ffn, dict(T=512, tp=1)),
+                 # the worker engine's prefill chunk and a remainder
+                 (case_ffn, dict(T=128)), (case_ffn, dict(T=128, tp=1)),
+                 (case_ffn, dict(T=44)), (case_ffn, dict(T=44, tp=1)),
+                 *padded_ffn_cases()]
         for fn, kw in cases:
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
@@ -477,6 +729,8 @@ def phase_kernels():
                 emit(phase="kernels", **r)
                 if dtype == torch.bfloat16 and not kw:
                     main[r["kernel"]] = r
+    ffn_tilings()
+    decode_walk()
     emit(phase="kernels", seconds=time.monotonic() - t0)
     return main
 
@@ -595,6 +849,7 @@ def phase_serve(smi: str):
          tokens_per_s=sum(len(r.generated) for r in reqs) / wall,
          launches=launches, prefill_wrapper_host_us=host_us,
          prefill_wrapper_host_ms=prefill_host_ms,
+         decode_wrapper_host_us=decode_wrapper_host_us(),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
     for p in profiles:
         emit(phase="profile", gpu=smi, **p)
@@ -631,6 +886,47 @@ def wrapper_host_us(calls: int = 200) -> dict:
             torch.cuda.synchronize()
             out.setdefault(name, {})[str(dtype).replace("torch.", "")] = (
                 (t1 - t0) / calls * 1e6)
+    return out
+
+
+def decode_wrapper_host_us(calls: int = 200) -> dict:
+    """Host microseconds a ``paged_decode`` call takes to enqueue its two
+    launches, at a tiny shape (the card never holds the host back), in
+    bf16 and fp32; and what the per-call work that the wrapper now does
+    once per device and stream would cost on its own: reading the SM
+    count from ``get_device_properties`` and allocating the three
+    split-scratch tensors."""
+    from repro_torch.kernels import paged_attention as PA
+    dev = "cuda"
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 32, 128), device=dev).to(dtype)
+        pool = torch.zeros((2, 8, 2, 64, 128), device=dev, dtype=dtype)
+        pt = torch.arange(2, dtype=torch.int32, device=dev)[None]
+        qpos = torch.full((1,), 100, dtype=torch.int32, device=dev)
+        kvpos = stored_positions(qpos, 128)
+        fn = lambda: PA.paged_decode(q, pool, pt, kvpos, qpos)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[str(dtype).replace("torch.", "")] = (t1 - t0) / calls * 1e6
+
+    def removed():
+        torch.cuda.get_device_properties(dev).multi_processor_count
+        f32 = dict(dtype=torch.float32, device=dev)
+        torch.empty((4, 8, 8, 4), **f32)
+        torch.empty((4, 8, 8, 4), **f32)
+        torch.empty((4, 8, 8, 4, 128), **f32)
+
+    removed()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        removed()
+    out["removed_per_call_work"] = (time.perf_counter() - t0) / calls * 1e6
     return out
 
 
@@ -906,9 +1202,35 @@ def phase_transform_serve(smi: str):
          tpot_s=[r.tpot for r in reqs + [long_]],
          launches=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+    for p in transform_profiles(eng, cfg, gen, lens):
+        emit(phase="profile", workers=eng.W, gpu=smi, **p)
     del eng
     free_card()
     return launches
+
+
+def transform_profiles(eng, cfg, gen, lens, steps: int = 4):
+    """Decode steps of a full batch at TP1x2 and at TP2 under
+    ``profile_steps``, on a batch of its own after the timed run (a
+    profiled step takes about twice a plain one's wall): the prompts of
+    the timed run, decoded to 16 tokens at TP1x2, then TP1x2 -> TP2."""
+    from repro_torch.serving import ServeRequest
+    reqs = [ServeRequest(p, max_new_tokens=128)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) < 16 for r in reqs):
+        eng.step()
+    assert eng.tp == 1
+    out = [{"what": "decode step, TP1x2", "batch": len(reqs),
+            **profile_steps(eng, steps)}]
+    eng.transform(2)
+    while eng.transforming:
+        eng.step()
+    assert eng.tp == 2 and all(r.slot is not None for r in reqs)
+    out.append({"what": "decode step, TP2", "batch": len(reqs),
+                **profile_steps(eng, steps)})
+    return out
 
 
 def device_activity(prof, wall_s: float, per: int) -> dict:
@@ -948,7 +1270,9 @@ def device_activity(prof, wall_s: float, per: int) -> dict:
 
 
 # kernel-name fragments by kind, for the profiles' breakdown
-KINDS = (("paged decode (port)", ("paged_decode",)),
+KINDS = (("paged decode (port)", ("paged_decode", "bulk::combine")),
+         ("padded FFN (port)", ("ffn_wgmma", "ffn_reduce", "ffn_tile")),
+         ("page migration (port)", ("copy_segments",)),
          ("prefill attention (port)", ("attn_tile_kernel",
                                        "attn_wgmma_kernel",
                                        "chunk_scatter")),
@@ -956,19 +1280,11 @@ KINDS = (("paged decode (port)", ("paged_decode",)),
          ("copies", ("Memcpy", "Memset")))
 
 
-def decode_profile(eng, cfg, gen, steps: int = 8):
-    """Where a decode step's time goes: a full batch (4 slots at
-    2048-token contexts) runs ``steps`` steps unprofiled, then ``steps``
-    under ``torch.profiler`` (which adds host time per op)."""
+def profile_steps(eng, steps: int) -> dict:
+    """``steps`` engine steps unprofiled, then ``steps`` more under
+    ``torch.profiler`` (which adds host time per op): the unprofiled wall
+    a step beside the card's busy time and kinds of work a step."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.serving import ServeRequest
-    reqs = [ServeRequest(p, max_new_tokens=2 * steps + 4)
-            for p in _prompts(gen, (2048,) * 4, cfg.vocab_size)]
-    for r in reqs:
-        eng.submit(r)
-    while any(len(r.generated) == 0 for r in reqs):
-        eng.step()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(steps):
@@ -982,11 +1298,24 @@ def decode_profile(eng, cfg, gen, steps: int = 8):
             eng.step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    eng.run_until_done()
-    return {"what": "decode step", "steps": steps, "batch": len(reqs),
-            "context": 2048,
-            "unprofiled_wall_ms": plain_wall / steps * 1e3,
+    return {"steps": steps, "unprofiled_wall_ms": plain_wall / steps * 1e3,
             **device_activity(prof, wall, steps)}
+
+
+def decode_profile(eng, cfg, gen, steps: int = 8):
+    """Where a decode step's time goes: a full batch (4 slots at
+    2048-token contexts), ``profile_steps``."""
+    from repro_torch.serving import ServeRequest
+    reqs = [ServeRequest(p, max_new_tokens=2 * steps + 4)
+            for p in _prompts(gen, (2048,) * 4, cfg.vocab_size)]
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) == 0 for r in reqs):
+        eng.step()
+    out = profile_steps(eng, steps)
+    eng.run_until_done()
+    return {"what": "decode step", "batch": len(reqs), "context": 2048,
+            **out}
 
 
 def prefill_profile(eng, cfg, gen, prompt: int = 6000):

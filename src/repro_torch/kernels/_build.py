@@ -35,6 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "paged_attention": {
         "repro_paged_decode": [_P] * 9 + [_I] * 9 + [_P],
+        "repro_decode_walk": [_P] * 2 + [_I] * 5 + [_P],
     },
     "chunk_prefill": {
         "repro_chunk_prefill_attention": ([_P] * 4 + [_I] + [_P] * 4
@@ -49,7 +50,7 @@ SIGNATURES = {
         "repro_gather_page_slices": [_P] * 4 + [_I] * 7 + [_P],
     },
     "padded_ffn": {
-        "repro_padded_ffn": [_P] * 5 + [_I] * 7 + [_P],
+        "repro_padded_ffn": [_P] * 6 + [_I] * 16 + [_P],
     },
 }
 

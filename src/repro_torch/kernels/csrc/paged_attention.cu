@@ -13,26 +13,41 @@
 // B * ctx * kvs * 2 * dh * bytes in all, and the arithmetic is ~rep FMAs
 // per element read — far below the ~295 FLOP/byte ridge.
 //
-// Design (simple first): two launches on the caller's stream.
-//   1. split: one block of dh threads per (kv head g, row b, split s).
-//      At decode batch sizes B * kvs blocks are far too few for the
-//      card's 132 SMs, so the row's pages are cut into contiguous splits
-//      and each block walks one of them.  The block holds the rep query
-//      heads of the group, so each page is read once for the whole
-//      group.  Per page it checks the stored positions and skips a page
-//      with no visible key before touching its K/V; stages K (as fp32,
-//      rows padded to dh+1 floats so a warp reading 32 keys hits 32
-//      banks) and V into shared memory with 16-byte loads issued by all
-//      threads at once; scores each (head, key) pair with one thread's
-//      dot product; one warp per head updates the running (m, l); and
-//      each thread folds one column of V into its rep accumulators.  The
-//      split's (m, l, acc) go to fp32 scratch.
+// Two launches on the caller's stream, by dtype:
+//   1. split: one block per (kv head g, row b, split s).  At decode batch
+//      sizes B * kvs blocks are far too few for the card's 132 SMs, so
+//      each row's LIVE page range is cut evenly into the NS splits and
+//      each block walks one share.  The block holds the rep query heads
+//      of the group, so each page is read once for the whole group.
+//      * bf16 (the serving path; namespace bulk): the range is computed
+//        on the device from the row's q_pos (the pools put position p in
+//        slot p % capacity, so no visible key lies past page q_pos / P,
+//        nor before page (q_pos - window + 1) / P when the row has not
+//        wrapped; a wrapped row keeps all its pages), so no block walks
+//        the empty tail of an 8192-token slot.  A producer warp brings
+//        each page with one bulk copy (cp.async.bulk, TMA without a
+//        tensor map: a page's K and V of one kv head are 2 * P * dh
+//        contiguous elements, 32 KB at P = 64, dh = 128) and its
+//        positions with another, into a ring of up to 3 stages of at
+//        least 64 keys (several pages when P < 64) tracked by mbarriers,
+//        so the next stage lands while this one is scored.  K and V stay
+//        bf16 in shared memory.  Four consumer warps take 16-key groups
+//        of a stage and score them on the tensor cores (mma.sync, the
+//        rep query heads padded to 16 rows, in registers; K read as
+//        16-byte rows in a dh order Q shares), keep an fp32 online
+//        softmax per warp on the score fragments, and run P.V on the
+//        tensor cores too (V by ldmatrix.trans, P as two bf16 terms so
+//        that it keeps fp32-like precision); the warps merge at the end.
+//      * fp32 (the namespace-level split kernel, unchanged):
+//        capacity splits, one block of dh threads, each page's
+//        positions checked and K staged as fp32 before scoring.
 //   2. combine: one block per (g, b) merges the splits' partial states
-//      — the rescale-and-sum of layers.combine_softmax_partials — and
+//      - the rescale-and-sum of layers.combine_softmax_partials - and
 //      writes the output.
-// A page's load is not overlapped with the previous page's math (no
-// double buffering yet), and no tensor cores are used.
+#include <algorithm>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -216,17 +231,448 @@ int launch(const void* q, const void* pool, const int* page_table,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(int dh, const void* q, const void* pool, const int* pt,
-              const int* kv_pos, const int* q_pos, float* pm, float* pl,
-              float* pa, void* out, int B, int kvs, int rep, int P, int n,
-              int NS, int window, cudaStream_t stream) {
-  if (dh == 64)
-    return launch<T, 64>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                         kvs, rep, P, n, NS, window, stream);
-  if (dh == 128)
-    return launch<T, 128>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                          kvs, rep, P, n, NS, window, stream);
+// ------------------------------------------------ bf16, bulk-copied ring
+namespace bulk {
+using namespace rt::hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int NW = 4;                     // consumer warps
+constexpr int THREADS = NW * 32 + 32;     // + the producer warp
+constexpr int MIN_KEYS = 64;              // keys of a ring stage, at least
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x, y) as two bf16 pairs whose sum carries about 16 bits of each:
+// hi = bf16(x, y), lo = bf16 of the rounding error
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16) * B (16 x 8, bf16); rows 8-15
+// of A are zero here (a1 = a3 = 0): the rep <= 8 query heads
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
+                                         uint32_t a2, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed, from the 16-byte rows whose
+// addresses lanes 8i..8i+7 give for matrix i
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The row's live pages [lo, hi): the pools put position p in slot
+// p % capacity (capacity = n * P), so with no wrap (q_pos < capacity) a
+// key visible at q_pos sits in a slot <= q_pos, and with a window in a
+// slot > q_pos - window; a wrapped row keeps every page.  A bound on
+// the walk, not a mask: the masks stay those of the positions.
+__device__ __forceinline__ void live_pages(int qp, int n, int P, int window,
+                                           int& lo, int& hi) {
+  if (qp < 0) {
+    lo = hi = 0;
+  } else if (qp >= n * P) {
+    lo = 0;
+    hi = n;
+  } else {
+    hi = qp / P + 1;
+    lo = window > 0 ? max(0, qp - window + 1) / P : 0;
+  }
+}
+
+// split `split` of NS's even share [j0, j1) of the row's live pages
+__device__ __forceinline__ void split_range(int qp, int n, int P, int window,
+                                            int split, int NS, int& j0,
+                                            int& j1) {
+  int lo, hi;
+  live_pages(qp, n, P, window, lo, hi);
+  j0 = lo + (int)((long long)split * (hi - lo) / NS);
+  j1 = lo + (int)((long long)(split + 1) * (hi - lo) / NS);
+}
+
+// the walk alone: each (row, split)'s page range, as the kernel cuts it
+__global__ void walk_kernel(const int* __restrict__ q_pos,
+                            int* __restrict__ ranges, int B, int n, int P,
+                            int window, int NS) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * NS) return;
+  split_range(q_pos[i / NS], n, P, window, i % NS, NS, ranges[2 * i],
+              ranges[2 * i + 1]);
+}
+
+// bytes of one page in the ring: K and V of one kv head, then the P
+// positions; a stage holds max(1, 64 / P) pages
+__host__ __device__ inline size_t page_bytes(int dh, int P) {
+  return (size_t)P * dh * 4 + (size_t)P * 4;
+}
+__host__ __device__ inline int pages_per_stage(int P) {
+  return P < MIN_KEYS ? MIN_KEYS / P : 1;
+}
+// bytes of the cross-warp merge (reuses the ring)
+__host__ __device__ inline size_t merge_bytes(int dh, int rep) {
+  return (size_t)NW * rep * (dh + 2) * 4;
+}
+
+template <int DH, int REP>
+__global__ void __launch_bounds__(THREADS, 2)
+    paged_decode_bulk_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ pool,
+                             const int* __restrict__ page_table,
+                             const int* __restrict__ kv_pos,
+                             const int* __restrict__ q_pos,
+                             float* __restrict__ part_m,
+                             float* __restrict__ part_l,
+                             float* __restrict__ part_acc, int kvs, int P,
+                             int n, int stages, int window,
+                             float scale_log2) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int pps = pages_per_stage(P);
+  const size_t pb = page_bytes(DH, P), stage_b = pps * pb;
+  // the ring (reused by the merge at the end), then the barriers
+  const size_t merge_b = merge_bytes(DH, REP);
+  const size_t ring_b = stages * stage_b > merge_b ? stages * stage_b
+                                                   : merge_b;
+  const uint32_t bars = smem_u32(smem + ring_b);
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (stages + s); };
+
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int NS = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int qp = q_pos[b];
+  // this split's even share of the live range, in stages of pps pages
+  int j0, j1;
+  split_range(qp, n, P, window, split, NS, j0, j1);
+  const int n_stages = (j1 - j0 + pps - 1) / pps;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), NW * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (w == NW) {
+    // ---------------------------------------------------- producer warp
+    // one bulk copy a page (K and V of head g are contiguous) and one for
+    // its positions; a stage's pages past the split's end repeat its
+    // first page (finite bytes) and are masked by the consumers
+    if (lane != 0) return;
+    const int* pt = page_table + (size_t)b * n;
+    for (int i = 0, s = 0, ph = 0; i < n_stages; ++i) {
+      mbar_wait(empty_bar(s), ph ^ 1);
+      mbar_expect_tx(full_bar(s), (uint32_t)stage_b);
+      for (int k = 0; k < pps; ++k) {
+        const int j = min(j0 + i * pps + k, j1 - 1);
+        const size_t page = pt[j];
+        const uint32_t dst = smem_u32(smem + s * stage_b + k * pb);
+        bulk_copy(dst, pool + ((page * kvs + g) * 2) * (size_t)P * DH,
+                  P * DH * 4, full_bar(s));
+        bulk_copy(dst + P * DH * 4, kv_pos + ((size_t)b * n + j) * P,
+                  P * 4, full_bar(s));
+      }
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumer warps
+  // Tensor cores (mma.sync m16n8k16), the rep query heads as rows 0..7
+  // of the A operand (rows 8-15 zero).  Scoring on the CUDA cores
+  // instead (16-byte K reads, lanes splitting dh, the dot products
+  // reduced by shuffles) was right but bound by its own instructions,
+  // about 7 us a 64-key page a block on an H100 80GB HBM3 (700 W); this
+  // walk issues some 150 instructions a page a warp, and the 3/4 of each
+  // tensor-core tile that the padding rows waste costs nothing the bytes
+  // bound would notice.  Thread (gr = lane / 4, qd = lane % 4) holds
+  // head gr.  S = Q.K^T contracts over dh in a
+  // permuted order that both operands share: step kk = 2j + s takes dh
+  // 8 (qd + 4j) + 4s + {0,1} (A cols / B rows 2qd, 2qd+1) and + {2,3}
+  // (2qd+8, 2qd+9), so a thread's K fragment of a key is 16-byte loads
+  // of 8 dh each.  O += P.V takes P from the S fragments (FA2's register
+  // reuse) and V by ldmatrix.trans.
+  const int gr = lane / 4, qd = lane % 4;
+  constexpr int J = DH / 32;            // 16-byte chunks a thread's key
+  constexpr int NT = DH / 8;            // n8 tiles of the output
+  const int Hq = kvs * REP;
+  uint32_t qa[J][4];                    // (a0, a2) of steps 2j and 2j+1
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    int4 v = make_int4(0, 0, 0, 0);
+    if (gr < REP)
+      v = *reinterpret_cast<const int4*>(
+          q + ((size_t)b * Hq + g * REP + gr) * DH + 8 * (qd + 4 * j));
+    qa[j][0] = v.x;
+    qa[j][1] = v.y;
+    qa[j][2] = v.z;
+    qa[j][3] = v.w;
+  }
+  float o[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
+  float m = rt::NEG_INF, l = 0.f;   // head gr; l is this thread's share
+
+  const int groups = pps * P / 16;      // 16-key groups of a stage
+  for (int i = 0, s = 0, ph = 0; i < n_stages; ++i) {
+    mbar_wait(full_bar(s), ph);
+    const int keys = min(pps, j1 - j0 - i * pps) * P;  // real keys
+    const uint8_t* st = smem + s * stage_b;
+    for (int grp = w; grp < groups; grp += NW) {
+      const int k0 = grp * 16;
+      if (k0 >= keys) break;
+      const uint8_t* pg = st + (k0 / P) * pb;   // the group's page
+      const int r0 = k0 % P;                    // its first key there
+      const bf16* K = reinterpret_cast<const bf16*>(pg);
+      const int* pos = reinterpret_cast<const int*>(pg + P * DH * 4);
+      // scores of keys r0 + {2qd, 2qd+1} (sc[0..1]) and r0 + 8 + ...
+      float sc[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int4* kr = reinterpret_cast<const int4*>(
+            K + (size_t)(r0 + 8 * h + gr) * DH + 8 * qd);
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) sc[h][i2] = 0.f;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int4 kv = kr[4 * j];
+          mma16816(sc[h], qa[j][0], qa[j][1], kv.x, kv.y);
+          mma16816(sc[h], qa[j][2], qa[j][3], kv.z, kv.w);
+        }
+      }
+      float mx = m;
+      bool vis[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = r0 + 8 * h + 2 * qd + e;
+          vis[h][e] = k0 + 8 * h + 2 * qd + e < keys &&
+                      rt::visible(pos[r], qp, 1, window);
+          sc[h][e] *= scale_log2;
+          if (vis[h][e]) mx = fmaxf(mx, sc[h][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = ex2(m - mx);
+      m = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[h][e] = vis[h][e] ? ex2(sc[h][e] - mx) : 0.f;
+          sum += sc[h][e];
+        }
+      l = l * corr + sum;
+      // P as bf16 high and low parts: rounding P to one bf16 alone would
+      // move outputs by more than the one bf16 ulp the checks allow
+      uint32_t ph0, pl0, ph2, pl2;
+      split_bf16(sc[0][0], sc[0][1], ph0, pl0);
+      split_bf16(sc[1][0], sc[1][1], ph2, pl2);
+      // V rows r0 + (lane % 8) + 8 * ((lane / 8) & 1), dh + 8 * (lane / 16)
+      const uint32_t vaddr = smem_u32(
+          pg + P * DH * 2 +
+          ((size_t)(r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * DH +
+           8 * (lane >> 4)) * 2);
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vaddr + t * 16);
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+          o[t][i2] *= corr;
+          o[t + 1][i2] *= corr;
+        }
+        mma16816(o[t], ph0, ph2, vb[0], vb[1]);
+        mma16816(o[t], pl0, pl2, vb[0], vb[1]);
+        mma16816(o[t + 1], ph0, ph2, vb[2], vb[3]);
+        mma16816(o[t + 1], pl0, pl2, vb[2], vb[3]);
+      }
+    }
+    __syncwarp();
+    mbar_arrive(empty_bar(s));
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  // l: sum the quad's shares
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  // every consumer is past the ring (each waited for every stage), so the
+  // merge of the warps reuses its bytes
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
+  float* sm_m = reinterpret_cast<float*>(smem);       // (NW, REP)
+  float* sm_l = sm_m + NW * REP;                      // (NW, REP)
+  float* sm_a = sm_l + NW * REP;                      // (NW, REP, DH)
+  if (gr < REP) {
+    // o[t][0..1]: head gr, dh 8t + 2qd + {0, 1}
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      sm_a[(w * REP + gr) * DH + 8 * t + 2 * qd] = o[t][0];
+      sm_a[(w * REP + gr) * DH + 8 * t + 2 * qd + 1] = o[t][1];
+    }
+    if (qd == 0) {
+      sm_m[w * REP + gr] = m;
+      sm_l[w * REP + gr] = l;
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
+  // this split's partial state, m in natural-log units for the combine;
+  // a split with no visible key leaves (NEG_INF ln 2, 0, 0), which the
+  // combine weighs as nothing
+  const size_t base = (((size_t)b * kvs + g) * NS + split) * REP;
+  for (int e = tid; e < REP * DH; e += NW * 32) {
+    const int h = e / DH, c = e % DH;
+    float mx = rt::NEG_INF;
+#pragma unroll
+    for (int x = 0; x < NW; ++x) mx = fmaxf(mx, sm_m[x * REP + h]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int x = 0; x < NW; ++x) {
+      const float cr = ex2(sm_m[x * REP + h] - mx);
+      ls += sm_l[x * REP + h] * cr;
+      as += sm_a[(x * REP + h) * DH + c] * cr;
+    }
+    part_acc[(base + h) * DH + c] = as;
+    if (c == 0) {
+      part_m[base + h] = mx * LN2;
+      part_l[base + h] = ls;
+    }
+  }
+}
+
+// the splits' merge for bf16: one block per (kv head, row), a thread per
+// (head, dh element), every head at once
+template <int DH, int REP>
+__global__ void __launch_bounds__(REP * DH)
+    combine_kernel(const float* __restrict__ part_m,
+                   const float* __restrict__ part_l,
+                   const float* __restrict__ part_acc, bf16* __restrict__ out,
+                   int kvs, int NS) {
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int h = threadIdx.x / DH, c = threadIdx.x % DH;
+  const size_t base = ((size_t)b * kvs + g) * NS;
+  float m = rt::NEG_INF;
+  for (int s = 0; s < NS; ++s) m = fmaxf(m, part_m[(base + s) * REP + h]);
+  float l = 0.f, a = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < NS; ++s) {
+    const size_t i = (base + s) * REP + h;
+    const float corr = expf(part_m[i] - m);
+    l += part_l[i] * corr;
+    a += part_acc[i * DH + c] * corr;
+  }
+  out[((size_t)b * kvs * REP + g * REP + h) * DH + c] =
+      __float2bfloat16(a / fmaxf(l, 1e-20f));
+}
+
+// the ring depth a launch uses: 3 stages, or fewer where a stage is
+// large; 0 if even one does not fit
+inline int ring_stages(int dh, int rep, int P) {
+  const size_t sb = pages_per_stage(P) * page_bytes(dh, P);
+  const size_t mb = merge_bytes(dh, rep);
+  for (int s = 3; s >= 1; --s)
+    if (std::max(s * sb, mb) + 16 * s <= MAX_SMEM) return s;
+  return 0;
+}
+
+template <int DH, int REP>
+int launch(const void* q, const void* pool, const int* pt, const int* kv_pos,
+           const int* q_pos, float* pm, float* pl, float* pa, void* out,
+           int B, int kvs, int P, int n, int NS, int window,
+           cudaStream_t stream) {
+  const int stages = ring_stages(DH, REP, P);
+  const size_t smem = std::max(stages * pages_per_stage(P) *
+                                   page_bytes(DH, P),
+                               merge_bytes(DH, REP)) +
+                      16 * stages;
+  auto kern = paged_decode_bulk_kernel<DH, REP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(kvs, B, NS), THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(pool), pt,
+      kv_pos, q_pos, pm, pl, pa, kvs, P, n, stages, window,
+      1.4426950408889634f / sqrtf((float)DH));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  combine_kernel<DH, REP><<<dim3(kvs, B), REP * DH, 0, stream>>>(
+      pm, pl, pa, static_cast<bf16*>(out), kvs, NS);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_rep(int rep, const void* q, const void* pool, const int* pt,
+               const int* kv_pos, const int* q_pos, float* pm, float* pl,
+               float* pa, void* out, int B, int kvs, int P, int n, int NS,
+               int window, cudaStream_t st) {
+  switch (rep) {
+#define REPRO_REP(R)                                                       \
+  case R:                                                                  \
+    return launch<DH, R>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,   \
+                         kvs, P, n, NS, window, st);
+    REPRO_REP(1) REPRO_REP(2) REPRO_REP(3) REPRO_REP(4)
+    REPRO_REP(5) REPRO_REP(6) REPRO_REP(7) REPRO_REP(8)
+#undef REPRO_REP
+  }
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace bulk
+
+// fp32: the CUDA-core split kernel; bf16: the bulk-copied ring
+template <int DH>
+int launch_bf16(const void* q, const void* pool, const int* pt,
+                const int* kv_pos, const int* q_pos, float* pm, float* pl,
+                float* pa, void* out, int B, int kvs, int rep, int P, int n,
+                int NS, int window, cudaStream_t stream) {
+  return bulk::launch_rep<DH>(rep, q, pool, pt, kv_pos, q_pos, pm, pl, pa,
+                              out, B, kvs, P, n, NS, window, stream);
+}
+
+int launch_dh(int dtype, int dh, const void* q, const void* pool,
+              const int* pt, const int* kv_pos, const int* q_pos, float* pm,
+              float* pl, float* pa, void* out, int B, int kvs, int rep,
+              int P, int n, int NS, int window, cudaStream_t stream) {
+  if (dtype == rt::DT_F32 && dh == 64)
+    return launch<float, 64>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
+                             kvs, rep, P, n, NS, window, stream);
+  if (dtype == rt::DT_F32 && dh == 128)
+    return launch<float, 128>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out,
+                              B, kvs, rep, P, n, NS, window, stream);
+  if (dtype == rt::DT_BF16 && dh == 64)
+    return launch_bf16<64>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
+                           kvs, rep, P, n, NS, window, stream);
+  if (dtype == rt::DT_BF16 && dh == 128)
+    return launch_bf16<128>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
+                            kvs, rep, P, n, NS, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -241,21 +687,27 @@ extern "C" int repro_paged_decode(const void* q, const void* pool,
                                   int B, int kvs, int rep, int dh, int P,
                                   int n, int NS, int window, int dtype,
                                   void* stream) {
-  const size_t elem = dtype == rt::DT_BF16 ? 2 : 4;
-  if (rep < 1 || rep > MAX_REP || NS < 1 || NS > n ||
-      (P * dh) % (16 / elem) ||
-      decode_smem_bytes(elem, dh, rep, P) > MAX_SMEM)
+  if (rep < 1 || rep > MAX_REP || NS < 1 || NS > n)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
-  if (dtype == rt::DT_F32)
-    return launch_dh<float>(dh, q, pool, page_table, kv_pos, q_pos, pm, pl,
-                            pa, out, B, kvs, rep, P, n, NS, window, st);
-  if (dtype == rt::DT_BF16)
-    return launch_dh<__nv_bfloat16>(dh, q, pool, page_table, kv_pos, q_pos,
-                                    pm, pl, pa, out, B, kvs, rep, P, n, NS,
-                                    window, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == rt::DT_F32 &&
+      ((P * dh) % 4 || decode_smem_bytes(4, dh, rep, P) > MAX_SMEM))
+    return (int)cudaErrorInvalidValue;
+  // the tensor-core walk takes 16-key groups inside a page
+  if (dtype == rt::DT_BF16 && (P % 16 || bulk::ring_stages(dh, rep, P) == 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_dh(dtype, dh, q, pool, page_table, kv_pos, q_pos,
+                   static_cast<float*>(part_m), static_cast<float*>(part_l),
+                   static_cast<float*>(part_acc), out, B, kvs, rep, P, n, NS,
+                   window, static_cast<cudaStream_t>(stream));
+}
+
+// ranges: (B, NS, 2) int32, each (row, split)'s pages [j0, j1) as the
+// bf16 kernel walks them for the rows' query positions q_pos (B,)
+extern "C" int repro_decode_walk(const int* q_pos, int* ranges, int B, int n,
+                                 int P, int window, int NS, void* stream) {
+  if (B < 1 || n < 1 || P < 1 || NS < 1) return (int)cudaErrorInvalidValue;
+  bulk::walk_kernel<<<(B * NS + 127) / 128, 128, 0,
+                      static_cast<cudaStream_t>(stream)>>>(q_pos, ranges, B,
+                                                           n, P, window, NS);
+  return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@ raise.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -61,3 +62,33 @@ def check_cuda_inputs(dtype: torch.dtype, floats, ints) -> None:
         require(t.dtype == torch.int32, f"index tensors must be int32, "
                 f"not {t.dtype}")
         require(t.is_contiguous(), "CUDA kernels take contiguous tensors")
+
+
+_sms: Dict[int, int] = {}
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read once per device."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def workspace(device: torch.device, numel: int) -> torch.Tensor:
+    """``numel`` fp32 scratch floats for a kernel's split partials, from
+    one buffer per (device, current stream) that grows and is reused
+    across calls.  Reuse is safe because the calls on one stream run in
+    order: a call's kernels finish with the buffer before the next call's
+    kernels start."""
+    dev = torch.device(device)
+    key = (dev.index if dev.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(max(numel, 1), dtype=torch.float32, device=dev)
+        _workspaces[key] = buf
+    return buf[:numel]

@@ -10,6 +10,8 @@ the rows' pages of the header-centric pool, masked by stored positions.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build, ops, ref
@@ -22,6 +24,61 @@ plain = ref.paged_decode_ref
 HEAD_DIMS = (64, 128)
 MAX_REP = 8
 MAX_SMEM = 227 * 1024
+
+
+def num_splits(B: int, kvs: int, n: int, sms: int) -> int:
+    """Splits of each row's pages: at most two blocks an SM over the
+    (kv head, row) pairs (no partial second wave), at most one a page."""
+    return max(1, min(n, 2 * sms // (B * kvs)))
+
+
+def live_pages(q_pos: int, n: int, P: int, window: int = 0
+               ) -> Tuple[int, int]:
+    """The pages ``[lo, hi)`` of a row of ``n`` pages of ``P`` slots that
+    can hold a key visible to a query at ``q_pos``: the bound the bf16
+    kernel puts on its walk (``bulk::live_pages``; ``walk_ranges``
+    holds the two together).  The pools put
+    position p in slot ``p % (n * P)``, so a row that has not wrapped
+    (``q_pos < n * P``) holds no visible key past slot ``q_pos``, nor,
+    with a window, before slot ``q_pos - window + 1``; a wrapped row keeps
+    every page, and ``q_pos < 0`` (an idle row) none."""
+    if q_pos < 0:
+        return 0, 0
+    if q_pos >= n * P:
+        return 0, n
+    lo = max(0, q_pos - window + 1) // P if window > 0 else 0
+    return lo, q_pos // P + 1
+
+
+def split_pages(lo: int, hi: int, split: int, splits: int
+                ) -> Tuple[int, int]:
+    """Split ``split``'s even share of the live range ``[lo, hi)``."""
+    return (lo + split * (hi - lo) // splits,
+            lo + (split + 1) * (hi - lo) // splits)
+
+
+def walk_ranges(q_positions: torch.Tensor, n: int, P: int, window: int,
+                splits: int) -> torch.Tensor:
+    """(B, splits, 2) int32: the pages ``[j0, j1)`` each split of each
+    row walks.  The bf16 kernel computes its walk on the card from the
+    rows' positions, so ``live_pages`` and ``split_pages`` above are its
+    host model: for CUDA positions this launches the kernel's own range
+    code (``bulk::split_range``) alone, for CPU positions it runs the
+    model, and the card's check holds the one against the other."""
+    if not ops.on_card(q_positions):
+        return torch.tensor(
+            [[split_pages(*live_pages(q, n, P, window), z, splits)
+              for z in range(splits)] for q in q_positions.tolist()],
+            dtype=torch.int32).reshape(-1, splits, 2)
+    B = q_positions.shape[0]
+    ops.check_cuda_inputs(torch.int32, (), (q_positions,))
+    out = torch.empty((B, splits, 2), dtype=torch.int32,
+                      device=q_positions.device)
+    err = _build.library("paged_attention").repro_decode_walk(
+        ops.ptr(q_positions), ops.ptr(out), B, n, P, int(window), splits,
+        ops.stream(q_positions.device))
+    _build.check(err, "decode walk launch")
+    return out
 
 
 def paged_decode(q: torch.Tensor, pool: torch.Tensor,
@@ -41,10 +98,19 @@ def paged_decode(q: torch.Tensor, pool: torch.Tensor,
     rep = Hq // kvs
     ops.require(two == 2 and dh2 == dh and Hq % kvs == 0,
                 f"shapes q {tuple(q.shape)} / pool {tuple(pool.shape)}")
-    # a block stages one page's K (fp32, padded rows) and V, the (rep, P)
-    # scores, the rep queries and the page's positions
-    smem = (4 * (P * (dh + 1) + rep * P + rep * dh)
-            + P * dh * q.element_size() + 4 * P)
+    if q.dtype == torch.bfloat16:
+        # bulk copies from 16-byte aligned bases; the tensor cores take
+        # 16-key groups inside a page; a ring stage (at least 64 keys:
+        # K and V in bf16, and their positions) fits in shared memory
+        smem = max(P, 64) * (4 * dh + 4)
+        ops.require_tma(q, pool, kv_positions)
+        ops.require(P % 16 == 0, f"bf16 paged decode takes pages of a "
+                    f"multiple of 16 tokens, not {P}")
+    else:
+        # a block stages one page's K (fp32, padded rows) and V, the
+        # (rep, P) scores, the rep queries and the page's positions
+        smem = (4 * (P * (dh + 1) + rep * P + rep * dh)
+                + P * dh * q.element_size() + 4 * P)
     ops.require(dh in HEAD_DIMS and 1 <= rep <= MAX_REP
                 and smem <= MAX_SMEM,
                 f"paged decode takes dh in {HEAD_DIMS}, rep <= {MAX_REP} "
@@ -56,13 +122,13 @@ def paged_decode(q: torch.Tensor, pool: torch.Tensor,
     ops.check_cuda_inputs(q.dtype, (q, pool),
                           (page_table, kv_positions, q_positions))
     # split each row's pages so that about two blocks per SM are in
-    # flight; the combine launch merges the splits' partial states
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = max(1, min(n, -(-2 * sms // (B * kvs))))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((B, kvs, splits, rep), **f32)
-    part_l = torch.empty((B, kvs, splits, rep), **f32)
-    part_acc = torch.empty((B, kvs, splits, rep, dh), **f32)
+    # flight (the bf16 kernel cuts each row's live range, the fp32 one
+    # its capacity); the combine launch merges the splits' partial
+    # states, kept in the reused per-stream workspace
+    splits = num_splits(B, kvs, n, ops.sm_count(q.device))
+    parts = B * kvs * splits * rep
+    ws = ops.workspace(q.device, parts * (2 + dh))
+    part_m, part_l, part_acc = ws[:parts], ws[parts:2 * parts], ws[2 * parts:]
     out = torch.empty_like(q)
     lib = _build.library("paged_attention")
     err = lib.repro_paged_decode(

@@ -194,3 +194,28 @@ def test_dispatch_is_by_device_only():
         ops.on_card(torch.zeros(2, device="meta"))
     with pytest.raises(ValueError):
         ops.dtype_code(torch.zeros(2, dtype=torch.float16))
+
+
+def _c_entries():
+    from repro_torch.kernels import _build
+    return [(lib, fn, argtypes)
+            for lib, fns in sorted(_build.SIGNATURES.items())
+            for fn, argtypes in sorted(fns.items())]
+
+
+@pytest.mark.parametrize("lib,fn,argtypes", _c_entries(),
+                         ids=[f"{e[0]}.{e[1]}" for e in _c_entries()])
+def test_c_entry_points_match_their_bindings(lib, fn, argtypes):
+    """Each ``extern "C"`` entry point of ``csrc/<lib>.cu`` takes, in
+    order, the pointers and ints its ctypes binding passes (a binding
+    that drifts from its source would pass the kernel garbage)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert m, fn
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params), params
+    assert kinds == list(argtypes)
