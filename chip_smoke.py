@@ -69,10 +69,35 @@ exits non-zero:
 7. transform-w4 — four workers of the card, full width, 8 layers, fp32:
               a TP1x4 -> TP4 -> TP1x4 round trip mid-decode gives the
               stream of an untransformed engine.
+8. cluster-parity — llama3-8b at full width, 2 layers, fp32: a
+              ``ClusterEngine`` of 2 instances x 1 worker of the card,
+              then of 2 x 2, gets short requests on both instances and
+              then one only the merged engine holds.  The scheduler's
+              ``ScaleUp`` carries ``donor_iids``; the imported slot KV
+              equals the donor's export byte for byte; no step stalls;
+              the split returns the loan, and the revived donor serves;
+              every stream equals an engine started at the merged width.
+9. cluster-serve — full-size llama3-8b in bf16, 2 instances x 1 worker
+              of the card (4096 tokens a worker): prompts of 300-2500
+              tokens on both instances, then a 6000-token request that
+              only the merged TP2 holds triggers a live merge while both
+              decode; it prefills in chunks on the merged engine, Alg 2
+              splits it after the dwell, and the revived donor serves a
+              request.  Prints the actions, both sessions (steps, wall,
+              blocked against modeled seconds, bytes moved), the stall
+              count, steps by phase, TTFT, TPOT, tokens/s, the cluster's
+              metrics, memory allocated before the merge, after the
+              park, after the split and after the revive, and the six
+              kernels' launches on this path, which must all rise.
+10. serve-cli — ``python -m repro_torch.launch.serve`` with its
+              defaults (reduced llama3-8b, fp32, 4 workers of the card)
+              as a subprocess; it must exit 0, its ``[serve]`` lines are
+              echoed.
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6.  Then the
-card's name and power limit, one ``kernels`` line, and the last line
+card's name and power limit, one ``kernels`` line (launches counted
+on phase 9's path, and by path), and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
@@ -519,6 +544,94 @@ def case_migrate(dtype, slots=4, cap=8192, W=2, kvs=8, P=64, dh=128):
     return [gather, copy]
 
 
+def case_slot_move(dtype, slots=4, cap=4096, cap_to=8192, kvs=8, P=64,
+                   dh=128, slot=1, to_slot=2):
+    """One layer of a merge's slot move at cluster-serve's shapes: slot
+    ``slot`` of a one-worker donor (``slots`` x ``cap`` tokens, every kv
+    head) exported by ``kv_transform.export_slot`` (the gather kernel,
+    all heads as one slice) and landed by ``import_slot`` in slot
+    ``to_slot`` of the grown target's pool (``slots`` x ``cap_to``; the
+    copy kernel).  Each wrapper is held bit-equal to its plain version
+    on the same inputs; the landed pages equal the donor's own and every
+    other page of the target keeps its bytes.  Kernel and library times
+    are taken with L2 evicted (``time_ms_cold``), ``*_warm_l2`` back to
+    back.  ``library_ms``: the same move by one indexing call (never on
+    the path)."""
+    from repro_torch.core import kv_transform as KT
+    from repro_torch.kernels import page_migrate as PM
+    from repro_torch.kernels import ref
+    from repro_torch.paged import pool as pp
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(8)
+    mps, mps_to = cap // P, cap_to // P
+    donor = pp.make_state(slots * mps, kvs, P, dh, slots, mps, dtype=dtype,
+                          device=dev)
+    target = pp.make_state(slots * mps_to, kvs, P, dh, slots, mps_to,
+                           dtype=dtype, device=dev)
+    for st in (donor, target):
+        st.pool.copy_(torch.randn(st.pool.shape, generator=g, device=dev))
+    own = donor.pool[slot * mps:(slot + 1) * mps].clone()
+    ids = torch.arange(slot * mps, (slot + 1) * mps, dtype=torch.int32,
+                       device=dev)
+    zeros = torch.zeros_like(ids)
+    sub = KT.export_slot(donor, slot)
+    assert torch.equal(sub.pool, ref.gather_page_slices_ref(
+        donor.pool, ids, zeros, kvs)) and torch.equal(sub.pool, own), "export"
+    src = torch.arange(mps, dtype=torch.int32, device=dev)
+    dst = src + to_slot * mps_to
+    want = ref.copy_page_slices_ref(sub.pool, target.pool.clone(), src,
+                                    zeros, dst, zeros, kvs)
+    KT.import_slot(target, sub, to_slot)
+    assert torch.equal(target.pool, want), "import"
+    assert torch.equal(target.pool[dst.long()], own), "landed pages"
+    move = 2 * nbytes(own)                      # each byte read + written
+    il, dl = ids.long(), dst.long()
+    # a slot (16 MiB in bf16) fits the 50 MB L2: calls back to back would
+    # read it from there, so ``ms`` evicts it first, as a merge finds it
+    timing = "L2 evicted before every call (a 64 MiB buffer read)"
+
+    def gather_k():
+        return PM.gather_page_slices(donor.pool, ids, zeros,
+                                     heads_per_slice=kvs)
+
+    def copy_k():
+        return PM.copy_page_slices(sub.pool, target.pool, src, zeros, dst,
+                                   zeros, heads_per_slice=kvs)
+
+    def gather_l():
+        return donor.pool.index_select(0, il)
+
+    def copy_l():
+        return target.pool.index_copy_(0, dl, sub.pool)
+
+    case = (f"one slot of {cap} tokens, {slots} x {cap} -> {slots} x "
+            f"{cap_to} pool, kvs={kvs}, P={P}")
+    gather = dict(
+        kernel="gather_page_slices",
+        case=case + f": merge export of slot {slot}",
+        max_abs_err=0.0, bit_equal=True,
+        ms=time_ms_cold(gather_k, 50), ms_warm_l2=time_ms(gather_k, 50),
+        plain_ms=time_ms(lambda: ref.gather_page_slices_ref(
+            donor.pool, ids, zeros, kvs), 20),
+        library_ms=time_ms_cold(gather_l, 20),
+        library_ms_warm_l2=time_ms(gather_l, 20), timing=timing,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(move + nbytes(ids, zeros), 0, dtype))))
+    copy = dict(
+        kernel="copy_page_slices",
+        case=case + f": merge import into slot {to_slot}",
+        max_abs_err=0.0, bit_equal=True,
+        ms=time_ms_cold(copy_k, 50), ms_warm_l2=time_ms(copy_k, 50),
+        plain_ms=time_ms(lambda: ref.copy_page_slices_ref(
+            sub.pool, target.pool, src, zeros, dst, zeros, kvs), 20),
+        library_ms=time_ms_cold(copy_l, 20),
+        library_ms_warm_l2=time_ms(copy_l, 20), timing=timing,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(move + nbytes(src, zeros, dst, zeros), 0,
+                            dtype))))
+    return [gather, copy]
+
+
 def row_term(out, want, dtype) -> float:
     """The largest share of its row's RMS that an element of ``out``
     needed beyond one bf16 ulp: what the FFN check's FFN_ROW_TOL term
@@ -714,6 +827,8 @@ def phase_kernels():
                  (case_flash, {}), (case_flash, dict(S=1000)),
                  (case_flash, dict(S=600)),   # a ragged whole prompt
                  (case_migrate, {}),
+                 # cluster-serve's merge: a donor slot's export and import
+                 (case_slot_move, dict(slot=1, to_slot=2)),
                  (case_ffn, {}), (case_ffn, dict(T=512)),
                  (case_ffn, dict(tp=1)), (case_ffn, dict(T=512, tp=1)),
                  # the worker engine's prefill chunk and a remainder
@@ -1042,6 +1157,344 @@ def phase_transform_w4():
          dtype=cfg.dtype, workers=4, prompts=[len(p) for p in prompts],
          round_trip_equals_untransformed=True,
          seconds=time.monotonic() - t0)
+
+
+def sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def mem_gb(dev: str):
+    return torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else None
+
+
+def slot_pages(eng, layer, slot: int, n=None):
+    """The first ``n`` (default: all) pages of ``slot`` in ``layer``'s
+    cache, on the worker that holds the slot."""
+    w, local = eng._holder(layer, slot)
+    st = layer.cache[w]
+    mps = st.page_table.shape[-1]
+    return st.pool[local * mps:local * mps + (n or mps)]
+
+
+class ExportLog:
+    """Keeps a host copy of every merge donor's slot pages (each layer's,
+    taken from the donor's own pool before it exports them) by wrapping
+    ``Engine.export_active`` until ``close``."""
+
+    def __init__(self):
+        from repro_torch.serving.engine import Engine
+        self.Engine, self.orig, self.seen = Engine, Engine.export_active, []
+        log = self
+
+        def export_active(eng):
+            log.seen.extend(
+                (r.rid, [slot_pages(eng, layer, slot).to("cpu", copy=True)
+                         for layer in eng.layers])
+                for slot, r in enumerate(eng.slots) if r is not None)
+            return log.orig(eng)
+
+        Engine.export_active = export_active
+
+    def close(self):
+        self.Engine.export_active = self.orig
+
+
+def cluster_actions(cl) -> list:
+    return [[type(a).__name__, a.iid, a.tp_to,
+             list(getattr(a, "donor_iids", ())), a.reason]
+            for a in cl.actions]
+
+
+def check_merge_bytes(cl, seen) -> int:
+    """The slot pages the merge target imported equal, byte for byte,
+    the donor's own pages from before the export; returns the bytes
+    compared."""
+    merge = cl.merge_log[0]
+    target = cl._engine(merge["iid"])
+    slot_of = dict(merge["slots"])
+    assert seen and {rid for rid, _ in seen} == set(slot_of), seen
+    n = 0
+    for rid, pages in seen:
+        for layer, own in zip(target.layers, pages):
+            got = slot_pages(target, layer, slot_of[rid], own.shape[0])
+            assert torch.equal(got.cpu(), own), ("imported KV", rid)
+            n += own.numel() * own.element_size()
+    return n
+
+
+def revived_serves(cl, donor_iid: int, prompt, new: int, first_rid=None):
+    """On an idle cluster after a split: one request per engine through
+    the router (``cl.submit``), which must place one on the revived
+    donor.  Returns the requests."""
+    from repro_torch.serving import ServeRequest
+    assert cl.idle and not any(e.parked for e in cl.engines)
+    posts = [ServeRequest(prompt, max_new_tokens=new,
+                          **({} if first_rid is None
+                             else {"rid": first_rid + k}))
+             for k in range(len(cl.engines))]
+    for p in posts:
+        cl.submit(p)
+    placed = {cl.placements.get(p.rid) for p in posts}
+    assert donor_iid in placed and placed <= {
+        e.iid for e in cl.engines}, (placed, donor_iid)
+    return posts
+
+
+def phase_cluster_parity(dev: str = "cuda", cfg=None, max_seq: int = 512,
+                         lens=(60, 150, 90), long_len: int = 700,
+                         page_tokens: int = 64):
+    """Full width, 2 layers, fp32: a ClusterEngine of 2 instances x 1
+    worker and of 2 x 2 on the card merges for a request only the merged
+    engine holds; streams equal an engine started at the merged width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.weight_transform import relayout_mlp_for_tp
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+    from repro_torch.serving.metrics import METRIC_KEYS
+
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                                     dtype="float32")
+    t0 = time.monotonic()
+    gen = torch.Generator().manual_seed(17)
+    prompts = _prompts(gen, tuple(lens) + (long_len,), cfg.vocab_size)
+    post_prompt = _prompts(gen, (min(lens),), cfg.vocab_size)[0]
+    out = []
+    for per in (1, 2):
+        ndev = 2 * per
+        plan = make_plan(cfg, ndev, mode="page")
+        model = M.build(cfg, plan, seed=0, device=dev)
+        for blk in model.layers:
+            blk.mlp["wi"].data, blk.mlp["wo"].data = relayout_mlp_for_tp(
+                blk.mlp["wi"].data, blk.mlp["wo"].data, cfg.d_ff, ndev)
+        log = ExportLog()
+        try:
+            cl = ClusterEngine(cfg, [dev] * ndev, n_instances=2,
+                               max_batch=4, max_seq=max_seq,
+                               page_tokens=page_tokens, params=model,
+                               dwell_steps=4)
+            reqs = [ServeRequest(p, max_new_tokens=16, rid=i)
+                    for i, p in enumerate(prompts)]
+            for r in reqs[:-1]:
+                cl.submit(r)
+            while any(not r.generated for r in reqs[:-1]):
+                cl.step()
+            assert all(any(s is not None for s in e.slots)
+                       for e in cl.engines), "both instances decode"
+            cl.submit(reqs[-1])
+            merges = [a for a in cl.actions if getattr(a, "donor_iids", ())]
+            assert merges and merges[0].tp_to == ndev, cl.actions
+            nbytes = check_merge_bytes(cl, log.seen)
+        finally:
+            log.close()
+        cl.run(max_steps=20000)
+        acts = cluster_actions(cl)
+        assert [a[0] for a in acts] == ["ScaleUp", "ScaleDown"], acts
+        assert cl.stall_steps == 0 and cl.tokens_during_session > 0
+        cl.partition.check_invariants()
+        assert not cl.partition.loans_to(merges[0].iid)
+        assert not any(e.parked for e in cl.engines)
+        # the revived donor is routed to again and serves
+        posts = revived_serves(cl, merges[0].donor_iids[0], post_prompt, 8,
+                               first_rid=len(reqs))
+        cl.run(max_steps=20000)
+        assert all(len(p.generated) == 8 for p in posts)
+        assert list(cl.metrics()) == list(METRIC_KEYS)
+        streams = [r.generated for r in reqs]
+        del cl
+        free_card() if dev == "cuda" else None
+        # each request alone on an engine started at the merged width
+        eng = Engine(cfg, params=model, devices=[dev] * ndev, max_batch=4,
+                     max_seq=2 * max_seq, page_tokens=page_tokens,
+                     plan=plan)
+        eng.transform(ndev)
+        while eng.transforming:
+            eng.step()
+        for r, got in zip(prompts, streams):
+            want = ServeRequest(r, max_new_tokens=16)
+            eng.submit(want)
+            eng.run_until_done()
+            assert want.generated == got, ("merged stream", ndev)
+        del eng, model
+        free_card() if dev == "cuda" else None
+        out.append({"instances": 2, "workers_each": per, "actions": acts,
+                    "imported_kv_bytes_equal": nbytes,
+                    "stall_steps": 0, "streams_equal_tp%d" % ndev: True,
+                    "donor_revived_serves": True})
+    emit(phase="cluster-parity", layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, prompts=list(lens) + [long_len], cases=out,
+         seconds=time.monotonic() - t0)
+
+
+def phase_cluster_serve(smi: str, dev: str = "cuda", cfg=None,
+                        max_seq: int = 4096, lens=(300, 1200, 3500),
+                        long_len: int = 6000, new: int = 128,
+                        long_new: int = 32, page_tokens: int = 64,
+                        post_len: int = 500):
+    """Full-size llama3-8b in bf16, 2 instances x 1 worker of the card:
+    a live merge for a 6000-token request while both decode, its chunked
+    prefill on the merged TP2 engine, the Alg-2 split after the dwell
+    and the donor's revive, then a request for each engine through the
+    router.  Returns the six kernels' launches on this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+    from repro_torch.serving.metrics import METRIC_KEYS
+
+    cfg = cfg or get_config("llama3-8b")
+    t0 = time.monotonic()
+    cl = ClusterEngine(cfg, [dev] * 2, n_instances=2, max_batch=4,
+                       max_seq=max_seq, page_tokens=page_tokens, seed=0)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(23)
+    for e in cl.engines:        # warm-up: library handles, allocator
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        e.submit(warm)
+        e.run_until_done()
+    mem = {}
+    orig_park, orig_revive = Engine.park, Engine.revive
+
+    def park(eng):
+        out = orig_park(eng)
+        mem["after_park"] = mem_gb(dev)
+        return out
+
+    def revive(eng, workers, params):
+        mem["after_split"] = mem_gb(dev)
+        orig_revive(eng, workers, params)
+        mem["after_revive"] = mem_gb(dev)
+
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    long_ = ServeRequest(_prompts(gen, (long_len,), cfg.vocab_size)[0],
+                         max_new_tokens=long_new)
+    post_prompt = _prompts(gen, (post_len,), cfg.vocab_size)[0]
+    posts = []
+    steps = []   # (where, wall s, decode tokens, prefill work this step?)
+
+    def where():
+        e = cl._engine(cl.merge_log[0]["iid"]) if cl.merge_log else None
+        if e is None:
+            return "TP1 x2 instances"
+        if e.transforming:
+            return ("merge session" if e.tp_pending > 1
+                    else "split session")
+        return f"TP{e.tp} merged" if e.tp > 1 else "TP1 after split"
+
+    def progress():
+        return (sum(len(e.waiting) for e in cl.engines) + len(cl.waiting),
+                sum(p["done"] for e in cl.engines
+                    for p in e._prefilling.values()))
+
+    def step():
+        before, w = progress(), where()
+        sync(dev)
+        t = time.monotonic()
+        live = reqs + [long_] + posts
+        decoding = {id(r): len(r.generated) for r in live}
+        cl.step()
+        sync(dev)
+        wall = time.monotonic() - t
+        dec = sum(len(r.generated) - decoding[id(r)] for r in live
+                  if decoding[id(r)] > 0)
+        steps.append((w, wall, dec, before != progress()))
+
+    Engine.park, Engine.revive = park, revive
+    log = ExportLog()
+    try:
+        reset_launch_counts()
+        t_run = time.monotonic()
+        for r in reqs:
+            cl.submit(r)
+        while any(not r.generated for r in reqs):
+            step()
+        for _ in range(8):             # both instances decode
+            step()
+        assert sorted(set(cl.placements.values())) == [0, 1], cl.placements
+        mem["before_merge"] = mem_gb(dev)
+        cl.submit(long_)
+        merge = cl.merge_log[0] if cl.merge_log else None
+        assert merge and merge["donors"], cl.actions
+        mem["after_merge_submit"] = mem_gb(dev)
+        target = cl._engine(merge["iid"])
+        donor = cl._engine(merge["donors"][0])
+        assert donor.parked and target.transforming and target.W == 2
+        merge_kv_bytes = check_merge_bytes(cl, log.seen)
+        log.close()
+        while not long_.done:
+            step()
+        while target.transforming or cl._releasing or any(
+                e.parked for e in cl.engines):
+            step()
+            assert len(steps) < 20000
+        while not cl.idle:
+            step()
+            assert len(steps) < 20000
+        posts += revived_serves(cl, donor.iid, post_prompt, 16)
+        while not cl.idle:
+            step()
+        wall = time.monotonic() - t_run
+        launches = launch_counts()
+    finally:
+        Engine.park, Engine.revive = orig_park, orig_revive
+        log.close()
+    acts = cluster_actions(cl)
+    assert [a[0] for a in acts] == ["ScaleUp", "ScaleDown"], acts
+    assert acts[0][3] == [donor.iid], acts
+    assert cl.stall_steps == 0 and cl.tokens_during_session > 0
+    for r in reqs + [long_] + posts:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert len(long_.generated) == long_new
+    assert all(len(p.generated) == 16 for p in posts)
+    # every kernel of the path launched (only CUDA calls count)
+    assert dev != "cuda" or all(n > 0 for n in launches.values()), launches
+    cl.partition.check_invariants()
+    m = cl.metrics()
+    assert list(m) == list(METRIC_KEYS)
+    sessions = []
+    for log in target.transform_log:
+        sessions.append({k: log[k] for k in (
+            "tp_from", "tp_to", "cross", "steps", "wall_s", "measured_s",
+            "exposed_s", "modeled_s", "kv_bytes", "weight_bytes")})
+    emit(phase="cluster-serve", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, instances=2, workers_each=1,
+         prompts=list(lens), new_tokens=new, long_prompt=long_len,
+         actions=acts, weights_init_s=t_init, wall_s=wall,
+         sessions=sessions, stall_steps=cl.stall_steps,
+         session_steps=cl.session_steps,
+         tokens_during_session=cl.tokens_during_session,
+         steps_by_phase=step_summary(steps),
+         imported_kv_bytes_equal=merge_kv_bytes,
+         ttft_s=[r.ttft for r in reqs + [long_] + posts],
+         tpot_s=[r.tpot for r in reqs + [long_] + posts],
+         tokens_per_s=sum(len(r.generated) for r in reqs + [long_] + posts)
+         / wall, metrics={k: None if v != v else v for k, v in m.items()},
+         memory_allocated_gb=mem, launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del cl, target, donor
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def phase_serve_cli():
+    """The port's entry point with its defaults (reduced llama3-8b, fp32,
+    4 workers of the card) as a subprocess; its [serve] lines echoed."""
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    lines = [l for l in out.stdout.splitlines() if l.startswith("[serve]")]
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert any(" -> TP2 " in l for l in lines), lines
+    assert "[serve] final TPs: [1, 1]" in lines, lines
+    emit(phase="serve-cli", lines=lines, seconds=time.monotonic() - t0)
 
 
 def launch_counts() -> dict:
@@ -1379,16 +1832,22 @@ def main():
     launches.update({k: v for k, v in phase_transform_serve(smi).items()
                      if k not in launches})
     phase_transform_w4()
+    phase_cluster_parity()
+    # this slice's path: every kernel launches on it (phase 9)
+    cluster = phase_cluster_serve(smi)
+    phase_serve_cli()
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = main_cases[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": cluster[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "case": r["case"], "dtype": r["dtype"]})
+            "case": r["case"], "dtype": r["dtype"],
+            "launches_by_path": {"serve / transform-serve": launches[name],
+                                 "cluster-serve": cluster[name]}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,15 @@ The counterpart of ``repro.core.kv_transform``.  Two planes:
   the card (ROADMAP queue 1 item 9) replaces them.  The reference's TPU
   link constants have no counterpart here.
 * **Data plane** (torch): pool merge/split references, the slot-capacity
-  resize, the cross-pool page import and the sharded TP1 x W <-> TPW
+  resize, the cross-engine slot export and import (a merge donor's
+  in-flight KV: ``export_slot`` packs a slot's pages with the gather
+  kernel, ``import_slot`` lands them at the head of a free slot's wider
+  page range with the scatter kernel) and the sharded TP1 x W <-> TPW
   migration over a worker list (gather kernel per worker, the mesh's
   all-to-all, then placement), exactly as the reference's shard_map
-  pipeline does.
+  pipeline does.  The sharded migration also runs between two
+  assemblies: TP1 over a merge target's own workers to TP over those
+  plus the adopted ones, and back.
 """
 from __future__ import annotations
 
@@ -201,55 +206,96 @@ def migrate_slot_pages(src_pool: torch.Tensor, dst_pool: torch.Tensor,
                                heads_per_slice=dst_pool.shape[1])
 
 
+def export_slot(state: PagedState, slot: int) -> PagedState:
+    """A merge donor's slot as a self-contained batch-1 state: its pages
+    ``[slot*mps, (slot+1)*mps)`` packed by the gather kernel (every head
+    as one slice, one contiguous segment a page) under an identity page
+    table, with copies of its ``seq_lens`` and ``positions`` rows.  The
+    counterpart of the reference's ``_extract_slot_cache``."""
+    mps = state.page_table.shape[-1]
+    dev = state.pool.device
+    ids = torch.arange(slot * mps, (slot + 1) * mps, dtype=torch.int32,
+                       device=dev)
+    pool = PM.gather_page_slices(state.pool, ids, torch.zeros_like(ids),
+                                 heads_per_slice=state.pool.shape[1])
+    return PagedState(pool,
+                      torch.arange(mps, dtype=state.page_table.dtype,
+                                   device=dev)[None],
+                      state.seq_lens[slot:slot + 1].clone(),
+                      state.positions[slot:slot + 1].clone())
+
+
+def import_slot(state: PagedState, sub: PagedState, slot: int) -> None:
+    """Land an exported batch-1 state in ``slot`` of ``state``, in place
+    (the reference's ``_import_slot_cache``): its pages at the head of
+    the slot's (wider) page range through ``migrate_slot_pages``, its
+    cursor and stored positions in the slot's rows; the positions past
+    the donor's capacity stay invalid.  ``sub`` may lie on another
+    device."""
+    mps_d, mps_s = state.page_table.shape[-1], sub.page_table.shape[-1]
+    assert mps_s <= mps_d, "donor slots cannot exceed the grown target's"
+    migrate_slot_pages(sub.pool, state.pool, mps_s, slot * mps_d)
+    dev = state.pool.device
+    state.seq_lens[slot:slot + 1].copy_(sub.seq_lens.to(dev))
+    pos = state.positions[slot]
+    pos.fill_(-1)
+    pos[:sub.positions.shape[-1]].copy_(sub.positions[0].to(dev))
+
+
 # ---------------------------------------------------------------------------
 # Data plane: the sharded migration over a worker list (paper §4.1)
 # ---------------------------------------------------------------------------
 
-def migrate_scale_up_sharded(pools: List[torch.Tensor], mesh
+def migrate_scale_up_sharded(pools: List[torch.Tensor], mesh, dst=None
                              ) -> List[torch.Tensor]:
-    """Header-centric TP1 x W -> TPW.  ``pools[w]``: worker w's local
-    pages, all heads (NP, H, 2, P, dh).  Returns each worker's pool after
-    the migration: every global page (u*NP + p), its head slice
-    (W*NP, H/W, 2, P, dh).  Per worker the gather kernel packs one
-    contiguous segment per (page, destination); the mesh's all-to-all
+    """Header-centric TP1 x W -> TPW'.  ``pools[u]``: worker u of
+    ``mesh``'s local pages, all heads (NP, H, 2, P, dh).  Returns the
+    pool of each worker of ``dst`` (default ``mesh``; a merge's widened
+    assembly) after the migration: every global page (u*NP + p), its
+    head slice (W*NP, H/W', 2, P, dh).  Per worker the gather kernel
+    packs one contiguous segment per (page, destination); the all-to-all
     delivers them, and the received buffer IS the new pool (global page
     id u*NP + p is the identity placement)."""
-    W = mesh.W
+    dst = dst or mesh
+    Wd = dst.W
     NP, H = pools[0].shape[:2]
-    assert H % W == 0, (H, W)
+    assert H % Wd == 0, (H, Wd)
     send = []
     for pool in pools:
-        pages, hblk = PM.scale_up_send_index(NP, W, pool.device)
+        pages, hblk = PM.scale_up_send_index(NP, Wd, pool.device)
         send.append(PM.gather_page_slices(pool, pages, hblk,
-                                          heads_per_slice=H // W))
-    return mesh.all_to_all(send)
+                                          heads_per_slice=H // Wd))
+    return mesh.all_to_all(send, dst)
 
 
-def migrate_scale_down_sharded(pools: List[torch.Tensor], mesh
+def migrate_scale_down_sharded(pools: List[torch.Tensor], mesh, dst=None
                                ) -> List[torch.Tensor]:
     """Reverse of ``migrate_scale_up_sharded``.  ``pools[w]``: every
-    global page, head slice w (NPt, H/W, 2, P, dh).  Returns worker w's
-    local pages [w*NP, (w+1)*NP) with all heads (NP, H, 2, P, dh): each
-    worker ships its head slice of u's pages to u, and the scatter
-    kernel places each arrival at head block (sender) of its page."""
+    global page, head slice w of worker w of ``mesh`` (NPt, H/W, 2, P,
+    dh).  Returns worker u of ``dst`` (default ``mesh``; a split's home
+    assembly, of W' workers) its local pages [u*NP, (u+1)*NP) with all
+    heads (NP, H, 2, P, dh), NP = NPt/W': each worker ships its head
+    slice of u's pages to u, and the scatter kernel places each arrival
+    at head block (sender) of its page."""
+    dst = dst or mesh
     W = mesh.W
     NPt, hps = pools[0].shape[:2]
-    assert NPt % W == 0, (NPt, W)
-    NP = NPt // W
+    assert NPt % dst.W == 0, (NPt, dst.W)
+    NP = NPt // dst.W
     send = []
     for pool in pools:
         ids = torch.arange(NPt, dtype=torch.int32, device=pool.device)
         send.append(PM.gather_page_slices(pool, ids, torch.zeros_like(ids),
                                           heads_per_slice=hps))
-    recv = mesh.all_to_all(send)
+    recv = mesh.all_to_all(send, dst)
     out = []
     for buf in recv:
         dev = buf.device
         ids = torch.arange(W * NP, dtype=torch.int32, device=dev)
         zeros = torch.zeros_like(ids)
         dst_pages, dst_hblk = PM.scale_up_send_index(NP, W, dev)
-        dst = torch.empty((NP, W * hps, *buf.shape[2:]), dtype=buf.dtype,
-                          device=dev)
-        out.append(PM.copy_page_slices(buf, dst, ids, zeros, dst_pages,
+        pool = torch.empty((NP, W * hps, *buf.shape[2:]), dtype=buf.dtype,
+                           device=dev)
+        out.append(PM.copy_page_slices(buf, pool, ids, zeros, dst_pages,
                                        dst_hblk, heads_per_slice=hps))
     return out

@@ -32,7 +32,16 @@ Differences from the reference:
     its last op (wall clock on the CPU), and ``blocked_s`` is the host
     time issuing it plus that wait.
   * Embedding and head are replicated in both layouts, so the final
-    step carries no static-parameter span.
+    step carries a static-parameter span only on a cross-assembly
+    session (a merge onto adopted workers or a split back home), where
+    the workers change.
+
+Cross-assembly sessions (the counterpart of the reference's
+``cross`` sessions) run the layer-coherent scale-up schedule on a merge;
+the scale-down schedule is coherent already.  A layer's tensors move
+from its old assembly to its new one as a group: an adopted worker gets
+its shard copied from a worker holding the replica, and on a split the
+adopted workers' tensors are dropped as each layer leaves them.
 """
 from __future__ import annotations
 
@@ -162,33 +171,51 @@ def seesaw_cost(cfg: ModelConfig, plan: PaddingPlan, n_layers: int,
 # ---------------------------------------------------------------------------
 
 def open_owner_session(owner, tp_to: int, layers_per_step: int = 1,
-                       storage_layout: str = "header_centric"
+                       storage_layout: str = "header_centric",
+                       devices: Optional[List] = None
                        ) -> "TransformSession":
-    """Open a session on anything owning ``layers/cfg/plan/tp/mesh/
-    page_tokens/_session`` (the serving engine): a full merge
-    (TP1 x W -> TPW) or decompose (TPW -> TP1 x W)."""
+    """Open a session on anything owning ``layers/static/cfg/plan/tp/
+    mesh/page_tokens/_session`` (the serving engine): a full merge
+    (TP1 x W -> TPW') or decompose (TPW -> TP1 x W') onto the workers
+    ``devices`` (default: the owner's own).  When those are not the
+    owner's current assembly the session is CROSS-assembly (a merge
+    onto adopted workers, or a split back onto the home workers): its
+    schedule is layer-coherent (every step moves whole layers), so each
+    layer sits on exactly one assembly at any time and serving goes on
+    through the session."""
     assert owner._session is None, "transformation already in progress"
-    tp_from, W = owner.tp, owner.mesh.W
-    assert {tp_from, tp_to} == {1, W}, (tp_from, tp_to, W)
-    n = len(owner.layers)
+    mesh_from = owner.mesh
+    workers = mesh_from.workers if devices is None else list(devices)
+    tp_from = owner.tp
     if tp_to > tp_from:
-        sched = scale_up_schedule(n, layers_per_step, tp_from, tp_to)
+        ok = tp_from == 1 and tp_to == len(workers)
+    else:
+        ok = tp_to == 1 and tp_from == mesh_from.W
+    assert ok, (tp_from, tp_to, mesh_from.W, len(workers))
+    mesh_to = InstanceMesh(workers, tp_to)
+    n = len(owner.layers)
+    cross = not mesh_from.same_workers(mesh_to)
+    if tp_to > tp_from:
+        sched = scale_up_schedule(n, layers_per_step, tp_from, tp_to,
+                                  coherent=cross)
     else:
         sched = scale_down_schedule(n, layers_per_step, tp_from, tp_to)
     sched.layout_from, sched.layout_to = Layout.of(tp_from), Layout.of(tp_to)
     session = TransformSession(
-        owner.layers, sched, owner.cfg, owner.plan,
-        mesh_to=InstanceMesh(owner.mesh.devices, tp_to),
-        page_tokens=owner.page_tokens, storage_layout=storage_layout)
+        owner.layers, sched, owner.cfg, owner.plan, mesh_to=mesh_to,
+        page_tokens=owner.page_tokens, storage_layout=storage_layout,
+        mesh_from=mesh_from, static=owner.static)
     owner._session = session
     return session
 
 
 def close_owner_session(owner) -> "TransformSession":
-    """Flip the owner's mesh and ``tp`` to the drained session's target."""
+    """Flip the owner's mesh, static weights and ``tp`` to the drained
+    session's target."""
     session = owner._session
     assert session is not None and session.done, "schedule steps remain"
     owner.mesh = session.mesh_to
+    owner.static = session.static
     owner.tp = session.schedule.tp_to
     owner._session = None
     return session
@@ -214,6 +241,9 @@ class StepReport:
     # bytes of the pools they migrated
     kv_bytes: int = 0
     kv_pool_bytes: int = 0
+    # weight bytes that crossed assemblies (copied to a merge's adopted
+    # workers, gathered from a split's shed ones)
+    weight_bytes: int = 0
 
 
 def _sync(devices) -> None:
@@ -224,17 +254,31 @@ def _sync(devices) -> None:
 class TransformSession:
     """Executes a ``Schedule`` step by step against per-worker layers.
     Between steps the owner keeps serving through the per-layer walks
-    (``models.model.walk_layers``), which read each layer's layouts as
-    they reach it."""
+    (``models.model.walk_layers``), which read each layer's layouts and
+    assembly as they reach it.
+
+    A CROSS-assembly session (``mesh_from`` and ``mesh_to`` hold
+    different workers: a merge or a split) needs a layer-coherent
+    schedule, moves each layer's norms with it, and moves the non-layer
+    ``static`` weights (embedding, final norm, head; replicated) once
+    every layer group of the final step is out, as the reference's
+    static span: until then ``static_mesh`` is ``mesh_from``."""
 
     def __init__(self, layers: List[I.WorkerLayer], schedule: Schedule,
                  cfg: ModelConfig, plan: PaddingPlan, mesh_to,
                  page_tokens: int, link: KT.LinkModel = KT.LinkModel(),
-                 storage_layout: str = "header_centric"):
+                 storage_layout: str = "header_centric", mesh_from=None,
+                 static: Optional[List[Dict]] = None):
         self.layers = layers
         self.schedule = schedule
         self.cfg, self.plan = cfg, plan
         self.mesh_to = mesh_to
+        self.mesh_from = mesh_to if mesh_from is None else mesh_from
+        self.static, self.static_mesh = static, self.mesh_from
+        self.cross = not self.mesh_from.same_workers(mesh_to)
+        assert not self.cross or schedule_is_layer_coherent(schedule), (
+            "cross-assembly sessions need layer-coherent schedule steps: "
+            "a layer split across two assemblies cannot serve")
         self.page_tokens = page_tokens
         self.link = link
         self.storage_layout = storage_layout
@@ -260,7 +304,7 @@ class TransformSession:
             return _mlp_stats(sched, self.cfg, self.plan, "padded").time_s(
                 self.link, overlap=op.overlap)
         pool = layer.cache[0].pool
-        W = self.mesh_to.W
+        W = layer.mesh.W
         if layer.attn_layout == I.TP:
             NPt, kvs = pool.shape[0], pool.shape[1] * W
         else:
@@ -273,35 +317,65 @@ class TransformSession:
             dtype_bytes=pool.element_size())
         return stats.time_s(self.link, overlap=op.overlap)
 
-    def _run_mlp(self, layer: I.WorkerLayer) -> None:
-        mesh = self.mesh_to
-        if self.target == I.TP:
-            layer.mlp = [I.shard_mlp(p, w, mesh.W)
-                         for w, p in enumerate(layer.mlp)]
-        else:
-            layer.mlp = I.gather_mlp(layer.mlp, mesh)
-        layer.mlp_layout = self.target
+    def _crossed_bytes(self, src, old: List[Dict], new: List[Dict]) -> int:
+        """Weight bytes that crossed assemblies: ``new`` (one dict a
+        worker of ``mesh_to``) on workers new to the layer (a merge's
+        adopted ones), plus ``old`` (one a worker of ``src``) on workers
+        the layer leaves (a split's).  0 in place."""
+        def nbytes(pairs, keep):
+            return sum(t.numel() * t.element_size() for wk, p in pairs
+                       if wk not in keep.workers
+                       for t in p.values() if t is not None)
 
-    def _run_kv(self, layer: I.WorkerLayer) -> Tuple[int, int]:
+        return (nbytes(zip(self.mesh_to.workers, new), src)
+                + nbytes(zip(src.workers, old), self.mesh_to))
+
+    def _run_mlp(self, layer: I.WorkerLayer) -> int:
+        """Re-split the layer's MLP weights; returns the bytes that
+        crossed assemblies."""
+        src, mesh, old = layer.mesh, self.mesh_to, layer.mlp
+        if self.target == I.TP:
+            layer.mlp = I.shard_across(old, src, mesh, I.shard_mlp)
+        else:
+            layer.mlp = I.gather_mlp(old, src, mesh)
+        layer.mlp_layout = self.target
+        return self._crossed_bytes(src, old, layer.mlp)
+
+    def _run_kv(self, layer: I.WorkerLayer) -> Tuple[int, int, int]:
         """Migrate the layer's pages and attention weights; returns the
-        bytes the gather, exchange and scatter read and wrote, and the
-        bytes of the migrated pool."""
-        mesh = self.mesh_to
+        bytes the gather, exchange and scatter read and wrote, the bytes
+        of the migrated pool and the attention bytes that crossed
+        assemblies."""
+        src, mesh, old = layer.mesh, self.mesh_to, layer.attn
         pools = [c.pool for c in layer.cache]
         pool_bytes = sum(p.numel() * p.element_size() for p in pools)
         if self.target == I.TP:
-            new = KT.migrate_scale_up_sharded(pools, mesh)
-            layer.cache = I.cache_to_tp(layer.cache, new, mesh)
-            layer.attn = [I.shard_attn(p, w, mesh.W)
-                          for w, p in enumerate(layer.attn)]
+            new = KT.migrate_scale_up_sharded(pools, src, mesh)
+            layer.cache = I.cache_to_tp(layer.cache, new, src, mesh)
+            layer.attn = I.shard_across(old, src, mesh, I.shard_attn)
             moved = 4 * pool_bytes       # gather r+w, exchange r+w
         else:
-            new = KT.migrate_scale_down_sharded(pools, mesh)
-            layer.cache = I.cache_to_rep(layer.cache, new, mesh)
-            layer.attn = I.gather_attn(layer.attn, mesh)
+            new = KT.migrate_scale_down_sharded(pools, src, mesh)
+            layer.cache = I.cache_to_rep(layer.cache, new, src, mesh)
+            layer.attn = I.gather_attn(old, src, mesh)
             moved = 6 * pool_bytes       # gather, exchange, scatter
         layer.attn_layout = self.target
-        return moved, pool_bytes
+        return moved, pool_bytes, self._crossed_bytes(src, old, layer.attn)
+
+    def _move_norms(self, layer: I.WorkerLayer) -> int:
+        """A cross-assembly layer group's last act: its norms follow the
+        weights, and the layer flips to ``mesh_to``."""
+        src = layer.mesh
+        moved = 0
+        if self.cross:
+            old = [{"a": a, "b": b} for a, b in zip(layer.ln1, layer.ln2)]
+            layer.ln1 = I.replicas_across(layer.ln1, src, self.mesh_to)
+            layer.ln2 = I.replicas_across(layer.ln2, src, self.mesh_to)
+            moved = self._crossed_bytes(
+                src, old, [{"a": a, "b": b}
+                           for a, b in zip(layer.ln1, layer.ln2)])
+        layer.mesh = self.mesh_to
+        return moved
 
     # -- execution ------------------------------------------------------
     def dispatch_step_begin(self) -> None:
@@ -321,27 +395,47 @@ class TransformSession:
         self._pending = {"ops": ops, "t0": time.perf_counter(),
                          "modeled": 0.0, "kernel": False, "dispatch_s": 0.0,
                          "groups": groups, "spans": [], "kv_bytes": 0,
-                         "kv_pool_bytes": 0}
+                         "kv_pool_bytes": 0, "weight_bytes": 0,
+                         "static": self.cross and (
+                             self._dispatched + 1 == self.schedule.n_steps)}
         self._dispatched += 1
 
     def dispatch_step_advance(self) -> bool:
-        """Issue ONE staged layer group.  Returns False when nothing is
-        left to issue."""
+        """Issue ONE staged layer group (on a cross-assembly session's
+        final step, once the groups are out, the static weights as one
+        more).  Returns False when nothing is left to issue."""
         p = self._pending
-        if p is None or not p["groups"]:
+        if p is None:
             return False
+        if not p["groups"]:
+            if not p["static"]:
+                return False
+            td = time.perf_counter()
+            p["static"] = False
+            old = self.static
+            self.static = I.replicas_across(old, self.static_mesh,
+                                            self.mesh_to)
+            p["weight_bytes"] += self._crossed_bytes(self.static_mesh, old,
+                                                     self.static)
+            self.static_mesh = self.mesh_to
+            dt = time.perf_counter() - td
+            p["dispatch_s"] += dt
+            p["spans"].append((-1, ("static",), td - p["t0"], dt))
+            return True
         td = time.perf_counter()
         layer_idx, ops = p["groups"].pop(0)
         layer = self.layers[layer_idx]
         for op in ops:
             p["modeled"] += self._modeled_op_s(op, layer)
             if op.component == "mlp":
-                self._run_mlp(layer)
+                p["weight_bytes"] += self._run_mlp(layer)
             else:
-                moved, pool_bytes = self._run_kv(layer)
+                moved, pool_bytes, wb = self._run_kv(layer)
                 p["kv_bytes"] += moved
                 p["kv_pool_bytes"] += pool_bytes
+                p["weight_bytes"] += wb
                 p["kernel"] = True
+        p["weight_bytes"] += self._move_norms(layer)
         dt = time.perf_counter() - td
         p["dispatch_s"] += dt
         p["spans"].append((layer_idx, tuple(op.component for op in ops),
@@ -372,7 +466,7 @@ class TransformSession:
         self.dispatch_step_drain()
         p, self._pending = self._pending, None
         t_wait = time.perf_counter()
-        _sync(self.mesh_to.devices)
+        _sync(self.mesh_from.devices + self.mesh_to.devices)
         wait_s = time.perf_counter() - t_wait
         rep = StepReport(ops=p["ops"],
                          seconds=time.perf_counter() - p["t0"],
@@ -381,7 +475,8 @@ class TransformSession:
                          blocked_s=p["dispatch_s"] + wait_s,
                          overlapped=overlapped, layer_spans=p["spans"],
                          kv_bytes=p["kv_bytes"],
-                         kv_pool_bytes=p["kv_pool_bytes"])
+                         kv_pool_bytes=p["kv_pool_bytes"],
+                         weight_bytes=p["weight_bytes"])
         self.reports.append(rep)
         self._next += 1
         return rep

@@ -1,29 +1,73 @@
-"""The instance ``Layout`` and the worker mesh of an engine.
+"""The instance ``Layout``, worker identities and the worker mesh of an
+engine.
 
 The counterpart of ``repro.launch.mesh``.  The reference is a single
 controller: one process drives every device of a ``(rep, sp, tp)``
 ``jax.sharding.Mesh``, and GSPMD places each array's shards.  The port's
-counterpart is one process holding a list of W worker devices, and the
-entries may repeat: W x ``cuda:0`` on one card, W x ``cpu`` in the
+counterpart is one process holding a list of W workers, and their
+devices may repeat: W x ``cuda:0`` on one card, W x ``cpu`` in the
 tests, ``cuda:0..W-1`` on a box with several cards.  Every byte that the
 reference's sharding places on worker w lives in a tensor that belongs
 to worker w, and no other worker's tensor aliases it, so a change of
 layout really copies every byte it moves, even when all workers share
 one device.
 
+A worker is a ``Worker(index, device)``: its index in the device pool
+and its torch device.  Everything that compares placements (the pool
+ledger, an engine's home and adopted workers, "does this session cross
+assemblies") compares workers, never devices: two workers on one card
+are two entries.
+
 The exchanges between workers (``all_to_all``, ``all_reduce_sum``,
 ``all_gather``, ``replicate``) copy between worker tensors with
 ``Tensor.copy_``: plain data movement, as ``lax.all_to_all`` is in the
-reference.  On several cards the same code does peer copies; that path
-is not proven (no multi-card run yet), and an NCCL exchange is later
-work.
+reference.  ``all_to_all``, ``all_gather`` and ``replicate`` also run
+between two assemblies (a layer's old workers and its new ones, in a
+cross-instance merge or split): the senders are this mesh's workers,
+the receivers those of ``dst``.  On several cards the same code does
+peer copies; that path is not proven (no multi-card run yet), and an
+NCCL exchange is later work.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card.  A CUDA device without a GPU raises: the
+    port never drops quietly to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the port runs on the GPU by default and none is "
+                "available; pass device='cpu' (or CPU workers) to run the "
+                "plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclass(frozen=True)
+class Worker:
+    """One worker of a device pool: ``index`` is its place in the pool,
+    ``device`` where its tensors live.  Hashable and equal by both, so
+    workers sharing a device stay distinct."""
+    index: int
+    device: torch.device
+
+    def __str__(self) -> str:
+        return f"w{self.index}@{self.device}"
+
+
+def workers_of(devices: Sequence) -> List[Worker]:
+    """Worker identities for a list of workers or devices: a ``Worker``
+    stays itself, device entry i becomes ``Worker(i, device)``."""
+    return [d if isinstance(d, Worker) else Worker(i, resolve_device(d))
+            for i, d in enumerate(devices)]
 
 
 @dataclass(frozen=True, order=True)
@@ -55,10 +99,11 @@ class Layout:
 
 
 class InstanceMesh:
-    """W worker devices arranged as ``(rep, tp)`` for one layout (sp = 1;
-    sequence-parallel layouts are ROADMAP queue 1 item 6)."""
+    """W workers arranged as ``(rep, tp)`` for one layout (sp = 1;
+    sequence-parallel layouts are ROADMAP queue 1 item 6).  ``devices``
+    may be workers or devices (``workers_of``)."""
 
-    def __init__(self, devices: Sequence[torch.device], layout):
+    def __init__(self, devices: Sequence, layout):
         lay = Layout.of(layout)
         W = len(devices)
         if lay.sp != 1:
@@ -68,28 +113,36 @@ class InstanceMesh:
         if W % lay.degree:
             raise ValueError(f"layout {lay} (degree {lay.degree}) does not "
                              f"divide {W} devices")
-        self.devices = [torch.device(d) for d in devices]
+        self.workers = workers_of(devices)
+        self.devices = [w.device for w in self.workers]
         self.layout = lay
 
     @property
     def W(self) -> int:
-        return len(self.devices)
+        return len(self.workers)
+
+    def same_workers(self, other: "InstanceMesh") -> bool:
+        return self.workers == other.workers
 
     # -- exchanges between workers ------------------------------------------
-    def replicate(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """One copy of ``x`` on each worker."""
-        return [x.to(d, copy=True) for d in self.devices]
+    def replicate(self, x: torch.Tensor, dst: Optional["InstanceMesh"] = None
+                  ) -> List[torch.Tensor]:
+        """One copy of ``x`` on each worker (of ``dst``)."""
+        return [x.to(d, copy=True) for d in (dst or self).devices]
 
-    def all_to_all(self, send: List[torch.Tensor]) -> List[torch.Tensor]:
-        """``send[u]`` is W equal chunks along dim 0; worker w receives
-        chunk w of every ``send[u]``, concatenated in u order."""
-        W = self.W
-        n = send[0].shape[0] // W
+    def all_to_all(self, send: List[torch.Tensor],
+                   dst: Optional["InstanceMesh"] = None
+                   ) -> List[torch.Tensor]:
+        """``send[u]``, from worker u of this mesh, is ``dst.W`` equal
+        chunks along dim 0; worker w of ``dst`` (default: this mesh)
+        receives chunk w of every ``send[u]``, concatenated in u order."""
+        dst = dst or self
+        n = send[0].shape[0] // dst.W
         recv = []
-        for w, dev in enumerate(self.devices):
-            out = torch.empty((W * n, *send[0].shape[1:]),
+        for w, dev in enumerate(dst.devices):
+            out = torch.empty((len(send) * n, *send[0].shape[1:]),
                               dtype=send[0].dtype, device=dev)
-            for u in range(W):
+            for u in range(len(send)):
                 out[u * n:(u + 1) * n].copy_(send[u][w * n:(w + 1) * n])
             recv.append(out)
         return recv
@@ -102,12 +155,13 @@ class InstanceMesh:
             total = total + x.to(total.device).float()
         return self.replicate(total.to(xs[0].dtype))
 
-    def all_gather(self, xs: List[torch.Tensor], dim: int
+    def all_gather(self, xs: List[torch.Tensor], dim: int,
+                   dst: Optional["InstanceMesh"] = None
                    ) -> List[torch.Tensor]:
-        """Each worker receives the workers' tensors concatenated along
-        ``dim``, in worker order."""
+        """Each worker (of ``dst``) receives this mesh's workers' tensors
+        concatenated along ``dim``, in worker order."""
         outs = []
-        for dev in self.devices:
+        for dev in (dst or self).devices:
             shape = list(xs[0].shape)
             shape[dim] = sum(x.shape[dim] for x in xs)
             out = torch.empty(shape, dtype=xs[0].dtype, device=dev)

@@ -1,0 +1,132 @@
+"""Serving launcher: a thin CLI over the port's ``ClusterEngine`` control
+plane (the counterpart of ``repro.launch.serve``, with its flags, trace
+and printed lines).
+
+The §5 scheduler (``GygesScheduler`` by default) routes every request and
+decides every transformation; this module only parses arguments, builds
+the trace, and prints what the control plane did.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch llama3-8b] \
+        [--instances 2] [--requests 16] [--long-every 5] [--scheduler gyges] \
+        [--device cuda] [--workers 4]
+
+The pool is ``--workers`` workers of ``--device``: by default 4 workers
+of the card (it raises without a GPU; ``--device cpu`` runs the plain
+PyTorch path).  The reference defaults to 8 fake devices; the port to 4,
+because at 8 the reduced ``llama3-8b`` (4 kv heads) would need
+replicated kv heads, which the port does not have yet (ROADMAP queue 1
+item 5).  Short requests spread over the TP1 instances, a long request
+triggers a scheduler-issued live scale-up (``Engine.transform``, one
+§4.3 schedule step per engine step), and the Alg-2 scan decomposes the
+instance once the long request drains.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
+from repro_torch.core.scheduler import SCHEDULERS, PrefillPolicy, ScaleUp
+from repro_torch.launch.mesh import resolve_device
+from repro_torch.serving.cluster import ClusterEngine
+from repro_torch.serving.request import ServeRequest
+
+
+def build_trace(n: int, long_every: int, cluster: ClusterEngine,
+                gen_tokens: int, seed: int = 0) -> list:
+    """Mixed short/long ServeRequests sized against the cluster's
+    admission ceilings: shorts fit a TP1 instance, longs need max TP."""
+    rng = np.random.default_rng(seed)
+    base = cluster.engines[0].max_seq_at(1)
+    full = cluster.engines[0].max_seq_at(cluster.engines[0].max_tp)
+    vocab = cluster.cfg.vocab_size
+    reqs = []
+    for i in range(n):
+        if long_every and (i + 1) % long_every == 0:
+            plen = max(1, full - gen_tokens - 1)
+        else:
+            plen = int(rng.integers(2, max(3, base - gen_tokens)))
+        prompt = rng.integers(0, vocab, size=plen).tolist()
+        reqs.append(ServeRequest(rid=i, prompt=prompt,
+                                 max_new_tokens=gen_tokens))
+    return reqs
+
+
+def _action_line(act) -> str:
+    kind = "scale-up" if isinstance(act, ScaleUp) else "scale-down"
+    return f"{kind} instance {act.iid} -> TP{act.tp_to} ({act.reason})"
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b", choices=ASSIGNED_ARCHS)
+    ap.add_argument("--instances", type=int, default=2)
+    ap.add_argument("--scheduler", default="gyges",
+                    choices=sorted(SCHEDULERS))
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--long-every", type=int, default=5,
+                    help="every Nth request is long-context (0 = none)")
+    ap.add_argument("--gen-tokens", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=0,
+                    help="slots per instance (0 = one per worker)")
+    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="chunked-prefill token budget per engine step "
+                         "(0 = whole-prompt prefill)")
+    ap.add_argument("--prefill-mode", default="mixed",
+                    choices=("prefill", "decode", "mixed"),
+                    help="prefill/decode priority when budgeted")
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="reduced model config (default)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of every worker (default the card)")
+    ap.add_argument("--workers", type=int, default=4,
+                    help="workers of --device in the pool")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch).reduced() if args.smoke \
+        else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    devs = [resolve_device(args.device)] * args.workers
+    w = len(devs) // args.instances
+    policy = (PrefillPolicy(token_budget=args.prefill_budget,
+                            mode=args.prefill_mode,
+                            long_threshold=args.max_seq // w or 1,
+                            order="sjf")
+              if args.prefill_budget else None)
+    cluster = ClusterEngine(
+        cfg, devs, n_instances=args.instances,
+        max_batch=args.max_batch or w, max_seq=args.max_seq,
+        scheduler=None if args.scheduler == "gyges"
+        else SCHEDULERS[args.scheduler](),
+        prefill_policy=policy)
+    print(f"[serve] {cfg.name}: {args.instances} instances x {w} devices, "
+          f"scheduler={cluster.scheduler.name}, "
+          f"TP1 ceiling {cluster.engines[0].max_seq_at(1)} tok, "
+          f"TP{w} ceiling {cluster.engines[0].max_seq_at(w)} tok")
+
+    trace = build_trace(args.requests, args.long_every, cluster,
+                        args.gen_tokens)
+    n_long = sum(1 for r in trace
+                 if cluster.scheduler.is_long(r.total_tokens))
+    print(f"[serve] trace: {len(trace)} requests ({n_long} long)")
+    seen = 0
+    for r in trace:
+        cluster.submit(r)
+        cluster.step()
+        for act in cluster.actions[seen:]:
+            print(f"[serve] step {cluster.steps}: {_action_line(act)}")
+        seen = len(cluster.actions)
+    m = cluster.run()   # drain + Alg-2 quiet window
+    for act in cluster.actions[seen:]:
+        print(f"[serve] drain: {_action_line(act)}")
+    print(f"[serve] final TPs: {[e.tp for e in cluster.engines]}")
+    print("[serve] " + ", ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in m.items()))
+
+
+if __name__ == "__main__":
+    main()

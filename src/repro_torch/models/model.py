@@ -217,29 +217,32 @@ def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, *, device
 # The counterpart of the reference's per-layer paths
 # (``repro.models.model.decode_step_layers`` / ``prefill_chunk_layers``).
 # Each layer's attention and MLP sit at a layout of ``core.instance``
-# (REP or TP) and, mid-transform, layers (and the two halves of a layer)
-# may sit at different layouts.  Activations of a row set (the decode
-# batch, or one prefilling slot) follow the layout of the sub-layer
-# about to run: at REP worker w holds the rows of its own slots; at TP
-# every worker holds all rows.  At a layout boundary they are joined
-# (an all-gather) or re-split (each worker slices its own copy): the
-# counterpart of ``_boundary_put``.  A TP sub-layer ends in an
+# (REP or TP) on the layer's assembly of workers (``WorkerLayer.mesh``)
+# and, mid-transform, layers (and the two halves of a layer) may sit at
+# different layouts, and layers on different assemblies (a merge or a
+# split).  Activations of a row set (the decode batch, or one
+# prefilling slot) follow the placement of the sub-layer about to run:
+# at REP worker w holds the rows of its own slots; at TP every worker
+# holds all rows.  At a layout boundary they are joined (an all-gather)
+# or re-split (each worker slices its own copy); at an assembly boundary
+# they move once from one assembly's workers to the other's.  This is
+# the counterpart of ``_boundary_put``.  A TP sub-layer ends in an
 # all-reduce-sum of the workers' partial outputs, after the attention
 # ``wo`` and after the MLP ``wo``.
 
 
 class RowSet:
-    """Global slots ``rows`` (sorted) of a ``batch``-slot engine on W
-    workers; ``span(layout, w)`` is the index range into ``rows`` that
-    worker w holds at that layout."""
+    """Global slots ``rows`` (sorted) of a ``batch``-slot engine;
+    ``span(layout, W, w)`` is the index range into ``rows`` that worker
+    w of a W-worker assembly holds at that layout."""
 
-    def __init__(self, rows: Sequence[int], batch: int, W: int):
-        self.rows, self.batch, self.W = list(rows), batch, W
+    def __init__(self, rows: Sequence[int], batch: int):
+        self.rows, self.batch = list(rows), batch
 
-    def span(self, layout: str, w: int) -> Tuple[int, int]:
+    def span(self, layout: str, W: int, w: int) -> Tuple[int, int]:
         if layout == I.TP:
             return 0, len(self.rows)
-        lo, hi = I.rows_of(I.REP, self.batch, self.W, w)
+        lo, hi = I.rows_of(I.REP, self.batch, W, w)
         idx = [i for i, r in enumerate(self.rows) if lo <= r < hi]
         return (idx[0], idx[-1] + 1) if idx else (0, 0)
 
@@ -248,67 +251,83 @@ class RowSet:
         """Worker w's cache for these rows: the whole cache for the full
         batch, else a batch-1 in-place view of the one slot (None when
         worker w holds none of the rows)."""
-        lo, hi = self.span(layer.attn_layout, w)
+        W = layer.mesh.W
+        lo, hi = self.span(layer.attn_layout, W, w)
         if hi == lo:
             return None
         cache = layer.cache[w]
         if len(self.rows) == self.batch:
             return cache
         assert len(self.rows) == 1, "row sets are one slot or the batch"
-        base = I.rows_of(layer.attn_layout, self.batch, self.W, w)[0]
+        base = I.rows_of(layer.attn_layout, self.batch, W, w)[0]
         return pp.slot_view(cache, self.rows[0] - base)
 
 
-def relayout(xs: List[torch.Tensor], src: str, dst: str, rows: RowSet,
-             mesh) -> List[torch.Tensor]:
-    """Move a row set's activations from layout ``src`` to ``dst``."""
-    if src == dst:
-        return xs
-    if dst == I.TP:                      # join: every worker, all rows
-        return mesh.all_gather(xs, 0)
-    out = []                             # re-split: own rows of own copy
-    for w, x in enumerate(xs):
-        lo, hi = rows.span(I.REP, w)
-        out.append(x[lo:hi])
-    return out
+def relayout(xs: List[torch.Tensor], src: Tuple, dst: Tuple,
+             rows: RowSet) -> List[torch.Tensor]:
+    """Move a row set's activations from placement ``src`` to ``dst``, a
+    placement being ``(layout, mesh)``."""
+    (lay_s, mesh_s), (lay_d, mesh_d) = src, dst
+    if mesh_s.same_workers(mesh_d):
+        if lay_s == lay_d:
+            return xs
+        if lay_d == I.TP:                # join: every worker, all rows
+            return mesh_s.all_gather(xs, 0)
+        return [x[slice(*rows.span(I.REP, mesh_s.W, w))]   # re-split
+                for w, x in enumerate(xs)]
+    # another assembly: join the rows once, then place them
+    full = xs[0] if lay_s == I.TP else torch.cat(
+        [x.to(xs[0].device) for x in xs])
+    if lay_d == I.TP:
+        return mesh_d.replicate(full)
+    return [full[slice(*rows.span(I.REP, mesh_d.W, w))].to(d, copy=True)
+            for w, d in enumerate(mesh_d.devices)]
 
 
 def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
-                cfg: ModelConfig, plan: PaddingPlan, mesh, rows: RowSet,
-                tokens: torch.Tensor, positions: torch.Tensor, mode: str,
-                first_chunk: bool = False,
+                cfg: ModelConfig, plan: PaddingPlan, static_mesh,
+                rows: RowSet, tokens: torch.Tensor, positions: torch.Tensor,
+                mode: str, first_chunk: bool = False,
                 on_layer: Optional[Callable[[int], None]] = None
                 ) -> torch.Tensor:
     """One forward pass of a row set over per-worker layers.
 
-    tokens, positions: (R, S) for the R rows (host tensors).  ``mode``:
-    ``decode`` (S = 1: append at the cursor, paged decode kernel),
-    ``seq`` (a whole prompt from position 0: flash kernel, then the
-    cache fill) or ``chunk`` (the chunk-prefill kernel with its
-    scatter).  ``on_layer(i)`` runs after layer i has been issued (the
-    transform session's hook).  Returns the last token's logits
-    (R, vocab_padded) on worker 0's device."""
-    W, devs = mesh.W, mesh.devices
+    ``static``: the embedding, final norm and head, one dict a worker of
+    ``static_mesh``.  tokens, positions: (R, S) for the R rows (host
+    tensors).  ``mode``: ``decode`` (S = 1: append at the cursor, paged
+    decode kernel), ``seq`` (a whole prompt from position 0: flash
+    kernel, then the cache fill) or ``chunk`` (the chunk-prefill kernel
+    with its scatter).  ``on_layer(i)`` runs after layer i has been
+    issued (the transform session's hook).  The MLP replicas are in the
+    Eq. 2 layout of ``plan.max_tp`` shards.  Returns the last token's
+    logits (R, vocab_padded) on ``static_mesh``'s worker 0."""
     eps = cfg.norm_eps
-    lay = layers[0].attn_layout if layers else I.TP
+    S = plan.max_tp
 
-    def part(t: torch.Tensor, layout: str, w: int) -> torch.Tensor:
-        lo, hi = rows.span(layout, w)
-        return t[lo:hi].to(devs[w])
+    def part(t: torch.Tensor, layout: str, mesh, w: int) -> torch.Tensor:
+        return t[slice(*rows.span(layout, mesh.W, w))].to(mesh.devices[w])
 
-    xs = [static[w]["embed"][part(tokens, lay, w)] for w in range(W)]
+    # the embedding runs where the first layer's attention does, or on
+    # every static worker when that is another assembly
+    first = (layers[0].attn_layout, layers[0].mesh) if layers else (
+        I.TP, static_mesh)
+    here = (first[0] if static_mesh.same_workers(first[1]) else I.TP,
+            static_mesh)
+    xs = [static[w]["embed"][part(tokens, here[0], static_mesh, w)]
+          for w in range(static_mesh.W)]
     for i, layer in enumerate(layers):
         window = B._window_of(layer.kind, cfg)
-        xs = relayout(xs, lay, layer.attn_layout, rows, mesh)
-        lay = layer.attn_layout
+        mesh = layer.mesh
+        xs = relayout(xs, here, (layer.attn_layout, mesh), rows)
+        here = (layer.attn_layout, mesh)
         outs: List[Optional[torch.Tensor]] = []
-        for w in range(W):
+        for w in range(mesh.W):
             x, cache = xs[w], rows.views(layer, w)
             if cache is None:
                 outs.append(None)
                 continue
             h = Lyr.rmsnorm(x, layer.ln1[w], eps)
-            pos = part(positions, lay, w)
+            pos = part(positions, here[0], mesh, w)
             p = layer.attn[w]
             if mode == "decode":
                 o, _ = B.attention_decode(p, h, cfg, plan, pos, cache,
@@ -322,23 +341,27 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                                          window=window,
                                          first_chunk=first_chunk)
             outs.append(o)
-        xs = _residual(xs, outs, lay, mesh)
-        xs = relayout(xs, lay, layer.mlp_layout, rows, mesh)
-        lay = layer.mlp_layout
-        tp, ff = (W, cfg.d_ff) if lay == I.REP else (1, cfg.d_ff // W)
+        xs = _residual(xs, outs, here[0], mesh)
+        xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
+        here = (layer.mlp_layout, mesh)
+        tp, ff = I.mlp_shards(here[0], S, cfg.d_ff, mesh.W)
         outs = []
-        for w in range(W):
+        for w in range(mesh.W):
             if xs[w].shape[0] == 0:
                 outs.append(None)
                 continue
             h = Lyr.rmsnorm(xs[w], layer.ln2[w], eps)
             outs.append(B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff))
-        xs = _residual(xs, outs, lay, mesh)
+        xs = _residual(xs, outs, here[0], mesh)
         if on_layer is not None:
             on_layer(i)
-    if lay == I.TP:
+    if not here[1].same_workers(static_mesh):
+        xs = relayout(xs, here, (I.TP, static_mesh), rows)
+        here = (I.TP, static_mesh)
+    if here[0] == I.TP:
         return lm_logits(static[0], plan, cfg, xs[0][:, -1:])[:, 0]
-    parts = [lm_logits(static[w], plan, cfg, x[:, -1:])[:, 0].to(devs[0])
+    dev0 = static_mesh.devices[0]
+    parts = [lm_logits(static[w], plan, cfg, x[:, -1:])[:, 0].to(dev0)
              for w, x in enumerate(xs) if x.shape[0]]
     return torch.cat(parts)
 

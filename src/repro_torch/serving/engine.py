@@ -38,8 +38,15 @@ Two placements, as in the reference:
 The capacity contract is the reference's (``max_seq_at``): ``seq_quantum``
 is the per-worker admission share, ``max_seq_at(tp) = seq_quantum * tp``
 and the physical per-slot pool ``max_seq_alloc`` follows the TP degree.
-Recurrent block kinds, merges across engines and KV spill are not
-ported yet (ROADMAP queue 1 items 8 and 10).
+
+Engines with workers also take part in cross-instance merges, driven by
+``serving.cluster.ClusterEngine`` (the reference's merge lifecycle):
+``export_active`` -> ``park`` on a donor, ``adopt_devices`` ->
+``import_request`` -> ``transform(W')`` on the target, and on a split
+``transform(1, devices=home_devices)`` then ``revive`` on the donor.
+Workers are ``launch.mesh.Worker`` identities, so an engine's home and
+adopted workers may share one card.  Recurrent block kinds and KV
+spill are not ported yet (ROADMAP queue 1).
 
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
 caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
@@ -47,8 +54,9 @@ every kernel call runs its plain PyTorch version.
 """
 from __future__ import annotations
 
+import itertools
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,47 +66,47 @@ from repro_torch.core import instance as I
 from repro_torch.core import kv_transform as KT
 from repro_torch.core import transform_engine as TE
 from repro_torch.core import weight_transform as WT
-from repro_torch.core.padding import make_plan
+from repro_torch.core.padding import PaddingPlan, make_plan
 from repro_torch.core.scheduler import PrefillPolicy
-from repro_torch.launch.mesh import InstanceMesh
+from repro_torch.launch.mesh import (InstanceMesh, Worker, resolve_device,
+                                     workers_of)
 from repro_torch.models import model as M
 from repro_torch.models.blocks import _window_of
 from repro_torch.paged import pool as pp
 from repro_torch.serving.request import ServeRequest, State
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the card.  A CUDA device without a GPU raises:
-    the engine never drops quietly to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "Engine runs on the GPU by default and none is available; "
-                "pass device='cpu' to run the plain PyTorch path")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 class Engine:
+    _ids = itertools.count()
+
     def __init__(self, cfg: ModelConfig, params: Optional[M.Model] = None,
                  max_batch: int = 4, max_seq: int = 256,
                  page_tokens: int = 16, seed: int = 0,
                  prefill_policy: Optional[PrefillPolicy] = None,
-                 device=None, devices: Optional[List] = None):
-        """``params`` is a ``Model``; without one the engine builds random
-        weights from ``seed``.  The KV pools are header-centric (the
-        kernels' canonical layout).
+                 device=None, devices: Optional[List] = None,
+                 iid: Optional[int] = None,
+                 plan: Optional[PaddingPlan] = None, clock=None):
+        """``params`` is a ``Model`` (or, for a cluster's engines, another
+        engine at TP1 whose replica is copied); without one the engine
+        builds random weights from ``seed``.  The KV pools are
+        header-centric (the kernels' canonical layout).
 
         One device (``devices=None``): ``params`` lives on ``device``.
-        W workers (``devices=[...]``): ``params`` is planned for
-        ``make_plan(cfg, W, mode="page")`` with its MLP in the per-shard
-        Eq. 2 layout (``models.convert.params_from_jax`` gives that);
-        worker 0 takes its tensors, every other worker a copy, and the
-        engine never writes a weight in place."""
+        W workers (``devices=[...]``: devices, or ``launch.mesh.Worker``
+        identities of a cluster's pool): ``params`` is planned for
+        ``plan`` (default ``make_plan(cfg, W, mode="page")``; a cluster
+        whose engines may merge passes one for the whole pool's width)
+        with its MLP in that plan's per-shard Eq. 2 layout
+        (``models.convert.params_from_jax`` gives that); worker 0 takes
+        its tensors, every other worker a copy, and the engine never
+        writes a weight in place.
+
+        ``clock`` stamps request times (default the wall clock; a
+        cluster passes its own, a replay a ``core.events.VirtualClock``).
+        Transform measurements stay on the wall clock."""
         self.cfg = cfg
-        self._clock = time.monotonic
+        self._clock = clock if clock is not None else time.monotonic
+        self.iid = iid if iid is not None else next(Engine._ids)
         self.max_batch = max_batch
         self.max_seq_alloc = max_seq
         self.page_tokens = page_tokens
@@ -107,13 +115,21 @@ class Engine:
         self.mesh = None
         self._session: Optional[TE.TransformSession] = None
         self._session_t0 = 0.0
+        self._session_cross = False
+        self._pending_devices: Optional[List[Worker]] = None
         self.transform_reports: List[TE.StepReport] = []
         self.transform_log: List[Dict] = []
+        # -- cross-instance merge lifecycle (serving.cluster) -------------
+        # reserved: earmarked as the next scale-up candidate (Alg 2 line
+        # 9)
+        self.reserved = False
+        self.parked = False
+        self.adopted_devices: List[Worker] = []
         if devices is None:
             self.devices = None
             self.W = 1
             self.device = resolve_device(device)
-            self.plan = make_plan(cfg, 1)
+            self.plan = plan or make_plan(cfg, 1)
             if params is None:
                 params = M.build(cfg, self.plan, seed, device=self.device)
             if params.device != self.device:
@@ -125,8 +141,8 @@ class Engine:
         else:
             if device is not None:
                 raise ValueError("pass device= or devices=, not both")
-            self._init_workers(params, [resolve_device(d) for d in devices],
-                               seed)
+            self._init_workers(params, workers_of(devices), seed, plan)
+        self.home_devices = None if devices is None else list(self.devices)
         self.seq_quantum = max_seq // self.W
         # temperature sampling only: not comparable with the reference,
         # which samples with jax.random
@@ -140,10 +156,10 @@ class Engine:
         self._prefilling: Dict[int, Dict] = {}
         self._prefill_deferred = 0   # consecutive decode-priority defers
 
-    def _init_workers(self, params: Optional[M.Model], devs: List,
-                      seed: int) -> None:
+    def _init_workers(self, params: Optional[M.Model], workers: List[Worker],
+                      seed: int, plan: Optional[PaddingPlan]) -> None:
         """Spread the engine over the workers at TP1 x W."""
-        cfg, W = self.cfg, len(devs)
+        cfg, W = self.cfg, len(workers)
         assert self.max_seq_alloc % W == 0, (
             f"max_seq={self.max_seq_alloc} must divide over the {W} "
             "workers (per-worker admission quantum must be whole)")
@@ -154,8 +170,11 @@ class Engine:
         assert self.max_batch % W == 0, (
             f"max_batch={self.max_batch} must be divisible by the worker "
             f"count {W}: slots split over the workers at TP1")
-        self.devices, self.W, self.device = devs, W, devs[0]
-        self.plan = make_plan(cfg, W, mode="page")
+        self.devices, self.W, self.device = workers, W, workers[0].device
+        self.plan = plan or make_plan(cfg, W, mode="page")
+        assert self.plan.max_tp % W == 0, (
+            f"a plan for {self.plan.max_tp} shards cannot split over {W} "
+            "workers")
         if self.plan.kv_replication != 1:
             raise NotImplementedError(
                 f"{cfg.name}: fewer kv heads than workers (replicated kv "
@@ -165,33 +184,59 @@ class Engine:
                 f"{cfg.name}: the worker engine's padded FFN takes gated "
                 "MLPs only")
         if params is None:
-            params = M.build(cfg, self.plan, seed, device=devs[0])
+            params = M.build(cfg, self.plan, seed, device=self.device)
             for blk in params.layers:
                 blk.mlp["wi"].data, blk.mlp["wo"].data = \
                     WT.relayout_mlp_for_tp(blk.mlp["wi"].data,
-                                           blk.mlp["wo"].data, cfg.d_ff, W)
-        self.mesh = InstanceMesh(devs, 1)
+                                           blk.mlp["wo"].data, cfg.d_ff,
+                                           self.plan.max_tp)
+        self.mesh = InstanceMesh(workers, 1)
         self.model = self.caches = None
-        mps = -(-self.max_seq_alloc // self.page_tokens)
+        self._place(params)
+
+    def _place(self, source: Union[M.Model, "Engine"]) -> None:
+        """Lay the engine out at TP1 x W on ``self.mesh``: every worker a
+        replica of ``source``'s weights and an empty pool at
+        ``max_seq_alloc`` tokens a slot.  ``source`` is a ``Model`` (worker
+        0 takes its tensors, every other worker a copy) or another engine
+        at TP1, whose worker-0 replica every worker copies (a revived
+        donor: weights are identical cluster-wide)."""
+        devs = self.mesh.devices
+        if isinstance(source, Engine):
+            assert source.tp == 1 and not source.transforming, (
+                "a replica source must be at TP1 with no session open")
+            blocks = [(l.kind, l.ln1[0], l.ln2[0], l.attn[0], l.mlp[0])
+                      for l in source.layers]
+            static, share = source.static[0], False
+        else:
+            blocks = [(b.kind, b.ln1, b.ln2, dict(b.attn), dict(b.mlp))
+                      for b in source.layers]
+            static, share = source.static(), True
 
         def per_worker(t):
-            return [I.own_copy(t.detach(), d, w) for w, d in enumerate(devs)]
+            return [I.own_copy(t.detach(), d, w) if share
+                    else t.detach().to(d, copy=True)
+                    for w, d in enumerate(devs)]
 
         def dicts(p):
             cols = {k: per_worker(v) for k, v in p.items()}
-            return [{k: v[w] for k, v in cols.items()} for w in range(W)]
+            return [{k: v[w] for k, v in cols.items()}
+                    for w in range(len(devs))]
 
-        self.layers: List[I.WorkerLayer] = []
-        for blk in params.layers:
-            self.layers.append(I.WorkerLayer(
-                blk.kind, I.REP, I.REP, per_worker(blk.ln1),
-                per_worker(blk.ln2), dicts(blk.attn), dicts(blk.mlp),
-                I.init_worker_caches(self.plan.kv_slots, self.page_tokens,
-                                     cfg.resolved_head_dim, self.max_batch,
-                                     mps, params.embed.dtype, devs)))
-        self.static = [{k: None if v is None else I.own_copy(v.detach(), d, w)
-                        for k, v in params.static().items()}
-                       for w, d in enumerate(devs)]
+        mps = -(-self.max_seq_alloc // self.page_tokens)
+        self.layers: List[I.WorkerLayer] = [
+            I.WorkerLayer(kind, I.REP, I.REP, per_worker(ln1),
+                          per_worker(ln2), dicts(attn), dicts(mlp),
+                          I.init_worker_caches(
+                              self.plan.kv_slots, self.page_tokens,
+                              self.cfg.resolved_head_dim, self.max_batch,
+                              mps, static["embed"].dtype, devs), self.mesh)
+            for kind, ln1, ln2, attn, mlp in blocks]
+        static = {k: None if v is None else per_worker(v)
+                  for k, v in static.items()}
+        self.static = [{k: None if v is None else v[w]
+                        for k, v in static.items()}
+                       for w in range(len(devs))]
 
     def _min_chunk_cap(self) -> int:
         """Largest chunk one prefill call may carry: the smallest
@@ -237,7 +282,7 @@ class Engine:
     def check_capacity_invariant(self) -> None:
         """Physical backs policy: ``seq_quantum * (tp_pending or tp) <=
         max_seq_alloc <= seq_quantum * W``."""
-        if self.devices is None:
+        if self.devices is None or self.parked:
             return
         assert (self.seq_quantum * (self.tp_pending or self.tp)
                 <= self.max_seq_alloc
@@ -288,9 +333,10 @@ class Engine:
                    if r is not None and r.state == State.DECODE)
 
     def _admittable_now(self, req: ServeRequest) -> bool:
-        """While a transform that grows the ceiling is in flight, a
-        request longer than the current pool waits in the queue instead
-        of admitting into a slot it would overflow."""
+        """While capacity is on its way (a transform that grows the
+        ceiling is in flight), a request longer than the current pool
+        waits in the queue instead of admitting into a slot it would
+        overflow."""
         return not (req.total_tokens > self.max_seq_alloc
                     and self.tp_pending is not None)
 
@@ -300,9 +346,10 @@ class Engine:
         every worker that holds it, for an engine with workers)."""
         if self.mesh is None:
             return [pp.slot_view(c, slot) for c in self.caches]
-        rows = M.RowSet([slot], self.max_batch, self.W)
+        rows = M.RowSet([slot], self.max_batch)
         return [v for layer in self.layers
-                for v in (rows.views(layer, w) for w in range(self.W))
+                for v in (rows.views(layer, w)
+                          for w in range(layer.mesh.W))
                 if v is not None]
 
     # -- chunked prefill ----------------------------------------------------
@@ -404,12 +451,15 @@ class Engine:
               ) -> torch.Tensor:
         """One pass of ``rows`` through the per-worker layers (an engine
         with workers); mid-session the decode walk streams the session's
-        staged layer groups."""
-        hook = (self._session.on_decode_layer
-                if self._session is not None and mode == "decode" else None)
-        return M.walk_layers(self.layers, self.static, self.cfg, self.plan,
-                             self.mesh,
-                             M.RowSet(rows, self.max_batch, self.W), tokens,
+        staged layer groups, and the static weights are the session's
+        (a cross-assembly session moves them in its final step)."""
+        s = self._session
+        hook = s.on_decode_layer if s is not None and mode == "decode" \
+            else None
+        static, smesh = ((s.static, s.static_mesh) if s is not None
+                         else (self.static, self.mesh))
+        return M.walk_layers(self.layers, static, self.cfg, self.plan,
+                             smesh, M.RowSet(rows, self.max_batch), tokens,
                              positions, mode, first_chunk=first_chunk,
                              on_layer=hook)
 
@@ -476,26 +526,42 @@ class Engine:
         self._finish_prefill(req, slot, logits)
 
     # -- §4.3 live transformation -------------------------------------------
-    def transform(self, tp_to: int, layers_per_step: int = 1) -> int:
+    def transform(self, tp_to: int, layers_per_step: int = 1,
+                  devices: Optional[List[Worker]] = None) -> int:
         """Begin a live transformation to degree ``tp_to``: a full merge
-        (TP1 x W -> TPW) or decompose (TPW -> TP1 x W).  Returns the
+        (TP1 x W -> TPW') or decompose (TPW -> TP1 x W').  Returns the
         number of schedule steps; each later ``step()`` executes one of
         them around its decode iteration, while requests keep decoding.
-        The pool grows to the target ceiling before the session (memory
-        follows the TP degree); the shrink half runs when it lands."""
+
+        The target workers are the engine's own (``devices``, after
+        ``adopt_devices`` the home ones plus the adopted) or the given
+        ``devices`` (a split: the home workers, after which the adopted
+        ones are shed).  When they differ from the workers the layers
+        sit on, the session crosses assemblies, layer by layer.  The pool
+        grows to the target ceiling before the session (memory follows
+        the TP degree); the shrink half runs when it lands."""
         assert self.mesh is not None, "transform requires devices="
         assert self._session is None, "transformation already in progress"
-        if tp_to == self.tp:
+        target = list(self.devices if devices is None else devices)
+        if tp_to == self.tp and target == self.mesh.workers:
             return 0
-        if {self.tp, tp_to} != {1, self.W}:
+        full_up = self.tp == 1 and tp_to == len(target) > 1
+        full_down = tp_to == 1 and self.tp == self.mesh.W > 1
+        if not (full_up or full_down):
             raise NotImplementedError(
-                f"TP{self.tp} -> TP{tp_to} on {self.W} workers: only full "
-                "merges and decompositions (TP1 x W <-> TPW) are ported; "
-                "partial degree changes are ROADMAP queue 1 item 5")
+                f"TP{self.tp} -> TP{tp_to} on {self.mesh.W} -> "
+                f"{len(target)} workers: only full merges and "
+                "decompositions (TP1 x W <-> TPW) are ported; partial "
+                "degree changes and same-degree device migrations are "
+                "ROADMAP queue 1 item 5")
         if self.max_seq_alloc < self.seq_quantum * tp_to:
             self._resize_pool(self.seq_quantum * tp_to)
-        session = TE.open_owner_session(self, tp_to, layers_per_step)
+        session = TE.open_owner_session(self, tp_to, layers_per_step,
+                                        devices=target)
         self.tp_pending = tp_to
+        self._pending_devices = (target if target != self.devices
+                                 else None)
+        self._session_cross = session.cross
         self._session_t0 = time.monotonic()
         return session.schedule.n_steps
 
@@ -516,6 +582,7 @@ class Engine:
             "layout_from": str(lay_from), "layout_to": str(lay_to),
             "bytes": sum(c.pool.numel() * c.pool.element_size()
                          for layer in self.layers for c in layer.cache),
+            "cross": self._session_cross,
             "steps": session.schedule.n_steps,
             "wall_s": time.monotonic() - self._session_t0,
             "measured_s": sum(r.seconds for r in reps),
@@ -523,7 +590,18 @@ class Engine:
             "modeled_s": sum(r.modeled_s for r in reps),
             "step_drifts": [abs(r.seconds - r.modeled_s) / r.modeled_s
                             for r in reps if r.modeled_s > 0.0],
+            # what the session's kernels and exchanges moved, and the
+            # weights copied to workers that held none
+            "kv_bytes": sum(r.kv_bytes for r in reps),
+            "weight_bytes": sum(r.weight_bytes for r in reps),
         })
+        self._session_cross = False
+        if self._pending_devices is not None:
+            # a split: every tensor now lives on the retained workers
+            self.devices = self._pending_devices
+            self.W = len(self.devices)
+            self.adopted_devices = []
+            self._pending_devices = None
         # memory follows the TP degree: trim the pool to the landed
         # degree's allocation, never below a live context's footprint
         live = [s for s in self.slots if s is not None] + self.waiting
@@ -543,12 +621,116 @@ class Engine:
             * self.page_tokens
         new_mps = -(-new_max_seq // self.page_tokens)
         for layer in self.layers:
-            lo, hi = I.rows_of(layer.attn_layout, self.max_batch, self.W, 0)
+            lo, hi = I.rows_of(layer.attn_layout, self.max_batch,
+                               layer.mesh.W, 0)
             layer.cache = [
                 c if c.capacity != old_cap
                 else KT.resize_slot_capacity(c, new_mps, hi - lo)
                 for c in layer.cache]
         self.max_seq_alloc = new_max_seq
+
+    # -- cross-instance merge lifecycle (paper Fig. 3, §3.4) ----------------
+    #
+    # The control plane (serving.cluster) drives a merge as
+    #   donor.export_active() -> donor.park() -> target.adopt_devices()
+    #   -> target.import_request(...) -> target.transform(W')
+    # and a split as transform(1, devices=home_devices), then
+    # donor.revive().  Each keeps the capacity contract true.
+
+    def adopt_devices(self, workers: List[Worker]) -> None:
+        """Widen this engine with a parked donor's workers.  The pool
+        grows by their per-slot allocation BEFORE the transform so
+        imported and migrated KV has page-aligned room; every layer still
+        sits on the old workers until ``transform`` carries it across."""
+        assert self.mesh is not None and not self.transforming
+        assert self.tp == 1, "merge targets must be at TP1 (Fig. 3)"
+        assert workers, "nothing to adopt"
+        self.adopted_devices = self.adopted_devices + list(workers)
+        self.devices = self.devices + list(workers)
+        self.W = len(self.devices)
+        self._resize_pool(self.seq_quantum * self.W)
+        self.check_capacity_invariant()
+
+    def park(self) -> List[Worker]:
+        """Donor side of a merge: drop every tensor of the engine and
+        return its workers (the control plane has exported its in-flight
+        requests with ``export_active``).  The engine stays constructed;
+        ``revive`` brings it back."""
+        assert not self.transforming and not self.parked
+        assert all(s is None for s in self.slots) and not self.waiting \
+            and not self._prefilling, (
+                "park requires a drained engine (export_active first)")
+        workers = list(self.devices)
+        self.parked = True
+        self.layers, self.static, self.mesh = [], None, None
+        self.devices = []
+        return workers
+
+    def revive(self, workers: List[Worker],
+               params: Union[M.Model, "Engine"]) -> None:
+        """Rebuild a parked engine on ``workers`` (normally its own,
+        returned by a split): a fresh TP1 x W replica of ``params`` (a
+        ``Model``, or an engine at TP1 whose replica is copied: weights
+        are identical cluster-wide) and an empty pool at this width's
+        allocation."""
+        assert self.parked
+        self.devices = list(workers)
+        self.home_devices = list(workers)
+        self.W = len(workers)
+        self.parked = False
+        self.tp, self.tp_pending = 1, None
+        self.max_seq_alloc = self.seq_quantum * self.W
+        self.mesh = InstanceMesh(self.devices, 1)
+        self._place(params)
+        self.slots = [None] * self.max_batch
+        self._prefilling = {}
+        self._prefill_deferred = 0
+        self.check_capacity_invariant()
+
+    def _holder(self, layer: I.WorkerLayer, slot: int) -> Tuple[int, int]:
+        """(worker, local slot) holding ``slot`` of a layer at REP."""
+        assert layer.attn_layout == I.REP, "slots move at TP1 only"
+        per = self.max_batch // layer.mesh.W
+        return slot // per, slot % per
+
+    def export_active(self) -> List[Tuple[ServeRequest, List[pp.PagedState],
+                                          Optional[Dict]]]:
+        """Donor-side KV export: pull every in-flight request out of its
+        slot as ``(request, per-layer batch-1 states, prefill progress)``
+        for ``import_request`` on the merge target; slots are freed.  A
+        slot mid-chunked-prefill exports its chunk plan and progress, so
+        the target resumes the prefill where the donor stopped."""
+        assert self.mesh is not None and not self.transforming
+        out = []
+        for slot, r in enumerate(self.slots):
+            if r is None:
+                continue
+            prog = self._prefilling.pop(slot, None)
+            extra = None if prog is None else {
+                k: prog[k] for k in ("chunks", "ci", "done")}
+            sub = []
+            for layer in self.layers:
+                w, local = self._holder(layer, slot)
+                sub.append(KT.export_slot(layer.cache[w], local))
+            out.append((r, sub, extra))
+            self.slots[slot] = None
+        return out
+
+    def import_request(self, req: ServeRequest, sub: List[pp.PagedState],
+                       progress: Optional[Dict] = None) -> None:
+        """Target-side KV import: land a donor request's states in a free
+        slot (on the worker that owns it, through the scatter kernel) and
+        resume it here: decoding, or its chunked prefill at ``progress``."""
+        assert self.mesh is not None and not self.transforming
+        slot = self._free_slot()
+        assert slot is not None, "no free slot for donor import"
+        for layer, s in zip(self.layers, sub):
+            w, local = self._holder(layer, slot)
+            KT.import_slot(layer.cache[w], s, local)
+        req.slot = slot
+        self.slots[slot] = req
+        if progress is not None:
+            self._prefilling[slot] = {"req": req, **progress}
 
     def global_caches(self) -> List[pp.PagedState]:
         """Every layer's cache as the reference's global arrays hold it

@@ -19,7 +19,10 @@ import itertools
 import time
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Any, List, Optional
+from typing import TYPE_CHECKING, List, Optional
+
+if TYPE_CHECKING:   # typing only; no runtime import cycle
+    from repro_torch.core.events import SLO
 
 
 class State(Enum):
@@ -45,10 +48,9 @@ class ServeRequest:
     t_prefill_start: Optional[float] = None   # first prefill chunk ran
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
-    #: latency deadlines (an object with ``met(request)``, as the
-    #: reference's core.events.SLO, not ported yet) aggregated into
-    #: goodput_slo; None = no deadline, excluded from goodput accounting
-    slo: Optional[Any] = None
+    #: latency deadlines (core.events.SLO) aggregated into goodput_slo;
+    #: None = no deadline, excluded from goodput accounting
+    slo: Optional["SLO"] = None
 
     @property
     def done(self) -> bool:
@@ -107,10 +109,9 @@ class Request:
     tokens_done: float = 0.0
     prefilled: float = 0.0
     t_prefill_start: Optional[float] = None
-    #: latency deadlines (an object with ``met(request)``, as the
-    #: reference's core.events.SLO, not ported yet) aggregated into
-    #: goodput_slo; None = no deadline, excluded from goodput accounting
-    slo: Optional[Any] = None
+    #: latency deadlines (core.events.SLO) aggregated into goodput_slo;
+    #: None = no deadline, excluded from goodput accounting
+    slo: Optional["SLO"] = None
 
     @property
     def finished(self) -> bool:

@@ -1,13 +1,17 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
 ``repro`` (an AST scan, so imports inside functions and under
-``TYPE_CHECKING`` count too).  Every module also imports without a GPU.
+``TYPE_CHECKING`` count too).  Every module also imports without a GPU,
+and the entry points that default to the card (``ClusterEngine`` on
+CUDA workers, the ``serve`` CLI without ``--device cpu``) raise there
+rather than run on the CPU.
 """
 import ast
 import importlib
 import pathlib
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -37,10 +41,26 @@ def test_every_port_module_imports_without_gpu():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT}
     assert {"launch/mesh.py", "core/instance.py", "core/kv_transform.py",
             "core/weight_transform.py", "core/transform_engine.py",
-            "kernels/page_migrate.py", "kernels/padded_ffn.py"} <= names
+            "kernels/page_migrate.py", "kernels/padded_ffn.py",
+            "core/partition.py", "core/events.py", "core/scheduler.py",
+            "serving/cluster.py", "launch/serve.py"} <= names
     for p in PORT:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(rel.parts)
         if name.endswith(".__init__"):
             name = name[:-len(".__init__")]
         importlib.import_module(name)
+
+
+def test_cluster_and_cli_without_gpu_raise(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving.cluster import ClusterEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3-8b").reduced()
+    for devices in (["cuda"] * 2, [None] * 2):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ClusterEngine(cfg, devices, n_instances=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1"])
