@@ -35,6 +35,13 @@ exits non-zero:
               the ffn-seeds line reads the FFN's error over four more
               weight seeds, and the decode-walk line holds the decode
               kernel's own page-range code against its host model.
+              The three attention kernels also run at every other
+              registered head shape (``head_shape_cases``): qwen2.5-32b
+              (rep 5), stablelm-12b (dh 160) and gemma-2b (dh 256, one
+              kv head) at llama3-8b's three main-path cases,
+              phi-3-vision (dh 96), granite-moe (rep 3) and
+              recurrentgemma (rep 16, its 2048-token window, decode on
+              the wrapped ring) at flash and decode.
 3. parity   — llama3-8b at full width, 2 layers, fp32, weights from one
               seed: the same requests through ``Engine(device="cuda")``
               and ``Engine(device="cpu")`` give equal greedy streams, and
@@ -47,6 +54,11 @@ exits non-zero:
               step of a full batch and the 6000-token request's prefill,
               and the host time a prefill wrapper call takes (its bf16
               tensor-map encoding included) and a decode wrapper call.
+4b. serve-shapes — qwen2.5-32b (64 layers, 62.3 GB), stablelm-12b and
+              gemma-2b at full width and depth in bf16 with random
+              weights, each through ``Engine``: prompts of 100, 1000 and
+              6000 tokens, 16 greedy tokens each; TTFT, TPOT, tokens/s,
+              peak memory and the attention kernels' launches.
 5. transform-parity — llama3-8b at full width, 2 layers, fp32, an engine
               on two workers of the card (``devices=["cuda"] * 2``): the
               stream of an engine transformed TP1x2 -> TP2 mid-decode
@@ -89,15 +101,33 @@ exits non-zero:
               metrics, memory allocated before the merge, after the
               park, after the split and after the revive, and the six
               kernels' launches on this path, which must all rise.
-10. serve-cli — ``python -m repro_torch.launch.serve`` with its
-              defaults (reduced llama3-8b, fp32, 4 workers of the card)
-              as a subprocess; it must exit 0, its ``[serve]`` lines are
-              echoed.
+9b. spill-parity — llama3-8b at full width, 2 layers, fp32, a
+              ``ClusterEngine`` of 2 instances x 1 worker under
+              ``SchedulerConfig(spill=True, spill_slack=2.0)``: a request
+              above one instance's ceiling spills its overflow KV into
+              the neighbour's free slot (a ``Spill``, no transform); its
+              stream equals an unspilled engine's, and after every
+              write-back the hosted pages equal the extended view's
+              overflow bit for bit.
+9c. cluster-spill — full-size llama3-8b in bf16, 2 instances x 1 worker
+              (4096 tokens a worker), the same scheduler: prompts of 300
+              and 1200 tokens on both instances, then a 6000-token
+              request whose 31 overflow pages spill into one hosted
+              slot.  Prints the actions, its TTFT, the decode step with
+              and without the spilled slot, the spill log against the
+              bytes the extended view's copies move, memory and the
+              launches of kernels 1, 2 and 5 on this path.
+10. serve-cli — ``python -m repro_torch.launch.serve`` as a subprocess
+              with its defaults (reduced llama3-8b, fp32, 4 workers of
+              the card); it must exit 0, its ``[serve]`` lines are
+              echoed.  Right after phase 4b the same CLI serves
+              full-size qwen2.5-32b in bf16 on one worker.
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6.  Then the
 card's name and power limit, one ``kernels`` line (launches counted
-on phase 9's path, and by path), and the last line
+on phase 9's path, and by path: serve / transform-serve, cluster-serve,
+serve-shapes and cluster-spill), and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
@@ -231,6 +261,12 @@ def visible_pairs(qpos, kpos, window: int) -> int:
     if window > 0:
         ok &= k > q - window
     return int(ok.sum())
+
+
+def heads_text(Hq: int, kvs: int, dh: int) -> str:
+    """A case's head shape where it is not llama3-8b's (32 / 8 / 128)."""
+    return "" if (Hq, kvs, dh) == (32, 8, 128) else \
+        f" Hq={Hq} kvs={kvs} dh={dh}"
 
 
 def nbytes(*ts) -> int:
@@ -374,7 +410,8 @@ def case_decode(dtype, B=8, ctx=4096, cap=None, Hq=32, kvs=8, dh=128,
         q, out, kvpos, qpos, pt)
     bms, by = bound_ms(byt, 4 * pairs * Hq * dh, dtype)
     what = (f"B={B} ctx={ctx} cap={cap} P={P}" if uniform else
-            f"q_pos={list(q_pos)} cap={cap} window={window} P={P}")
+            f"q_pos={list(q_pos)} cap={cap} window={window} P={P}"
+            ) + heads_text(Hq, kvs, dh)
     return dict(
         kernel="paged_attention", case=what,
         max_abs_err=err, max_abs_err_seq_lens=err_sl,
@@ -445,7 +482,8 @@ def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
     return dict(
         kernel="chunk_prefill",
         case=(f"S={S} prefix={done} cap={cap} window={window} pad={pad} "
-              f"P={P} attend_prefix={attend_prefix}"),
+              f"P={P} attend_prefix={attend_prefix}"
+              + heads_text(Hq, kvs, dh)),
         max_abs_err=err, pool_equal=True,
         tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
                                else ""),
@@ -469,17 +507,23 @@ def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128):
     err = max_err("flash", out, want, dtype, row_tol=row_tol)
     rep = Hq // kvs
     kd, vd, qd = expand_kv(k, rep), expand_kv(v, rep), q.transpose(1, 2)
+    pos = torch.arange(S, device=dev)
     if window:
-        lib = None
+        mask = ((pos[None] <= pos[:, None])
+                & (pos[None] > pos[:, None] - window))
+        lib = time_ms(lambda: torch.nn.functional.
+                      scaled_dot_product_attention(qd, kd, vd,
+                                                   attn_mask=mask), 20)
     else:
         lib = time_ms(lambda: torch.nn.functional.
                       scaled_dot_product_attention(qd, kd, vd,
                                                    is_causal=True), 20)
-    pos = torch.arange(S, device=dev)[None]
+    pos = pos[None]
     pairs = visible_pairs(pos, pos, window)
     bms, by = bound_ms(nbytes(q, k, v, out), 4 * pairs * Hq * dh, dtype)
     return dict(
-        kernel="flash_attention", case=f"S={S} window={window}",
+        kernel="flash_attention",
+        case=f"S={S} window={window}" + heads_text(Hq, kvs, dh),
         max_abs_err=err,
         tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
                                else ""),
@@ -800,6 +844,39 @@ def decode_walk():
          layouts=[list(x) for x in layouts], tol="bit-equal")
 
 
+#: the models the serve-shapes phase serves at full width
+SERVE_SHAPES = ("qwen2.5-32b", "stablelm-12b", "gemma-2b")
+
+
+def head_shape_cases():
+    """The three attention kernels at every other registered head shape
+    (``configs/registry.py``): (model, case function, keywords).  Models
+    the serve-shapes phase serves get the llama3-8b rows' three cases
+    (flash at S=4096, chunk 512 over 3584, decode at the serve shape: 4
+    rows, 2048 live in 8192-token slots); the rest a flash and a decode
+    case, recurrentgemma-9b's on its 2048-token window (decode on the
+    wrapped ring)."""
+    from repro_torch.configs import get_config
+    out = []
+    for name in ("qwen2.5-32b", "stablelm-12b", "gemma-2b",
+                 "phi-3-vision-4.2b", "granite-moe-3b-a800m",
+                 "recurrentgemma-9b"):
+        cfg = get_config(name)
+        heads = dict(Hq=cfg.num_heads, kvs=cfg.num_kv_heads,
+                     dh=cfg.resolved_head_dim)
+        if name == "recurrentgemma-9b":
+            w = cfg.window
+            out += [(name, case_flash, dict(window=w, **heads)),
+                    (name, case_decode, dict(q_pos=[2500, 3000, 4100, 5000],
+                                             cap=w, window=w, **heads))]
+            continue
+        out += [(name, case_flash, heads),
+                (name, case_decode, dict(B=4, ctx=2048, cap=8192, **heads))]
+        if name in SERVE_SHAPES:
+            out.append((name, case_chunk, heads))
+    return out
+
+
 def phase_kernels():
     """Every case in fp32 and bf16; returns the bf16 main-path cases by
     kernel name (the serve phases run bf16)."""
@@ -835,14 +912,17 @@ def phase_kernels():
                  (case_ffn, dict(T=128)), (case_ffn, dict(T=128, tp=1)),
                  (case_ffn, dict(T=44)), (case_ffn, dict(T=44, tp=1)),
                  *padded_ffn_cases()]
-        for fn, kw in cases:
+        cases = [("llama3-8b", fn, kw) for fn, kw in cases]
+        for model, fn, kw in cases + head_shape_cases():
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
                 r["dtype"] = str(dtype).replace("torch.", "")
                 r.setdefault("tol", "bit-equal" if r.get("bit_equal")
                              else tol_text(dtype))
+                r.setdefault("model", model)
                 emit(phase="kernels", **r)
-                if dtype == torch.bfloat16 and not kw:
+                if (dtype == torch.bfloat16 and not kw
+                        and model == "llama3-8b"):
                     main[r["kernel"]] = r
     ffn_tilings()
     decode_walk()
@@ -1201,8 +1281,12 @@ class ExportLog:
 
 
 def cluster_actions(cl) -> list:
+    """[kind, iid, tp_to, donors, reason] a transform; [kind, iid,
+    host, overflow tokens, reason] a spill."""
     return [[type(a).__name__, a.iid, a.tp_to,
              list(getattr(a, "donor_iids", ())), a.reason]
+            if hasattr(a, "tp_to") else
+            [type(a).__name__, a.iid, a.host_iid, a.tokens, a.reason]
             for a in cl.actions]
 
 
@@ -1482,19 +1566,382 @@ def phase_cluster_serve(smi: str, dev: str = "cuda", cfg=None,
     return launches
 
 
-def phase_serve_cli():
-    """The port's entry point with its defaults (reduced llama3-8b, fp32,
-    4 workers of the card) as a subprocess; its [serve] lines echoed."""
-    t0 = time.monotonic()
+#: the serve CLI on the paper's own model: published widths and depth in
+#: bf16, one instance of one worker of the card
+QWEN_CLI = ("--arch", "qwen2.5-32b", "--no-smoke", "--instances", "1",
+            "--workers", "1", "--max-seq", "8192", "--requests", "4",
+            "--long-every", "2")
+
+
+def phase_serve_cli(args=()):
+    """The port's entry point as a subprocess, its [serve] lines echoed:
+    with its defaults (reduced llama3-8b, fp32, 4 workers of the card),
+    or serving full-size qwen2.5-32b (``QWEN_CLI``, which needs the card
+    nearly to itself: this process's own tensors are freed first and
+    its allocation printed)."""
+    free_card()
+    parent_gb = torch.cuda.memory_allocated() / 1e9
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=600)
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     lines = [l for l in out.stdout.splitlines() if l.startswith("[serve]")]
     assert out.returncode == 0, out.stderr[-4000:]
-    assert any(" -> TP2 " in l for l in lines), lines
-    assert "[serve] final TPs: [1, 1]" in lines, lines
-    emit(phase="serve-cli", lines=lines, seconds=time.monotonic() - t0)
+    if args:
+        assert any("finished=4, total=4" in l for l in lines), lines
+    else:
+        assert any(" -> TP2 " in l for l in lines), lines
+        assert "[serve] final TPs: [1, 1]" in lines, lines
+    emit(phase="serve-cli", args=list(args), lines=lines,
+         parent_allocated_gb=parent_gb, seconds=time.monotonic() - t0)
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the registered head shapes end to end, and KV spill
+
+def phase_serve_shapes(smi: str, dev: str = "cuda", names=SERVE_SHAPES,
+                       cfg_of=None, lens=(100, 1000, 6000), new: int = 16,
+                       max_seq: int = 8192, page_tokens: int = 64) -> dict:
+    """Each model of ``names`` at full width and depth in bf16 with random
+    weights (``cfg_of`` may cut it for a dry run on the CPU), served
+    through ``Engine``: prompts of 100, 1000 and 6000 tokens (the last
+    chunks at 4096), ``new`` greedy tokens each.  qwen2.5-32b (62.3 GB of
+    weights) takes 2 slots of 8192 tokens (a 4 GiB pool), the others 4.
+    Prints TTFT, TPOT, tokens/s, peak memory and the attention kernels'
+    launches; the card is freed between models.  Returns each model's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models.model import build
+    from repro_torch.serving import Engine, ServeRequest
+
+    out = {}
+    for name in names:
+        cfg = cfg_of(name) if cfg_of else get_config(name)
+        t0 = time.monotonic()
+        model = build(cfg, make_plan(cfg, 1), seed=0, device=dev)
+        sync(dev)
+        t_init = time.monotonic() - t0
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in model.state_dict().values()) / 1e9
+        batch = 2 if name == "qwen2.5-32b" else 4
+        eng = Engine(cfg, params=model, max_batch=batch, max_seq=max_seq,
+                     page_tokens=page_tokens, device=dev)
+        gen = torch.Generator().manual_seed(29)
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        eng.submit(warm)
+        eng.run_until_done()
+        reqs = [ServeRequest(p, max_new_tokens=new)
+                for p in _prompts(gen, lens, cfg.vocab_size)]
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        sync(dev)
+        t0 = time.monotonic()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        sync(dev)
+        wall = time.monotonic() - t0
+        counts = {k: v for k, v in launch_counts().items()
+                  if k in ("paged_attention", "chunk_prefill",
+                           "flash_attention")}
+        for r in reqs:
+            assert len(r.generated) == new, (name, len(r.prompt))
+            assert all(0 <= t < cfg.vocab_size for t in r.generated)
+        assert dev != "cuda" or all(n > 0 for n in counts.values()), (
+            name, counts)
+        # prefill materialises the last position's logits only, as the
+        # reference's does (a 6000 x 152064 fp32 block would be 3.6 GB)
+        with torch.no_grad():
+            logits = model.prefill(
+                torch.tensor(reqs[0].prompt[:64], device=dev)[None],
+                model.init_decode_caches(1, 64, page_tokens))
+        assert tuple(logits.shape[:2]) == (1, 1), tuple(logits.shape)
+        emit(phase="serve-shapes", model=name, layers=cfg.num_layers,
+             d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads,
+                                         cfg.resolved_head_dim],
+             dtype=cfg.dtype, max_batch=batch, max_seq=max_seq,
+             weights_gb=weights_gb, weights_init_s=t_init,
+             prompts=list(lens), new_tokens=new, wall_s=wall,
+             ttft_s=[r.ttft for r in reqs], tpot_s=[r.tpot for r in reqs],
+             # TTFT less the wait for a slot: the prefill alone
+             prefill_s=[r.t_first_token - r.t_prefill_start for r in reqs],
+             tokens_per_s=sum(len(r.generated) for r in reqs) / wall,
+             peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                          if dev == "cuda" else None),
+             prefill_logits_rows=1, launches=counts, gpu=smi)
+        out[name] = counts
+        del eng, model
+        if dev == "cuda":
+            free_card()
+    return out
+
+
+class SpillCheck:
+    """Wraps ``Engine.spill_slot`` until ``close``: after every write-back
+    it records whether, in every layer, the host's reserved slot holds
+    the overflow pages (and their positions) of the guest's extended
+    view bit for bit, and the bytes of the extended view's pools."""
+
+    def __init__(self):
+        from repro_torch.serving.engine import Engine
+        self.Engine, self.orig = Engine, Engine.spill_slot
+        self.equal, self.ext_bytes = [], []
+        chk = self
+
+        def spill_slot(eng, slot, ext):
+            chk.orig(eng, slot, ext)
+            sp = eng._spills[slot]
+            host, j = sp["host"], sp["hosting"]["slots"][0]
+            n_local = eng._local_page_cap() // eng.page_tokens
+            P = eng.page_tokens
+            same = []
+            for view, hosted in zip(ext, host._slot_caches(j)):
+                over = view.pool[n_local:]
+                same.append(
+                    torch.equal(hosted.pool[:over.shape[0]], over)
+                    and torch.equal(hosted.positions[0, :over.shape[0] * P],
+                                    view.positions[0, n_local * P:]))
+            chk.equal.append(all(same))
+            chk.ext_bytes.append(nbytes(*(v.pool for v in ext)))
+
+        Engine.spill_slot = spill_slot
+
+    def close(self):
+        self.Engine.spill_slot = self.orig
+
+
+def _spill_scheduler(**kw):
+    from repro_torch.core.scheduler import GygesScheduler, SchedulerConfig
+    return GygesScheduler(SchedulerConfig(spill=True, spill_slack=2.0, **kw))
+
+
+def phase_spill_parity(dev: str = "cuda", cfg=None, max_seq: int = 512,
+                       lens=(60, 150, 90), long_len: int = 700,
+                       new: int = 16, page_tokens: int = 64):
+    """Full width, 2 layers, fp32: a ClusterEngine of 2 instances x 1
+    worker under ``SchedulerConfig(spill=True, spill_slack=2.0)``; shorts
+    on both instances, then a request above one instance's ceiling that
+    spills into the neighbour.  Every stream equals that of one engine
+    whose own pool holds the request whole, and after every write-back
+    the host's hosted pages equal the overflow of the guest's extended
+    view bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import Spill
+    from repro_torch.core.weight_transform import relayout_mlp_for_tp
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                                     dtype="float32")
+    t0 = time.monotonic()
+    gen = torch.Generator().manual_seed(31)
+    prompts = _prompts(gen, tuple(lens) + (long_len,), cfg.vocab_size)
+    plan = make_plan(cfg, 2, mode="page")
+    model = M.build(cfg, plan, seed=0, device=dev)
+    for blk in model.layers:
+        blk.mlp["wi"].data, blk.mlp["wo"].data = relayout_mlp_for_tp(
+            blk.mlp["wi"].data, blk.mlp["wo"].data, cfg.d_ff, 2)
+    cl = ClusterEngine(cfg, [dev] * 2, n_instances=2, max_batch=4,
+                       max_seq=max_seq, page_tokens=page_tokens,
+                       params=model, scheduler=_spill_scheduler(),
+                       dwell_steps=4)
+    reqs = [ServeRequest(p, max_new_tokens=new, rid=i)
+            for i, p in enumerate(prompts)]
+    check = SpillCheck()
+    try:
+        for r in reqs[:-1]:
+            cl.submit(r)
+        while any(not r.generated for r in reqs[:-1]):
+            cl.step()
+        assert all(any(s is not None for s in e.slots)
+                   for e in cl.engines), "both instances decode"
+        cl.submit(reqs[-1])
+        acts = cluster_actions(cl)
+        assert [a[0] for a in acts] == ["Spill"], acts
+        assert isinstance(cl.actions[0], Spill)
+        cl.run(max_steps=20000)
+    finally:
+        check.close()
+    assert check.equal and all(check.equal), check.equal
+    assert cl.metrics()["spill_pages"] > 0 and not cl.partition.spills()
+    assert cluster_actions(cl) == acts, "a spill needs no transformation"
+    streams = [r.generated for r in reqs]
+    spill_pages = cl.metrics()["spill_pages"]
+    del cl
+    if dev == "cuda":
+        free_card()
+    alone = Engine(cfg, params=model, devices=[dev], max_batch=4,
+                   max_seq=2 * max_seq, page_tokens=page_tokens, plan=plan)
+    for p, got in zip(prompts, streams):
+        want = ServeRequest(p, max_new_tokens=new)
+        alone.submit(want)
+        alone.run_until_done()
+        assert want.generated == got, ("spilled cluster stream", len(p))
+    emit(phase="spill-parity", layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, instances=2, workers_each=1, max_seq=max_seq,
+         prompts=list(lens) + [long_len], actions=acts,
+         spill_pages=spill_pages, write_backs_checked=len(check.equal),
+         hosted_pages_equal=True, streams_equal_unspilled_engine=True,
+         seconds=time.monotonic() - t0)
+    del alone, model
+    if dev == "cuda":
+        free_card()
+
+
+def phase_cluster_spill(smi: str, dev: str = "cuda", cfg=None,
+                        max_seq: int = 4096, lens=(300, 1200, 300, 1200),
+                        new: int = 128, long_len: int = 6000,
+                        long_new: int = 32, page_tokens: int = 64) -> dict:
+    """Full-size llama3-8b in bf16, 2 instances x 1 worker of the card
+    (4096 tokens a worker), ``SchedulerConfig(spill=True,
+    spill_slack=2.0)``: prompts of 300 and 1200 tokens on both
+    instances, then a 6000-token request whose 31 overflow pages spill
+    into one reserved slot of the neighbour; no transformation.  Prints
+    the actions, the spilled request's TTFT, the mean wall of a decode
+    step with and without the spilled slot, the spill log's bytes and
+    wall a step against what each write-back's copies move, memory
+    allocated before, during and after, and the launches of kernels 1,
+    2 and 5 on this path.  Returns the path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+    from repro_torch.serving.request import State
+
+    cfg = cfg or get_config("llama3-8b")
+    t0 = time.monotonic()
+    cl = ClusterEngine(cfg, [dev] * 2, n_instances=2, max_batch=4,
+                       max_seq=max_seq, page_tokens=page_tokens, seed=0,
+                       scheduler=_spill_scheduler())
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(37)
+    for e in cl.engines:        # warm-up: library handles, allocator
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        e.submit(warm)
+        e.run_until_done()
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    long_ = ServeRequest(_prompts(gen, (long_len,), cfg.vocab_size)[0],
+                         max_new_tokens=long_new)
+    mem = {}
+    steps = []   # (long decoding this step?, wall s, decode tokens, prefill?)
+
+    def prefill_work():
+        return (sum(len(e.waiting) for e in cl.engines) + len(cl.waiting),
+                sum(p["done"] for e in cl.engines
+                    for p in e._prefilling.values()))
+
+    def step():
+        before = prefill_work()
+        spilled = long_.state == State.DECODE
+        sync(dev)
+        t = time.monotonic()
+        live = reqs + [long_]
+        had = {id(r): len(r.generated) for r in live}
+        cl.step()
+        sync(dev)
+        wall = time.monotonic() - t
+        dec = sum(len(r.generated) - had[id(r)] for r in live
+                  if had[id(r)] > 0)
+        steps.append((spilled, wall, dec, before != prefill_work()))
+
+    check = SpillCheck()
+    try:
+        reset_launch_counts()
+        t_run = time.monotonic()
+        for r in reqs:
+            cl.submit(r)
+        while any(not r.generated for r in reqs):
+            step()
+        for _ in range(8):             # both instances decode
+            step()
+        assert sorted(set(cl.placements.values())) == [0, 1], cl.placements
+        mem["before"] = mem_gb(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cl.submit(long_)
+        acts = cluster_actions(cl)
+        assert [a[0] for a in acts] == ["Spill"], acts
+        guest = cl._engine(cl.actions[0].iid)
+        while not long_.done:
+            step()
+            assert len(steps) < 20000
+        long_done = len(steps)
+        # the extended view and the saved slots live only inside a step:
+        # the peak while the request ran shows them
+        mem["peak_while_spilled"] = (torch.cuda.max_memory_allocated() / 1e9
+                                     if dev == "cuda" else None)
+        mem["after_spilled_request"] = mem_gb(dev)
+        while not cl.idle:
+            step()
+            assert len(steps) < 20000
+        wall = time.monotonic() - t_run
+        launches = launch_counts()
+    finally:
+        check.close()
+    mem["after"] = mem_gb(dev)
+    assert cluster_actions(cl) == acts, "no merge for the spilled request"
+    assert check.equal and all(check.equal), check.equal
+    assert len(long_.generated) == long_new
+    for r in reqs:
+        assert r.done and len(r.generated) == new
+    path = {k: launches[k] for k in ("paged_attention", "chunk_prefill",
+                                     "copy_page_slices")}
+    assert dev != "cuda" or all(n > 0 for n in path.values()), launches
+    assert not cl.partition.spills()
+    cl.partition.check_invariants()
+    log = guest.spill_log
+
+    def mean_ms(sel):
+        got = [s[1] for s in sel]
+        return sum(got) / len(got) * 1e3 if got else None
+
+    dec_only = [s for s in steps[:long_done] if not s[3] and s[2] > 0]
+    emit(phase="cluster-spill", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, instances=2, workers_each=1, max_seq=max_seq,
+         prompts=list(lens), new_tokens=new, long_prompt=long_len,
+         long_new_tokens=long_new, actions=acts, weights_init_s=t_init,
+         spilled_ttft_s=long_.ttft, spilled_tpot_s=long_.tpot,
+         short_ttft_s=[r.ttft for r in reqs],
+         short_tpot_s=[r.tpot for r in reqs],
+         decode_step_ms_with_spilled=mean_ms(
+             [s for s in dec_only if s[0]]),
+         decode_step_ms_without_spilled=mean_ms(
+             [s for s in dec_only if not s[0]]),
+         decode_steps_with_spilled=sum(1 for s in dec_only if s[0]),
+         decode_steps_without_spilled=sum(1 for s in dec_only
+                                          if not s[0]),
+         spill_log_entries=len(log),
+         spill_log_bytes_per_step=log[0]["bytes"] if log else None,
+         spill_log_pages_per_step=log[0]["pages"] if log else None,
+         spill_log_wall_ms_mean=(sum(x["wall_s"] for x in log) / len(log)
+                                 * 1e3 if log else None),
+         # every extended step assembles the view (reads the local and
+         # hosted slots, writes the copy) and writes it back (reads the
+         # copy, writes both slots): twice the view's bytes each
+         extended_view_bytes=(check.ext_bytes[0] if check.ext_bytes
+                              else None),
+         assemble_bytes_moved_per_step=(2 * check.ext_bytes[0]
+                                        if check.ext_bytes else None),
+         write_back_bytes_moved_per_step=(2 * check.ext_bytes[0]
+                                          if check.ext_bytes else None),
+         write_backs_checked=len(check.equal), hosted_pages_equal=True,
+         tokens_per_s=sum(len(r.generated) for r in reqs + [long_]) / wall,
+         wall_s=wall, memory_allocated_gb=mem, launches=path,
+         spill_pages=cl.metrics()["spill_pages"],
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del cl, guest
+    if dev == "cuda":
+        free_card()
+    return launches
 
 
 def launch_counts() -> dict:
@@ -1826,6 +2273,9 @@ def main():
     phase_parity()
     launches = phase_serve(smi)
     free_card()
+    # every registered head shape the port builds, end to end
+    shapes = phase_serve_shapes(smi)
+    phase_serve_cli(QWEN_CLI)
     phase_transform_parity()
     # kernels 1-3 count on the single-engine serve path (phase 4), the
     # padded FFN and the page migration on the transform path (phase 6)
@@ -1835,6 +2285,8 @@ def main():
     phase_cluster_parity()
     # this slice's path: every kernel launches on it (phase 9)
     cluster = phase_cluster_serve(smi)
+    phase_spill_parity()
+    spill = phase_cluster_spill(smi)
     phase_serve_cli()
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
@@ -1846,8 +2298,12 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "case": r["case"], "dtype": r["dtype"],
-            "launches_by_path": {"serve / transform-serve": launches[name],
-                                 "cluster-serve": cluster[name]}})
+            "launches_by_path": {
+                "serve / transform-serve": launches[name],
+                "cluster-serve": cluster[name],
+                "serve-shapes": {m: c.get(name, 0)
+                                 for m, c in shapes.items()},
+                "cluster-spill": spill[name]}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import BF16_ROW_TOL  # noqa: F401
 
 #: kernel launches since the last reset (the card only; one per call,
@@ -24,9 +25,21 @@ from repro_torch.kernels.flash_attention import BF16_ROW_TOL  # noqa: F401
 launches = 0
 plain = ref.chunk_prefill_ref
 
-HEAD_DIMS = (64, 128)
-TILE_ROWS = 64   # query rows per block: rep must divide it
+HEAD_DIMS = FA.HEAD_DIMS
+MAX_REP = FA.MAX_REP
 TILE_KEYS = 64   # keys of a bf16 tile
+
+
+def supports(Hq: int, kvs: int, dh: int, dtype: torch.dtype,
+             P: int = 64) -> bool:
+    """Whether the CUDA kernel takes this head shape, dtype and page
+    size: the flash kernel's head shapes (the two share their tiles); in
+    bfloat16 a page of a size that divides ``TILE_KEYS`` or that it
+    divides (a key tile is whole pages or part of one)."""
+    return (FA.supports(Hq, kvs, dh, dtype)
+            and (dtype != torch.bfloat16
+                 or TILE_KEYS % P == 0 or P % TILE_KEYS == 0))
+
 
 
 def chunk_prefill_attention(q, k_new, v_new, pool, page_table,
@@ -49,15 +62,17 @@ def chunk_prefill_attention(q, k_new, v_new, pool, page_table,
     B, S, Hq, dh = q.shape
     NP, kvs, two, P, dh2 = pool.shape
     n = page_table.shape[1]
-    rep = Hq // kvs
     ops.require(two == 2 and dh2 == dh and Hq % kvs == 0
                 and tuple(k_new.shape) == (B, S, kvs, dh)
                 and k_new.shape == v_new.shape,
                 f"shapes q {tuple(q.shape)} / k_new {tuple(k_new.shape)} "
                 f"/ pool {tuple(pool.shape)}")
-    ops.require(dh in HEAD_DIMS and TILE_ROWS % rep == 0,
-                f"chunk prefill takes dh in {HEAD_DIMS} and rep dividing "
-                f"{TILE_ROWS}")
+    ops.require(supports(Hq, kvs, dh, q.dtype, P),
+                f"chunk prefill takes dh in {HEAD_DIMS}, rep <= {MAX_REP} "
+                f"in float32 or bfloat16 and, in bfloat16, pages of a "
+                f"size that divides {TILE_KEYS} or that {TILE_KEYS} "
+                f"divides; not Hq {Hq} / kv {kvs} / dh {dh} / P {P} in "
+                f"{q.dtype}")
     ops.require(page_table.shape[0] == B
                 and tuple(kv_positions.shape) == (B, n * P)
                 and tuple(q_positions.shape) == (B, S),
@@ -68,11 +83,6 @@ def chunk_prefill_attention(q, k_new, v_new, pool, page_table,
     ops.check_cuda_inputs(q.dtype, (q, k_new, v_new, pool),
                           (page_table, kv_positions, q_positions))
     if q.dtype == torch.bfloat16:
-        # a 64-key tile is whole pages or part of one page
-        ops.require(TILE_KEYS % P == 0 or P % TILE_KEYS == 0,
-                    f"the bf16 chunk prefill takes pages of a size that "
-                    f"divides {TILE_KEYS} or that {TILE_KEYS} divides, "
-                    f"not {P}")
         ops.require_tma(q, k_new, v_new, pool)
     out = torch.empty_like(q)
     lib = _build.library("chunk_prefill")
@@ -82,7 +92,7 @@ def chunk_prefill_attention(q, k_new, v_new, pool, page_table,
     err = lib.repro_chunk_prefill_attention(
         ops.ptr(q), ops.ptr(k_new), ops.ptr(v_new), ops.ptr(pool), NP,
         ops.ptr(page_table), ops.ptr(kv_positions), ops.ptr(q_positions),
-        ops.ptr(out), B, S, kvs, rep, dh, P, n, int(attend_prefix),
+        ops.ptr(out), B, S, kvs, Hq // kvs, dh, P, n, int(attend_prefix),
         int(window), code, st)
     _build.check(err, "chunk prefill attention launch")
     err = lib.repro_chunk_scatter(

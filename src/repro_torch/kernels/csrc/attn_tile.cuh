@@ -3,9 +3,11 @@
 // tile, attn_wgmma.cuh; tensor cores would not hold the fp32 checks).
 //
 // One block of 128 threads owns one (batch row b, kv head g, query tile):
-// ROWS = 64 query rows = (64 / rep) tokens x the rep query heads of kv
-// head g, so every key tile loaded into shared memory serves all rep
-// heads of its group.  The block walks its keys in tiles of BK = 32:
+// ROWS = 64 query rows, of which (64 / rep) tokens x the rep query heads
+// of kv head g are live (rep up to 64; the rows past them, when rep does
+// not divide 64, are padding: no query, zero Q, never stored), so every
+// key tile loaded into shared memory serves all rep heads of its group.
+// dh in {64, 96, 128, 160, 256}.  The block walks its keys in tiles of BK = 32:
 // first an optional PAGED segment (keys read through a page table from
 // the header-centric pool (NP, kvs, 2, P, dh)), then a CONTIGUOUS
 // segment (keys from a (B, Sk, kvs, dh) tensor).  A key tile none of
@@ -222,15 +224,17 @@ __global__ void __launch_bounds__(TILE_THREADS)
 
   const int tid = threadIdx.x;
   const int g = blockIdx.y, b = blockIdx.z;
-  const int tokens = TILE_ROWS / a.rep;
+  const int tokens = TILE_ROWS / a.rep, live = tokens * a.rep;
   const int t0 = blockIdx.x * tokens;
   const int Hq = a.kvs * a.rep;
 
-  // query rows: row r is token t0 + r / rep, head g * rep + r % rep
+  // query rows: row r < live is token t0 + r / rep, head g * rep + r %
+  // rep; rows past live are padding
   for (int r = tid; r < TILE_ROWS; r += TILE_THREADS) {
     const int t = t0 + r / a.rep;
-    sm.qpos[r] = t < a.S ? (a.q_pos ? a.q_pos[(size_t)b * a.S + t] : t)
-                         : INT_MIN;
+    sm.qpos[r] = r < live && t < a.S
+                     ? (a.q_pos ? a.q_pos[(size_t)b * a.S + t] : t)
+                     : INT_MIN;
     sm.m[r] = NEG_INF;
     sm.l[r] = 0.f;
   }
@@ -238,9 +242,9 @@ __global__ void __launch_bounds__(TILE_THREADS)
     const int r = idx / DH, d = idx % DH, t = t0 + r / a.rep;
     const int h = g * a.rep + r % a.rep;
     sm.Qs[r * (DH + 1) + d] =
-        t < a.S ? to_f(a.q[(((size_t)b * a.S + t) * Hq + h) * DH + d]) *
-                      a.scale
-                : 0.f;
+        r < live && t < a.S
+            ? to_f(a.q[(((size_t)b * a.S + t) * Hq + h) * DH + d]) * a.scale
+            : 0.f;
   }
   __syncthreads();
   int qmin = INT_MAX, qmax = INT_MIN;
@@ -263,7 +267,7 @@ __global__ void __launch_bounds__(TILE_THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i, t = t0 + r / a.rep;
-    if (t >= a.S) continue;
+    if (r >= live || t >= a.S) continue;
     const int h = g * a.rep + r % a.rep;
     const float inv = 1.f / fmaxf(sm.l[r], 1e-20f);
     T* o = a.out + (((size_t)b * a.S + t) * Hq + h) * DH;
@@ -290,10 +294,14 @@ int launch_tile(const TileArgs<T>& a, int B, cudaStream_t stream) {
 template <typename T>
 int launch_tile_dh(const TileArgs<T>& a, int dh, int B,
                    cudaStream_t stream) {
-  if (a.rep < 1 || a.rep > TILE_ROWS || TILE_ROWS % a.rep)
-    return (int)cudaErrorInvalidValue;
-  if (dh == 64) return launch_tile<T, 64>(a, B, stream);
-  if (dh == 128) return launch_tile<T, 128>(a, B, stream);
+  if (a.rep < 1 || a.rep > TILE_ROWS) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 64: return launch_tile<T, 64>(a, B, stream);
+    case 96: return launch_tile<T, 96>(a, B, stream);
+    case 128: return launch_tile<T, 128>(a, B, stream);
+    case 160: return launch_tile<T, 160>(a, B, stream);
+    case 256: return launch_tile<T, 256>(a, B, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -40,6 +40,21 @@
 //     shared memory at dh = 128, so two blocks share an SM and one's
 //     softmax overlaps the other's products.  Blocks start with the
 //     latest query tiles, which see the most keys.
+// Every head shape of the registered configs: dh in {64, 96, 128, 160,
+// 256} and any rep = Hq / kvs up to 64.
+//   * A block holds tokens = 64 / rep (rounded down) tokens, tokens * rep
+//     live rows; the Q box brings exactly those rows, and the padding
+//     rows past them are zeroed before the first product and never
+//     stored (rep 3, 5, 40, ... leave 1-4 such rows).
+//   * dh 96 and 160 are not whole 64-wide swizzled panels: the tile
+//     holds DHP = dh rounded up to 64 columns.  The tensor maps keep the
+//     true dh as their inner dimension, so TMA zero-fills the columns
+//     past it; Q.K^T runs its k-steps to dh only, P.V runs over DHP
+//     columns (zeros past dh) and only dh of them are stored: 33% more
+//     P.V work at dh 96, 20% at dh 160.
+//   * dh 256: the output fragment is 128 fp32 registers a thread, P.V is
+//     two n128 products (one a 128-column half), and the block takes
+//     about 162 KB of shared memory, one block an SM.
 #pragma once
 
 #include <cuda.h>
@@ -163,11 +178,38 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "r"(1));
 }
 
+// O (64 x DHP) += P (64 x 16, registers) * V (16 x DHP, the tile's rows
+// at v, MN-major): one n64 or n128 product, or an n128 product and one
+// for the rest of the columns (the registers of o past 64 are columns
+// 128 onward, the fragment's own column order)
+template <int DHP>
+__device__ __forceinline__ void pv_product(float (&o)[DHP / 2],
+                                           const uint32_t (&a)[4],
+                                           uint32_t v) {
+  const uint64_t lo = sw128_desc(v, PANEL, 1024);
+  if constexpr (DHP == 64) {
+    wgmma_rs_n64(o, a, lo);
+  } else {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, lo);
+    const uint64_t hi = sw128_desc(v + 2 * PANEL, PANEL, 1024);
+    if constexpr (DHP == 192)
+      wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[64]), a, hi);
+    if constexpr (DHP == 256)
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a, hi);
+  }
+}
+
 // ------------------------------------------------------------- layout
+// columns of a tile row: dh rounded up to a whole 64-wide panel
+template <int DH>
+__host__ __device__ constexpr int padded_dh() {
+  return (DH + 63) / 64 * 64;
+}
+
 // shared memory, from a 1024-byte aligned base (the swizzle atom)
 template <int DH>
 struct Layout {
-  static constexpr int TILE = DH * 128;            // 64 rows x DH bf16
+  static constexpr int TILE = padded_dh<DH>() * 128;  // 64 rows x DHP bf16
   static constexpr int Q = 0;
   static constexpr int K = Q + TILE;               // STAGES tiles
   static constexpr int V = K + STAGES * TILE;      // STAGES tiles
@@ -190,13 +232,14 @@ __device__ __forceinline__ bool all_visible(int p, int qmin, int qmax,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, DH <= 128 ? 2 : 1)
     attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_pool,
                       const Args a) {
   using L = Layout<DH>;
+  constexpr int DHP = padded_dh<DH>(), PANELS = DHP / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -210,15 +253,30 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   const int tid = threadIdx.x;
   const int g = blockIdx.y, b = blockIdx.z;
-  const int tokens = ROWS / a.rep;
+  const int tokens = ROWS / a.rep, live = tokens * a.rep;
   // heaviest query tiles (latest tokens, most causal keys) first
   const int t0 = (gridDim.x - 1 - blockIdx.x) * tokens;
 
-  // query row r: token t0 + r / rep, head g * rep + r % rep
+  // query row r < live: token t0 + r / rep, head g * rep + r % rep; rows
+  // past live are padding (no query)
   if (tid < ROWS) {
     const int t = t0 + tid / a.rep;
-    qpos[tid] = t < a.S ? (a.q_pos ? a.q_pos[(size_t)b * a.S + t] : t)
-                        : INT_MIN;
+    qpos[tid] = tid < live && t < a.S
+                    ? (a.q_pos ? a.q_pos[(size_t)b * a.S + t] : t)
+                    : INT_MIN;
+  }
+  if (live < ROWS) {
+    // the Q box brings the live rows only: zero the padding rows (a
+    // whole 128-byte row of every panel, whatever its swizzle) so their
+    // products stay finite, and order these generic-proxy stores before
+    // the tensor cores' async-proxy reads
+    const int4 z = make_int4(0, 0, 0, 0);
+    for (int i = tid; i < (ROWS - live) * PANELS * 8; i += THREADS) {
+      const int r = live + i / (PANELS * 8), p = i / 8 % PANELS;
+      *reinterpret_cast<int4*>(sm + L::Q + p * PANEL + r * 128 +
+                               (i % 8) * 16) = z;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -247,9 +305,9 @@ __global__ void __launch_bounds__(THREADS, 2)
       qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, o));
     }
     if (lane == 0) {
-      mbar_expect_tx(q_bar, ROWS * DH * 2);
+      mbar_expect_tx(q_bar, live * DHP * 2);
 #pragma unroll
-      for (int p = 0; p < DH / 64; ++p)
+      for (int p = 0; p < PANELS; ++p)
         tma_4d(smem_u32(sm + L::Q + p * PANEL), &tm_q, q_bar, p * 64,
                g * a.rep, t0, b);
     }
@@ -286,7 +344,7 @@ __global__ void __launch_bounds__(THREADS, 2)
           if (lane == 0) {
             info[2 * stage] = i0;
             info[2 * stage + 1] = full;
-            mbar_expect_tx(full_bar(stage), 2 * BK * DH * 2);
+            mbar_expect_tx(full_bar(stage), 2 * BK * DHP * 2);
           }
           __syncwarp();
           issue(i0, stage);
@@ -317,7 +375,7 @@ __global__ void __launch_bounds__(THREADS, 2)
              const uint32_t kd = smem_u32(sm + L::K + st * L::TILE);
              const uint32_t vd = smem_u32(sm + L::V + st * L::TILE);
 #pragma unroll
-             for (int p = 0; p < DH / 64; ++p) {
+             for (int p = 0; p < PANELS; ++p) {
                const int off = p * PANEL + lane * boxrows * 128;
                tma_2d(kd + off, &tm_pool, full_bar(st), p * 64, row);
                tma_2d(vd + off, &tm_pool, full_bar(st), p * 64, vrow);
@@ -337,7 +395,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       walk(lo / BK, (hi + BK - 1) / BK,
            [&](int i) { return i < Sk ? (kp ? kp[i] : i) : -1; },
            [&](int i0, int st) {
-             if (lane >= DH / 64) return;  // one lane a 64-wide panel
+             if (lane >= PANELS) return;  // one lane a 64-wide panel
              const int off = lane * PANEL;
              tma_4d(smem_u32(sm + L::K + st * L::TILE) + off, &tm_k,
                     full_bar(st), lane * 64, g, i0, b);
@@ -357,10 +415,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int w = tid / 32, l = tid % 32;
   const int r0 = w * 16 + l / 4, r1 = r0 + 8;  // this thread's two rows
   const int qp0 = qpos[r0], qp1 = qpos[r1];
-  float o[DH / 2];
+  float o[DHP / 2];
   float s[BK / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
@@ -377,7 +435,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     const uint32_t v_addr = smem_u32(sm + L::V + stage * L::TILE);
 
     // S = Q.K^T: both K-major; a 16-deep step is 32 bytes into a
-    // 128-byte swizzled row, four steps to a 64-wide panel
+    // 128-byte swizzled row, four steps to a 64-wide panel; the steps
+    // stop at dh (the padded columns are zeros)
     wgmma_fence();
     fence_regs(s);
 #pragma unroll
@@ -440,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     l0 = l0 * c0 + sum0;  // this thread's share of the row sums, fp32
     l1 = l1 * c1 + sum1;
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] *= i % 4 < 2 ? c0 : c1;
+    for (int i = 0; i < DHP / 2; ++i) o[i] *= i % 4 < 2 ? c0 : c1;
 
     // O += P.V: P's accumulator fragment is the A register fragment of a
     // 16-key step; V is MN-major (dh contiguous), 16 keys = 2048 bytes
@@ -455,11 +514,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     wgmma_fence();
     fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t vd = sw128_desc(v_addr + kk * 16 * 128, PANEL, 1024);
-      if constexpr (DH == 128) wgmma_rs_n128(o, pa[kk], vd);
-      else wgmma_rs_n64(o, pa[kk], vd);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      pv_product<DHP>(o, pa[kk], v_addr + kk * 16 * 128);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -481,12 +537,12 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0, t = t0 + r / a.rep;
-    if (t >= a.S) continue;
+    if (r >= live || t >= a.S) continue;
     const float inv = 1.f / fmaxf(half ? l1 : l0, 1e-20f);
     __nv_bfloat16* orow =
         a.out + (((size_t)b * a.S + t) * Hq + g * a.rep + r % a.rep) * DH;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {  // columns past dh are not stored
       const int i = 4 * j + 2 * half;
       *reinterpret_cast<uint32_t*>(orow + j * 8 + (l % 4) * 2) =
           pack_bf16(o[i] * inv, o[i + 1] * inv);
@@ -539,16 +595,21 @@ int launch(const Args& a, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// the shapes this tile takes: dh in {64, 128}, rep dividing 64, and a
-// page size that divides 64 or that 64 divides
+// the shapes this tile takes: dh in {64, 96, 128, 160, 256}, rep up to
+// 64, and a page size that divides 64 or that 64 divides
 inline int launch_dh(const Args& a, int dh, const void* q, const void* k,
                      const void* v, const void* pool, int B,
                      cudaStream_t stream) {
-  if (a.rep < 1 || ROWS % a.rep) return (int)cudaErrorInvalidValue;
+  if (a.rep < 1 || a.rep > ROWS) return (int)cudaErrorInvalidValue;
   if (a.n_pages > 0 && a.P > 0 && BK % a.P && a.P % BK)
     return (int)cudaErrorInvalidValue;
-  if (dh == 64) return launch<64>(a, q, k, v, pool, B, stream);
-  if (dh == 128) return launch<128>(a, q, k, v, pool, B, stream);
+  switch (dh) {
+    case 64: return launch<64>(a, q, k, v, pool, B, stream);
+    case 96: return launch<96>(a, q, k, v, pool, B, stream);
+    case 128: return launch<128>(a, q, k, v, pool, B, stream);
+    case 160: return launch<160>(a, q, k, v, pool, B, stream);
+    case 256: return launch<256>(a, q, k, v, pool, B, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

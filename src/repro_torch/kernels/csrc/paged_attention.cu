@@ -38,12 +38,20 @@
 //        softmax per warp on the score fragments, and run P.V on the
 //        tensor cores too (V by ldmatrix.trans, P as two bf16 terms so
 //        that it keeps fp32-like precision); the warps merge at the end.
-//      * fp32 (the namespace-level split kernel, unchanged):
-//        capacity splits, one block of dh threads, each page's
-//        positions checked and K staged as fp32 before scoring.
+//      * fp32 (the namespace-level split kernel): capacity splits, one
+//        block of dh threads, each page's positions checked and K staged
+//        as fp32 before scoring, a page at a time or, where a page does
+//        not fit shared memory (dh 256 with 128-token pages), in
+//        sub-tiles of it.
 //   2. combine: one block per (g, b) merges the splits' partial states
 //      - the rescale-and-sum of layers.combine_softmax_partials - and
 //      writes the output.
+// Head shapes: dh in {64, 96, 128, 160, 256} and rep = Hq / kvs up to 16
+// (recurrentgemma-9b's 16 query heads over one kv head).  The bf16
+// tensor-core tile holds the rep heads as the rows of its 16-row A
+// operand: rows 0-7 when rep <= 8, all 16 (each thread two heads, two
+// softmax states) when rep is 9-16.  rep 1-8 at dh 64 and 128 keep
+// their own template instances; the other shapes take rep at run time.
 #include <algorithm>
 
 #include "common.cuh"
@@ -51,7 +59,7 @@
 
 namespace {
 
-constexpr int MAX_REP = 8;
+constexpr int MAX_REP = 16;
 constexpr size_t MAX_SMEM = 227 * 1024;
 
 size_t decode_smem_bytes(size_t elem, int dh, int rep, int P) {
@@ -71,15 +79,17 @@ __global__ void __launch_bounds__(DH)
                               float* __restrict__ part_l,
                               float* __restrict__ part_acc, int kvs,
                               int rep, int P, int n, int pps, int window,
-                              float scale) {
+                              float scale, int SUB) {
+  // a page is taken in P / SUB sub-tiles of SUB keys (SUB = P when it
+  // fits shared memory)
   constexpr int NW = DH / 32;               // warps
   constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte load
   extern __shared__ __align__(16) unsigned char s_raw[];
-  T* s_v = reinterpret_cast<T*>(s_raw);                        // (P, DH)
-  float* s_k = reinterpret_cast<float*>(s_v + (size_t)P * DH);  // (P, DH+1)
-  float* s_sc = s_k + (size_t)P * (DH + 1);                    // (rep, P)
-  float* s_q = s_sc + (size_t)rep * P;                         // (rep, DH)
-  int* s_pos = reinterpret_cast<int*>(s_q + (size_t)rep * DH);  // (P,)
+  T* s_v = reinterpret_cast<T*>(s_raw);                        // (SUB, DH)
+  float* s_k = reinterpret_cast<float*>(s_v + (size_t)SUB * DH);  // +1 pad
+  float* s_sc = s_k + (size_t)SUB * (DH + 1);                  // (rep, SUB)
+  float* s_q = s_sc + (size_t)rep * SUB;                       // (rep, DH)
+  int* s_pos = reinterpret_cast<int*>(s_q + (size_t)rep * DH);  // (SUB,)
   __shared__ float s_m[MAX_REP], s_l[MAX_REP], s_c[MAX_REP];
 
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
@@ -98,10 +108,11 @@ __global__ void __launch_bounds__(DH)
   __syncthreads();
 
   const int j0 = split * pps, j1 = min(n, j0 + pps);
-  for (int j = j0; j < j1; ++j) {
-    const int* pj = kv_pos + ((size_t)b * n + j) * P;
+  for (int jt = j0 * (P / SUB); jt < j1 * (P / SUB); ++jt) {
+    const int j = jt / (P / SUB), p0 = jt % (P / SUB) * SUB;
+    const int* pj = kv_pos + ((size_t)b * n + j) * P + p0;
     int live = 0;
-    for (int p = tid; p < P; p += DH) {
+    for (int p = tid; p < SUB; p += DH) {
       const int ps = pj[p];
       s_pos[p] = ps;
       live |= rt::visible(ps, qp, 1, window);
@@ -110,12 +121,14 @@ __global__ void __launch_bounds__(DH)
 
     const size_t page = page_table[(size_t)b * n + j];
     const T* kb = pool + ((page * kvs + g) * 2) * (size_t)P * DH;
-    const int4* kv4 = reinterpret_cast<const int4*>(kb);
-    const int n4 = P * DH / VEC;               // 16-byte chunks of K (or V)
+    const int4* k4 = reinterpret_cast<const int4*>(kb + (size_t)p0 * DH);
+    const int4* v4 =
+        reinterpret_cast<const int4*>(kb + (size_t)(P + p0) * DH);
+    const int n4 = SUB * DH / VEC;             // 16-byte chunks of K (or V)
 #pragma unroll 4
     for (int i = tid; i < n4; i += DH) {
-      const int4 kc = kv4[i];
-      reinterpret_cast<int4*>(s_v)[i] = kv4[n4 + i];
+      const int4 kc = k4[i];
+      reinterpret_cast<int4*>(s_v)[i] = v4[i];
       const T* ke = reinterpret_cast<const T*>(&kc);
       const int off = i * VEC, p = off / DH, c = off % DH;
 #pragma unroll
@@ -123,26 +136,26 @@ __global__ void __launch_bounds__(DH)
     }
     __syncthreads();
 
-    for (int idx = tid; idx < rep * P; idx += DH) {
-      const int p = idx % P, h = idx / P;
+    for (int idx = tid; idx < rep * SUB; idx += DH) {
+      const int p = idx % SUB, h = idx / SUB;
       const float* kr = s_k + p * (DH + 1);
       const float* qr = s_q + h * DH;
       float d = 0.f;
 #pragma unroll 8
       for (int c = 0; c < DH; ++c) d = fmaf(qr[c], kr[c], d);
-      s_sc[h * P + p] =
+      s_sc[h * SUB + p] =
           rt::visible(s_pos[p], qp, 1, window) ? d : rt::NEG_INF;
     }
     __syncthreads();
 
     for (int h = warp; h < rep; h += NW) {
-      float* row = s_sc + h * P;
+      float* row = s_sc + h * SUB;
       const float m_old = s_m[h];
       float mx = rt::NEG_INF;
-      for (int p = lane; p < P; p += 32) mx = fmaxf(mx, row[p]);
+      for (int p = lane; p < SUB; p += 32) mx = fmaxf(mx, row[p]);
       const float m_new = fmaxf(m_old, rt::warp_max(mx));
       float sum = 0.f;
-      for (int p = lane; p < P; p += 32) {
+      for (int p = lane; p < SUB; p += 32) {
         const float e = expf(row[p] - m_new);
         row[p] = e;
         sum += e;
@@ -158,11 +171,11 @@ __global__ void __launch_bounds__(DH)
     __syncthreads();
 
     float pv[MAX_REP] = {};
-    for (int p = 0; p < P; ++p) {
+    for (int p = 0; p < SUB; ++p) {
       const float vv = rt::to_f(s_v[p * DH + tid]);
 #pragma unroll
       for (int h = 0; h < MAX_REP; ++h)
-        if (h < rep) pv[h] = fmaf(s_sc[h * P + p], vv, pv[h]);
+        if (h < rep) pv[h] = fmaf(s_sc[h * SUB + p], vv, pv[h]);
     }
 #pragma unroll
     for (int h = 0; h < MAX_REP; ++h)
@@ -209,12 +222,23 @@ __global__ void __launch_bounds__(DH)
   }
 }
 
+// the fp32 kernel's sub-tile: the largest divisor of P (a whole page
+// first) whose stage fits shared memory; 0 if none does
+inline int sub_tile(size_t elem, int dh, int rep, int P) {
+  for (int sub = P; sub >= 1; --sub)
+    if (P % sub == 0 && (sub * dh) % 4 == 0 &&
+        decode_smem_bytes(elem, dh, rep, sub) <= MAX_SMEM)
+      return sub;
+  return 0;
+}
+
 template <typename T, int DH>
 int launch(const void* q, const void* pool, const int* page_table,
            const int* kv_pos, const int* q_pos, float* part_m,
            float* part_l, float* part_acc, void* out, int B, int kvs,
            int rep, int P, int n, int NS, int window, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes(sizeof(T), DH, rep, P);
+  const int sub = sub_tile(sizeof(T), DH, rep, P);
+  const size_t smem = decode_smem_bytes(sizeof(T), DH, rep, sub);
   cudaError_t e = cudaFuncSetAttribute(
       paged_decode_split_kernel<T, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -223,7 +247,7 @@ int launch(const void* q, const void* pool, const int* page_table,
   paged_decode_split_kernel<T, DH><<<dim3(kvs, B, NS), DH, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool), page_table,
       kv_pos, q_pos, part_m, part_l, part_acc, kvs, rep, P, n, pps, window,
-      1.0f / sqrtf((float)DH));
+      1.0f / sqrtf((float)DH), sub);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   paged_decode_combine_kernel<T, DH><<<dim3(kvs, B), DH, 0, stream>>>(
@@ -258,17 +282,25 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// D (16 x 8, fp32) += A (16 x 16, bf16) * B (16 x 8, bf16); rows 8-15
-// of A are zero here (a1 = a3 = 0): the rep <= 8 query heads
+// D (16 x 8, fp32) += A (16 x 16, bf16) * B (16 x 8, bf16): a0 / a2 hold
+// rows 0-7 (the first 8 query heads), a1 / a3 rows 8-15 (heads 8-15)
 __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a2, uint32_t b0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the same with rows 8-15 of A zero (a1 = a3 = 0): rep <= 8 query heads
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
+                                         uint32_t a2, uint32_t b0,
+                                         uint32_t b1) {
+  mma16816(d, a0, 0u, a2, 0u, b0, b1);
 }
 
 // four 8x8 bf16 matrices, transposed, from the 16-byte rows whose
@@ -332,8 +364,14 @@ __host__ __device__ inline size_t merge_bytes(int dh, int rep) {
   return (size_t)NW * rep * (dh + 2) * 4;
 }
 
+// REP: the rep of an instance of its own (1-8 at dh 64 and 128, the
+// shapes of the earlier slices), or a run-time rep: ANY_8 (1-8, heads in
+// rows 0-7) or ANY_16 (9-16, both row halves)
+constexpr int ANY_8 = 0, ANY_16 = -1;
+
 template <int DH, int REP>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS,
+                                  DH <= 128 && REP >= ANY_8 ? 2 : 1)
     paged_decode_bulk_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ pool,
                              const int* __restrict__ page_table,
@@ -343,12 +381,15 @@ __global__ void __launch_bounds__(THREADS, 2)
                              float* __restrict__ part_l,
                              float* __restrict__ part_acc, int kvs, int P,
                              int n, int stages, int window,
-                             float scale_log2) {
+                             float scale_log2, int rep_rt) {
+  // TWO: heads 8-15 in rows 8-15 of the A operand, a second softmax state
+  constexpr bool TWO = REP == ANY_16;
+  const int rep = REP > 0 ? REP : rep_rt;
   extern __shared__ __align__(128) uint8_t smem[];
   const int pps = pages_per_stage(P);
   const size_t pb = page_bytes(DH, P), stage_b = pps * pb;
   // the ring (reused by the merge at the end), then the barriers
-  const size_t merge_b = merge_bytes(DH, REP);
+  const size_t merge_b = merge_bytes(DH, rep);
   const size_t ring_b = stages * stage_b > merge_b ? stages * stage_b
                                                    : merge_b;
   const uint32_t bars = smem_u32(smem + ring_b);
@@ -402,34 +443,46 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   // ------------------------------------------------------ consumer warps
   // Tensor cores (mma.sync m16n8k16), the rep query heads as rows 0..7
-  // of the A operand (rows 8-15 zero).  Scoring on the CUDA cores
-  // instead (16-byte K reads, lanes splitting dh, the dot products
-  // reduced by shuffles) was right but bound by its own instructions,
-  // about 7 us a 64-key page a block on an H100 80GB HBM3 (700 W); this
-  // walk issues some 150 instructions a page a warp, and the 3/4 of each
-  // tensor-core tile that the padding rows waste costs nothing the bytes
-  // bound would notice.  Thread (gr = lane / 4, qd = lane % 4) holds
-  // head gr.  S = Q.K^T contracts over dh in a
+  // of the A operand (rows 8-15 zero; with TWO, heads 8..15 there).
+  // Scoring on the CUDA cores instead (16-byte K reads, lanes splitting
+  // dh, the dot products reduced by shuffles) was right but bound by its
+  // own instructions, about 7 us a 64-key page a block on an H100 80GB
+  // HBM3 (700 W); this walk issues some 150 instructions a page a warp,
+  // and the 3/4 of each tensor-core tile that the padding rows waste
+  // costs nothing the bytes bound would notice.  Thread (gr = lane / 4,
+  // qd = lane % 4) holds head gr.  S = Q.K^T contracts over dh in a
   // permuted order that both operands share: step kk = 2j + s takes dh
   // 8 (qd + 4j) + 4s + {0,1} (A cols / B rows 2qd, 2qd+1) and + {2,3}
   // (2qd+8, 2qd+9), so a thread's K fragment of a key is 16-byte loads
   // of 8 dh each.  O += P.V takes P from the S fragments (FA2's register
-  // reuse) and V by ldmatrix.trans.
+  // reuse) and V by ldmatrix.trans.  With TWO the thread also holds head
+  // gr + 8 (a1 / a3 of the A fragments, c2 / c3 of the accumulators).
   const int gr = lane / 4, qd = lane % 4;
   constexpr int J = DH / 32;            // 16-byte chunks a thread's key
   constexpr int NT = DH / 8;            // n8 tiles of the output
-  const int Hq = kvs * REP;
+  const int Hq = kvs * rep;
   uint32_t qa[J][4];                    // (a0, a2) of steps 2j and 2j+1
+  uint32_t qb[TWO ? J : 1][4];          // (a1, a3) of them: head gr + 8
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     int4 v = make_int4(0, 0, 0, 0);
-    if (gr < REP)
+    if (gr < rep)
       v = *reinterpret_cast<const int4*>(
-          q + ((size_t)b * Hq + g * REP + gr) * DH + 8 * (qd + 4 * j));
+          q + ((size_t)b * Hq + g * rep + gr) * DH + 8 * (qd + 4 * j));
     qa[j][0] = v.x;
     qa[j][1] = v.y;
     qa[j][2] = v.z;
     qa[j][3] = v.w;
+    if constexpr (TWO) {
+      int4 w2 = make_int4(0, 0, 0, 0);
+      if (gr + 8 < rep)
+        w2 = *reinterpret_cast<const int4*>(
+            q + ((size_t)b * Hq + g * rep + gr + 8) * DH + 8 * (qd + 4 * j));
+      qb[j][0] = w2.x;
+      qb[j][1] = w2.y;
+      qb[j][2] = w2.z;
+      qb[j][3] = w2.w;
+    }
   }
   float o[NT][4];
 #pragma unroll
@@ -437,6 +490,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
   float m = rt::NEG_INF, l = 0.f;   // head gr; l is this thread's share
+  float m1 = rt::NEG_INF, l1 = 0.f; // head gr + 8 (TWO)
 
   const int groups = pps * P / 16;      // 16-key groups of a stage
   for (int i = 0, s = 0, ph = 0; i < n_stages; ++i) {
@@ -461,9 +515,81 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int4 kv = kr[4 * j];
-          mma16816(sc[h], qa[j][0], qa[j][1], kv.x, kv.y);
-          mma16816(sc[h], qa[j][2], qa[j][3], kv.z, kv.w);
+          if constexpr (TWO) {
+            mma16816(sc[h], qa[j][0], qb[j][0], qa[j][1], qb[j][1], kv.x,
+                     kv.y);
+            mma16816(sc[h], qa[j][2], qb[j][2], qa[j][3], qb[j][3], kv.z,
+                     kv.w);
+          } else {
+            mma16816(sc[h], qa[j][0], qa[j][1], kv.x, kv.y);
+            mma16816(sc[h], qa[j][2], qa[j][3], kv.z, kv.w);
+          }
         }
+      }
+      if constexpr (TWO) {
+        // two heads a thread: sc[h][0..1] head gr, sc[h][2..3] head gr + 8
+        float mx0 = m, mx1 = m1;
+        bool vis[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = r0 + 8 * h + 2 * qd + e;
+            vis[h][e] = k0 + 8 * h + 2 * qd + e < keys &&
+                        rt::visible(pos[r], qp, 1, window);
+            sc[h][e] *= scale_log2;
+            sc[h][2 + e] *= scale_log2;
+            if (vis[h][e]) {
+              mx0 = fmaxf(mx0, sc[h][e]);
+              mx1 = fmaxf(mx1, sc[h][2 + e]);
+            }
+          }
+#pragma unroll
+        for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+        }
+        const float corr0 = ex2(m - mx0), corr1 = ex2(m1 - mx1);
+        m = mx0;
+        m1 = mx1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[h][e] = vis[h][e] ? ex2(sc[h][e] - mx0) : 0.f;
+            sc[h][2 + e] = vis[h][e] ? ex2(sc[h][2 + e] - mx1) : 0.f;
+            sum0 += sc[h][e];
+            sum1 += sc[h][2 + e];
+          }
+        l = l * corr0 + sum0;
+        l1 = l1 * corr1 + sum1;
+        // P as bf16 high and low parts, rows gr (a0 / a2) and gr + 8
+        // (a1 / a3)
+        uint32_t phi[4], plo[4];
+        split_bf16(sc[0][0], sc[0][1], phi[0], plo[0]);
+        split_bf16(sc[0][2], sc[0][3], phi[1], plo[1]);
+        split_bf16(sc[1][0], sc[1][1], phi[2], plo[2]);
+        split_bf16(sc[1][2], sc[1][3], phi[3], plo[3]);
+        const uint32_t vaddr = smem_u32(
+            pg + P * DH * 2 +
+            ((size_t)(r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * DH +
+             8 * (lane >> 4)) * 2);
+#pragma unroll
+        for (int t = 0; t < NT; t += 2) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, vaddr + t * 16);
+#pragma unroll
+          for (int i2 = 0; i2 < 4; ++i2) {
+            o[t][i2] *= i2 < 2 ? corr0 : corr1;
+            o[t + 1][i2] *= i2 < 2 ? corr0 : corr1;
+          }
+          mma16816(o[t], phi[0], phi[1], phi[2], phi[3], vb[0], vb[1]);
+          mma16816(o[t], plo[0], plo[1], plo[2], plo[3], vb[0], vb[1]);
+          mma16816(o[t + 1], phi[0], phi[1], phi[2], phi[3], vb[2], vb[3]);
+          mma16816(o[t + 1], plo[0], plo[1], plo[2], plo[3], vb[2], vb[3]);
+        }
+        continue;
       }
       float mx = m;
       bool vis[2][2];
@@ -525,41 +651,57 @@ __global__ void __launch_bounds__(THREADS, 2)
   // l: sum the quad's shares
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if constexpr (TWO) {
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  }
 
   // every consumer is past the ring (each waited for every stage), so the
   // merge of the warps reuses its bytes
   asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
-  float* sm_m = reinterpret_cast<float*>(smem);       // (NW, REP)
-  float* sm_l = sm_m + NW * REP;                      // (NW, REP)
-  float* sm_a = sm_l + NW * REP;                      // (NW, REP, DH)
-  if (gr < REP) {
+  float* sm_m = reinterpret_cast<float*>(smem);       // (NW, rep)
+  float* sm_l = sm_m + NW * rep;                      // (NW, rep)
+  float* sm_a = sm_l + NW * rep;                      // (NW, rep, DH)
+  if (gr < rep) {
     // o[t][0..1]: head gr, dh 8t + 2qd + {0, 1}
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
-      sm_a[(w * REP + gr) * DH + 8 * t + 2 * qd] = o[t][0];
-      sm_a[(w * REP + gr) * DH + 8 * t + 2 * qd + 1] = o[t][1];
+      sm_a[(w * rep + gr) * DH + 8 * t + 2 * qd] = o[t][0];
+      sm_a[(w * rep + gr) * DH + 8 * t + 2 * qd + 1] = o[t][1];
     }
     if (qd == 0) {
-      sm_m[w * REP + gr] = m;
-      sm_l[w * REP + gr] = l;
+      sm_m[w * rep + gr] = m;
+      sm_l[w * rep + gr] = l;
+    }
+  }
+  if (TWO && gr + 8 < rep) {
+    // o[t][2..3]: head gr + 8
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      sm_a[(w * rep + gr + 8) * DH + 8 * t + 2 * qd] = o[t][2];
+      sm_a[(w * rep + gr + 8) * DH + 8 * t + 2 * qd + 1] = o[t][3];
+    }
+    if (qd == 0) {
+      sm_m[w * rep + gr + 8] = m1;
+      sm_l[w * rep + gr + 8] = l1;
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
   // this split's partial state, m in natural-log units for the combine;
   // a split with no visible key leaves (NEG_INF ln 2, 0, 0), which the
   // combine weighs as nothing
-  const size_t base = (((size_t)b * kvs + g) * NS + split) * REP;
-  for (int e = tid; e < REP * DH; e += NW * 32) {
+  const size_t base = (((size_t)b * kvs + g) * NS + split) * rep;
+  for (int e = tid; e < rep * DH; e += NW * 32) {
     const int h = e / DH, c = e % DH;
     float mx = rt::NEG_INF;
 #pragma unroll
-    for (int x = 0; x < NW; ++x) mx = fmaxf(mx, sm_m[x * REP + h]);
+    for (int x = 0; x < NW; ++x) mx = fmaxf(mx, sm_m[x * rep + h]);
     float ls = 0.f, as = 0.f;
 #pragma unroll
     for (int x = 0; x < NW; ++x) {
-      const float cr = ex2(sm_m[x * REP + h] - mx);
-      ls += sm_l[x * REP + h] * cr;
-      as += sm_a[(x * REP + h) * DH + c] * cr;
+      const float cr = ex2(sm_m[x * rep + h] - mx);
+      ls += sm_l[x * rep + h] * cr;
+      as += sm_a[(x * rep + h) * DH + c] * cr;
     }
     part_acc[(base + h) * DH + c] = as;
     if (c == 0) {
@@ -569,29 +711,38 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// threads of a combine block: one per (head, dh element) for an
+// instance of its own rep, else 512 walking them
+__host__ __device__ constexpr int combine_threads(int dh, int rep) {
+  return rep > 0 ? rep * dh : 512;
+}
+
 // the splits' merge for bf16: one block per (kv head, row), a thread per
 // (head, dh element), every head at once
 template <int DH, int REP>
-__global__ void __launch_bounds__(REP * DH)
+__global__ void __launch_bounds__(combine_threads(DH, REP))
     combine_kernel(const float* __restrict__ part_m,
                    const float* __restrict__ part_l,
                    const float* __restrict__ part_acc, bf16* __restrict__ out,
-                   int kvs, int NS) {
+                   int kvs, int NS, int rep_rt) {
+  const int rep = REP > 0 ? REP : rep_rt;
   const int g = blockIdx.x, b = blockIdx.y;
-  const int h = threadIdx.x / DH, c = threadIdx.x % DH;
   const size_t base = ((size_t)b * kvs + g) * NS;
-  float m = rt::NEG_INF;
-  for (int s = 0; s < NS; ++s) m = fmaxf(m, part_m[(base + s) * REP + h]);
-  float l = 0.f, a = 0.f;
+  for (int e = threadIdx.x; e < rep * DH; e += combine_threads(DH, REP)) {
+    const int h = e / DH, c = e % DH;
+    float m = rt::NEG_INF;
+    for (int s = 0; s < NS; ++s) m = fmaxf(m, part_m[(base + s) * rep + h]);
+    float l = 0.f, a = 0.f;
 #pragma unroll 4
-  for (int s = 0; s < NS; ++s) {
-    const size_t i = (base + s) * REP + h;
-    const float corr = expf(part_m[i] - m);
-    l += part_l[i] * corr;
-    a += part_acc[i * DH + c] * corr;
+    for (int s = 0; s < NS; ++s) {
+      const size_t i = (base + s) * rep + h;
+      const float corr = expf(part_m[i] - m);
+      l += part_l[i] * corr;
+      a += part_acc[i * DH + c] * corr;
+    }
+    out[((size_t)b * kvs * rep + g * rep + h) * DH + c] =
+        __float2bfloat16(a / fmaxf(l, 1e-20f));
   }
-  out[((size_t)b * kvs * REP + g * REP + h) * DH + c] =
-      __float2bfloat16(a / fmaxf(l, 1e-20f));
 }
 
 // the ring depth a launch uses: 3 stages, or fewer where a stage is
@@ -607,12 +758,12 @@ inline int ring_stages(int dh, int rep, int P) {
 template <int DH, int REP>
 int launch(const void* q, const void* pool, const int* pt, const int* kv_pos,
            const int* q_pos, float* pm, float* pl, float* pa, void* out,
-           int B, int kvs, int P, int n, int NS, int window,
+           int B, int kvs, int rep, int P, int n, int NS, int window,
            cudaStream_t stream) {
-  const int stages = ring_stages(DH, REP, P);
+  const int stages = ring_stages(DH, rep, P);
   const size_t smem = std::max(stages * pages_per_stage(P) *
                                    page_bytes(DH, P),
-                               merge_bytes(DH, REP)) +
+                               merge_bytes(DH, rep)) +
                       16 * stages;
   auto kern = paged_decode_bulk_kernel<DH, REP>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -621,11 +772,12 @@ int launch(const void* q, const void* pool, const int* pt, const int* kv_pos,
   kern<<<dim3(kvs, B, NS), THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(pool), pt,
       kv_pos, q_pos, pm, pl, pa, kvs, P, n, stages, window,
-      1.4426950408889634f / sqrtf((float)DH));
+      1.4426950408889634f / sqrtf((float)DH), rep);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  combine_kernel<DH, REP><<<dim3(kvs, B), REP * DH, 0, stream>>>(
-      pm, pl, pa, static_cast<bf16*>(out), kvs, NS);
+  combine_kernel<DH, REP>
+      <<<dim3(kvs, B), combine_threads(DH, REP), 0, stream>>>(
+          pm, pl, pa, static_cast<bf16*>(out), kvs, NS, rep);
   return (int)cudaGetLastError();
 }
 
@@ -634,16 +786,24 @@ int launch_rep(int rep, const void* q, const void* pool, const int* pt,
                const int* kv_pos, const int* q_pos, float* pm, float* pl,
                float* pa, void* out, int B, int kvs, int P, int n, int NS,
                int window, cudaStream_t st) {
-  switch (rep) {
+  if (rep > 8)
+    return launch<DH, ANY_16>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out,
+                              B, kvs, rep, P, n, NS, window, st);
+  if constexpr (DH != 64 && DH != 128) {
+    return launch<DH, ANY_8>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out,
+                             B, kvs, rep, P, n, NS, window, st);
+  } else {
+    switch (rep) {
 #define REPRO_REP(R)                                                       \
   case R:                                                                  \
     return launch<DH, R>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,   \
-                         kvs, P, n, NS, window, st);
-    REPRO_REP(1) REPRO_REP(2) REPRO_REP(3) REPRO_REP(4)
-    REPRO_REP(5) REPRO_REP(6) REPRO_REP(7) REPRO_REP(8)
+                         kvs, R, P, n, NS, window, st);
+      REPRO_REP(1) REPRO_REP(2) REPRO_REP(3) REPRO_REP(4)
+      REPRO_REP(5) REPRO_REP(6) REPRO_REP(7) REPRO_REP(8)
 #undef REPRO_REP
+    }
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }
 }  // namespace bulk
 
@@ -657,22 +817,32 @@ int launch_bf16(const void* q, const void* pool, const int* pt,
                               out, B, kvs, P, n, NS, window, stream);
 }
 
+template <int DH>
+int launch_dtype(int dtype, const void* q, const void* pool, const int* pt,
+                 const int* kv_pos, const int* q_pos, float* pm, float* pl,
+                 float* pa, void* out, int B, int kvs, int rep, int P, int n,
+                 int NS, int window, cudaStream_t stream) {
+  if (dtype == rt::DT_F32)
+    return launch<float, DH>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
+                             kvs, rep, P, n, NS, window, stream);
+  if (dtype == rt::DT_BF16)
+    return launch_bf16<DH>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
+                           kvs, rep, P, n, NS, window, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 int launch_dh(int dtype, int dh, const void* q, const void* pool,
               const int* pt, const int* kv_pos, const int* q_pos, float* pm,
               float* pl, float* pa, void* out, int B, int kvs, int rep,
               int P, int n, int NS, int window, cudaStream_t stream) {
-  if (dtype == rt::DT_F32 && dh == 64)
-    return launch<float, 64>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                             kvs, rep, P, n, NS, window, stream);
-  if (dtype == rt::DT_F32 && dh == 128)
-    return launch<float, 128>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out,
-                              B, kvs, rep, P, n, NS, window, stream);
-  if (dtype == rt::DT_BF16 && dh == 64)
-    return launch_bf16<64>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                           kvs, rep, P, n, NS, window, stream);
-  if (dtype == rt::DT_BF16 && dh == 128)
-    return launch_bf16<128>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                            kvs, rep, P, n, NS, window, stream);
+  switch (dh) {
+#define REPRO_DH(D)                                                         \
+  case D:                                                                   \
+    return launch_dtype<D>(dtype, q, pool, pt, kv_pos, q_pos, pm, pl, pa,   \
+                           out, B, kvs, rep, P, n, NS, window, stream);
+    REPRO_DH(64) REPRO_DH(96) REPRO_DH(128) REPRO_DH(160) REPRO_DH(256)
+#undef REPRO_DH
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -689,8 +859,7 @@ extern "C" int repro_paged_decode(const void* q, const void* pool,
                                   void* stream) {
   if (rep < 1 || rep > MAX_REP || NS < 1 || NS > n)
     return (int)cudaErrorInvalidValue;
-  if (dtype == rt::DT_F32 &&
-      ((P * dh) % 4 || decode_smem_bytes(4, dh, rep, P) > MAX_SMEM))
+  if (dtype == rt::DT_F32 && sub_tile(4, dh, rep, P) == 0)
     return (int)cudaErrorInvalidValue;
   // the tensor-core walk takes 16-key groups inside a page
   if (dtype == rt::DT_BF16 && (P % 16 || bulk::ring_stages(dh, rep, P) == 0))

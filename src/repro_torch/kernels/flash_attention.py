@@ -14,13 +14,24 @@ from repro_torch.kernels import _build, ops, ref
 launches = 0
 plain = ref.flash_attention_ref
 
-HEAD_DIMS = (64, 128)
-TILE_ROWS = 64   # query rows per block: rep must divide it
+HEAD_DIMS = (64, 96, 128, 160, 256)
+#: query heads a kv head, at most: a block's 64 query rows hold at least
+#: one token's heads
+MAX_REP = 64
 #: The tensor-core tile rounds P to bf16 before P.V (the row sum is taken
 #: in fp32 before that), so its bf16 output differs from the plain
 #: version's by up to one bf16 ulp plus this share of the output row's
 #: RMS; ``tests/test_torch_prefill_numerics.py`` sizes it.
 BF16_ROW_TOL = 2.0 ** -7
+
+
+def supports(Hq: int, kvs: int, dh: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernel takes this head shape and dtype: dh in
+    ``HEAD_DIMS`` and any ``rep = Hq / kvs`` up to ``MAX_REP`` (a block
+    holds ``64 // rep`` tokens; the rows past them are padding)."""
+    return (kvs >= 1 and Hq % kvs == 0 and 1 <= Hq // kvs <= MAX_REP
+            and dh in HEAD_DIMS
+            and dtype in (torch.float32, torch.bfloat16))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,9 +47,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ops.require(tuple(k.shape) == (B, S, Hkv, dh) and k.shape == v.shape
                 and Hq % Hkv == 0, f"shapes q {tuple(q.shape)} / k "
                 f"{tuple(k.shape)} / v {tuple(v.shape)}")
-    ops.require(dh in HEAD_DIMS and TILE_ROWS % rep == 0,
-                f"flash attention takes dh in {HEAD_DIMS} and rep "
-                f"dividing {TILE_ROWS}")
+    ops.require(supports(Hq, Hkv, dh, q.dtype),
+                f"flash attention takes dh in {HEAD_DIMS} and rep <= "
+                f"{MAX_REP} in float32 or bfloat16, not Hq {Hq} / kv "
+                f"{Hkv} / dh {dh} in {q.dtype}")
     ops.check_cuda_inputs(q.dtype, (q, k, v), ())
     if q.dtype == torch.bfloat16:
         ops.require_tma(q, k, v)

@@ -21,9 +21,33 @@ from repro_torch.kernels import _build, ops, ref
 launches = 0
 plain = ref.paged_decode_ref
 
-HEAD_DIMS = (64, 128)
-MAX_REP = 8
+HEAD_DIMS = (64, 96, 128, 160, 256)
+#: query heads a kv head, at most: the 16 rows of the bf16 tile's A operand
+MAX_REP = 16
 MAX_SMEM = 227 * 1024
+RING_KEYS = 64   # keys of a bf16 ring stage, at least
+
+
+def supports(Hq: int, kvs: int, dh: int, dtype: torch.dtype,
+             P: int = 64) -> bool:
+    """Whether the CUDA kernel takes this head shape, dtype and page
+    size: dh in ``HEAD_DIMS`` and ``rep = Hq / kvs`` up to ``MAX_REP``;
+    in bfloat16 pages of a multiple of 16 tokens (the tensor cores take
+    16-key groups inside a page) whose ring stage (at least
+    ``RING_KEYS`` keys: K and V in bf16 and their positions), or the
+    warps' merge, fits shared memory (``bulk::ring_stages``).  The
+    float32 kernel takes a page too large for shared memory in
+    sub-tiles."""
+    if not (kvs >= 1 and Hq % kvs == 0 and 1 <= Hq // kvs <= MAX_REP
+            and dh in HEAD_DIMS and P >= 1):
+        return False
+    if dtype == torch.float32:
+        return True
+    if dtype != torch.bfloat16 or P % 16:
+        return False
+    stage = max(1, RING_KEYS // P) * P * (4 * dh + 4)
+    merge = 4 * (Hq // kvs) * (dh + 2) * 4
+    return max(stage, merge) + 16 <= MAX_SMEM
 
 
 def num_splits(B: int, kvs: int, n: int, sms: int) -> int:
@@ -98,23 +122,15 @@ def paged_decode(q: torch.Tensor, pool: torch.Tensor,
     rep = Hq // kvs
     ops.require(two == 2 and dh2 == dh and Hq % kvs == 0,
                 f"shapes q {tuple(q.shape)} / pool {tuple(pool.shape)}")
+    ops.require(supports(Hq, kvs, dh, q.dtype, P),
+                f"paged decode takes dh in {HEAD_DIMS} and rep <= "
+                f"{MAX_REP} in float32 or bfloat16 and, in bfloat16, "
+                f"pages of a multiple of 16 tokens whose ring stage fits "
+                f"{MAX_SMEM} bytes; not Hq {Hq} / kv {kvs} / dh {dh} / "
+                f"P {P} in {q.dtype}")
     if q.dtype == torch.bfloat16:
-        # bulk copies from 16-byte aligned bases; the tensor cores take
-        # 16-key groups inside a page; a ring stage (at least 64 keys:
-        # K and V in bf16, and their positions) fits in shared memory
-        smem = max(P, 64) * (4 * dh + 4)
+        # bulk copies from 16-byte aligned bases
         ops.require_tma(q, pool, kv_positions)
-        ops.require(P % 16 == 0, f"bf16 paged decode takes pages of a "
-                    f"multiple of 16 tokens, not {P}")
-    else:
-        # a block stages one page's K (fp32, padded rows) and V, the
-        # (rep, P) scores, the rep queries and the page's positions
-        smem = (4 * (P * (dh + 1) + rep * P + rep * dh)
-                + P * dh * q.element_size() + 4 * P)
-    ops.require(dh in HEAD_DIMS and 1 <= rep <= MAX_REP
-                and smem <= MAX_SMEM,
-                f"paged decode takes dh in {HEAD_DIMS}, rep <= {MAX_REP} "
-                f"and pages of at most {MAX_SMEM} bytes of shared memory")
     ops.require(page_table.shape[0] == B
                 and tuple(kv_positions.shape) == (B, n * P)
                 and tuple(q_positions.shape) == (B,),

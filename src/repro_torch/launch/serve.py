@@ -8,7 +8,7 @@ the trace, and prints what the control plane did.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch llama3-8b] \
         [--instances 2] [--requests 16] [--long-every 5] [--scheduler gyges] \
-        [--device cuda] [--workers 4]
+        [--device cuda] [--workers 4] [--no-smoke]
 
 The pool is ``--workers`` workers of ``--device``: by default 4 workers
 of the card (it raises without a GPU; ``--device cpu`` runs the plain
@@ -19,6 +19,12 @@ item 5).  Short requests spread over the TP1 instances, a long request
 triggers a scheduler-issued live scale-up (``Engine.transform``, one
 §4.3 schedule step per engine step), and the Alg-2 scan decomposes the
 instance once the long request drains.
+
+By default the model is the reduced config in float32.  ``--no-smoke``
+serves the published config at full width and depth in its own dtype
+(random weights), e.g. the paper's own qwen2.5-32b (62.3 GB in bf16),
+which fits one H100 as one instance of one worker: ``--arch qwen2.5-32b
+--no-smoke --instances 1 --workers 1 --max-seq 8192``.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs import ASSIGNED_ARCHS, get_config
+from repro_torch.configs import get_config
+from repro_torch.configs.registry import all_configs
 from repro_torch.core.scheduler import SCHEDULERS, PrefillPolicy, ScaleUp
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.serving.cluster import ClusterEngine
@@ -61,7 +68,8 @@ def _action_line(act) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=ASSIGNED_ARCHS)
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=sorted(all_configs(include_paper_model=True)))
     ap.add_argument("--instances", type=int, default=2)
     ap.add_argument("--scheduler", default="gyges",
                     choices=sorted(SCHEDULERS))
@@ -78,17 +86,20 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-mode", default="mixed",
                     choices=("prefill", "decode", "mixed"),
                     help="prefill/decode priority when budgeted")
-    ap.add_argument("--smoke", action="store_true", default=True,
-                    help="reduced model config (default)")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="reduced model config in float32 (default); "
+                         "--no-smoke: the published config at full width "
+                         "and depth, in its own dtype")
     ap.add_argument("--device", default="cuda",
                     help="device of every worker (default the card)")
     ap.add_argument("--workers", type=int, default=4,
                     help="workers of --device in the pool")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch).reduced() if args.smoke \
-        else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, dtype="float32")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     devs = [resolve_device(args.device)] * args.workers
     w = len(devs) // args.instances
     policy = (PrefillPolicy(token_budget=args.prefill_budget,

@@ -288,7 +288,8 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                 cfg: ModelConfig, plan: PaddingPlan, static_mesh,
                 rows: RowSet, tokens: torch.Tensor, positions: torch.Tensor,
                 mode: str, first_chunk: bool = False,
-                on_layer: Optional[Callable[[int], None]] = None
+                on_layer: Optional[Callable[[int], None]] = None,
+                caches: Optional[List[pp.PagedState]] = None
                 ) -> torch.Tensor:
     """One forward pass of a row set over per-worker layers.
 
@@ -298,8 +299,10 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
     decode kernel), ``seq`` (a whole prompt from position 0: flash
     kernel, then the cache fill) or ``chunk`` (the chunk-prefill kernel
     with its scatter).  ``on_layer(i)`` runs after layer i has been
-    issued (the transform session's hook).  The MLP replicas are in the
-    Eq. 2 layout of ``plan.max_tp`` shards.  Returns the last token's
+    issued (the transform session's hook).  ``caches``: one batch-1
+    state a layer that replaces the worker's view of a one-row set (a
+    spilled slot's extended view, the layers at REP).  The MLP replicas
+    are in the Eq. 2 layout of ``plan.max_tp`` shards.  Returns the last token's
     logits (R, vocab_padded) on ``static_mesh``'s worker 0."""
     eps = cfg.norm_eps
     S = plan.max_tp
@@ -326,6 +329,8 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
             if cache is None:
                 outs.append(None)
                 continue
+            if caches is not None:
+                cache = caches[i]
             h = Lyr.rmsnorm(x, layer.ln1[w], eps)
             pos = part(positions, here[0], mesh, w)
             p = layer.attn[w]

@@ -1,1 +1,5 @@
-"""Paged KV storage of the port (layouts and pool operations)."""
+"""Paged KV storage of the port (layouts, pool operations and the
+host-side page allocator)."""
+from repro_torch.paged.allocator import OutOfPages, PageAllocator
+
+__all__ = ["OutOfPages", "PageAllocator"]

@@ -22,7 +22,7 @@ empty).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -196,6 +196,60 @@ def append_token(state: PagedState, k: torch.Tensor, v: torch.Tensor,
     state.positions[rows, slot] = state.seq_lens
     state.seq_lens.add_(1)
     return state
+
+
+def concat_spilled(states: Sequence[PagedState],
+                   storage_layout: str = L.CANONICAL) -> PagedState:
+    """Distributed-pool READ view (the reference's ``concat_spilled``):
+    stitch a batch-1 slot state together from its local pages and the
+    overflow page segments hosted in neighbour pools, as one
+    identity-paged state whose capacity is the sum of the parts.
+
+    ``states[0]`` is the local (guest) part and is authoritative for
+    ``seq_lens``; the rest are host segments in spill order, on any
+    device (they are copied to the local part's).  Every part is a
+    batch-1 identity-paged state (an engine's slot view), so the
+    concatenated state is indistinguishable from one big slot: the
+    decode and chunk-prefill kernels run on it unchanged.  The result
+    is a copy: nothing of it aliases a part."""
+    head = states[0]
+    dev = head.pool.device
+    pool = torch.cat([s.pool.to(dev) for s in states],
+                     dim=L.block_axis(storage_layout))
+    mps = sum(int(s.page_table.shape[-1]) for s in states)
+    pt = torch.arange(mps, dtype=head.page_table.dtype, device=dev).expand(
+        *head.page_table.shape[:-1], mps).contiguous()
+    pos = torch.cat([s.positions.to(dev) for s in states], dim=-1)
+    return PagedState(pool, pt, head.seq_lens.clone(), pos)
+
+
+def split_spilled(state: PagedState, page_counts: Sequence[int],
+                  storage_layout: str = L.CANONICAL) -> List[PagedState]:
+    """Inverse of ``concat_spilled``: cut the extended state back into
+    its local and host segments (``page_counts`` pages each, summing to
+    the state's page count).  Each part is a self-contained batch-1
+    identity-paged state whose pool and positions are VIEWS of
+    ``state``'s; the first (local) part carries the true ``seq_lens``,
+    host parts zeros (their metadata is the positions slice: the host
+    never reads a guest's cursor)."""
+    total = sum(page_counts)
+    assert total == int(state.page_table.shape[-1]), (
+        page_counts, tuple(state.page_table.shape))
+    P = state.positions.shape[-1] // total
+    axis = L.block_axis(storage_layout)
+    out: List[PagedState] = []
+    page0 = 0
+    for i, n in enumerate(page_counts):
+        pool = state.pool.narrow(axis, page0, n)
+        pt = torch.arange(n, dtype=state.page_table.dtype,
+                          device=state.page_table.device).expand(
+            *state.page_table.shape[:-1], n).contiguous()
+        pos = state.positions.narrow(-1, page0 * P, n * P)
+        seq = (state.seq_lens if i == 0
+               else torch.zeros_like(state.seq_lens))
+        out.append(PagedState(pool, pt, seq, pos))
+        page0 += n
+    return out
 
 
 def gather_kv(state: PagedState, storage_layout: str = L.CANONICAL

@@ -24,16 +24,23 @@ drives them with one ``core.scheduler`` policy:
   later ``ScaleDown`` of the merged engine transforms it back onto its
   home workers, returns the loan and revives the donors.
 
-The opt-in capacity-ladder rungs of the reference (KV spill, partial
-merges) and elastic SP layouts are decided by the ported scheduler but
-have no data plane here: a ``SchedulerConfig`` that enables them is
-refused at construction (ROADMAP queue 1).  ``metrics()`` is
-key-for-key ``serving.metrics.METRIC_KEYS``.
+* **KV spill** (rung 1 of the reference's capacity ladder, opt-in with
+  ``SchedulerConfig(spill=True)``): a ``Spill`` from the scheduler
+  serves a request above its guest's ceiling with no transformation: the
+  host engine reserves whole free slots for the overflow pages
+  (``Engine.host_spilled``) and the guest serves the request on an
+  extended view of its slot and those pages (``Engine.admit_spilled``).
+  A host that cannot grant falls back down the ladder to a merge.
+
+Partial merges and elastic SP layouts are decided by the ported
+scheduler but have no data plane here: a ``SchedulerConfig`` that
+enables them is refused at construction (ROADMAP queue 1).
+``metrics()`` is key-for-key ``serving.metrics.METRIC_KEYS``.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -42,7 +49,8 @@ from repro_torch.core.padding import make_plan
 from repro_torch.core.partition import PoolPartitionManager
 from repro_torch.core.scheduler import (Action, BaseScheduler,
                                         GygesScheduler, PrefillPolicy,
-                                        ScaleDown, ScaleUp, SchedulerConfig)
+                                        ScaleDown, ScaleUp, SchedulerConfig,
+                                        Spill)
 from repro_torch.core.weight_transform import relayout_mlp_for_tp
 from repro_torch.launch.mesh import Worker, workers_of
 from repro_torch.models import model as M
@@ -51,8 +59,7 @@ from repro_torch.serving.metrics import summarize
 from repro_torch.serving.request import ServeRequest, State
 
 #: the reference's opt-in rungs whose data plane is not ported
-UNPORTED = {"spill": "KV spill is ROADMAP queue 1 item 8a",
-            "partial_merge": "partial merges are ROADMAP queue 1 item 8b",
+UNPORTED = {"partial_merge": "partial merges are ROADMAP queue 1 item 8b",
             "layouts": "SP layouts are ROADMAP queue 1 item 6"}
 
 
@@ -127,9 +134,9 @@ class ClusterEngine:
                 and hasattr(scheduler.cfg, "page_tokens"):
             scheduler.cfg.page_tokens = page_tokens
         self.scheduler = scheduler
-        # measured-cost feedback cursors (engine iid -> transform records
-        # already fed to an attached cost model)
-        self._cost_fed: Dict[int, int] = {}
+        # measured-cost feedback cursors (engine iid -> transform and
+        # spill records already fed to an attached cost model)
+        self._cost_fed: Dict[int, Tuple[int, int]] = {}
 
         self.waiting: List[ServeRequest] = []   # router-level queue
         self.requests: List[ServeRequest] = []  # everything submitted
@@ -169,9 +176,13 @@ class ClusterEngine:
     def _transformable(self) -> List[Engine]:
         """Scale actions target engines with no session in flight;
         routing sees every non-parked engine (a transforming one
-        advertises its target capacity)."""
+        advertises its target capacity).  Engines with open spill
+        regions (guest or host) cannot transform until they close: a
+        pool resize would move hosted or overflow pages out from under
+        the extended views."""
         return [e for e in self.engines
-                if not e.transforming and not e.parked]
+                if not e.transforming and not e.parked
+                and not e._spills and not e._hosted]
 
     def _update_reserve(self) -> None:
         """update_reserve() (Alg 2 line 9): earmark the least-loaded TP1
@@ -227,11 +238,25 @@ class ClusterEngine:
         act = self.scheduler.decide_scale_up(self._transformable(),
                                              len(req.prompt),
                                              req.max_new_tokens)
-        if act is not None and self._execute(act):
-            # the request rides the transforming engine's queue
-            self.placements[req.rid] = act.iid
-            self._engine(act.iid).submit(req)
-            return True
+        while act is not None:
+            if isinstance(act, Spill):
+                if self._execute_spill(req, act):
+                    self.placements[req.rid] = act.iid
+                    return True
+                # the host is out of free slots (a stale view): fall one
+                # rung DOWN the ladder, to a partial merge, then a full
+                # one, instead of failing the placement
+                act = (self.scheduler.decide_partial_merge(
+                           self._transformable(), total)
+                       or self.scheduler.decide_merge(
+                           self._transformable(), total))
+                continue
+            if self._execute(act):
+                # the request rides the transforming engine's queue
+                self.placements[req.rid] = act.iid
+                self._engine(act.iid).submit(req)
+                return True
+            return False
         return False
 
     # ---- action execution ---------------------------------------------
@@ -292,6 +317,43 @@ class ClusterEngine:
                                "step": self.steps, "slots": slots})
         return eng.transform(act.tp_to)
 
+    def _execute_spill(self, req: ServeRequest, act: Spill) -> bool:
+        """Rung 1 of the capacity ladder: serve a request above its
+        guest's ceiling with NO transformation: the host engine reserves
+        whole free slots for the overflow pages and the guest serves the
+        request on an extended view of both pools.  Returns False
+        (nothing mutated) when the host cannot grant the reservation;
+        the caller falls back to a merge."""
+        guest = self._engine(act.iid)
+        host = self._engine(act.host_iid)
+        if guest is host or guest.transforming or guest.parked \
+                or host.transforming or host.parked:
+            return False
+        if guest._free_slot() is None:
+            return False
+        pt = guest.page_tokens
+        n_pages = -(-max(req.total_tokens - guest._local_page_cap(), 1)
+                    // pt)
+        hosting = host.host_spilled(n_pages)
+        if hosting is None:
+            return False
+        guest.admit_spilled(req, host, hosting)
+        self.partition.open_spill(guest.iid, host.iid, req.rid,
+                                  hosting["pages"], hosting["slots"],
+                                  handle=hosting["handle"])
+        self.actions.append(act)
+        self.spill_pages += -(-act.tokens // pt)
+        self._update_reserve()
+        return True
+
+    def _finalize_spills(self) -> None:
+        """Close spill regions whose request has finished (the engines
+        already freed the slots and released the hosting reservation)."""
+        done = {r.rid for r in self.requests if r.finished}
+        for region_id, region in list(self.partition.spills().items()):
+            if region.rid in done:
+                self.partition.close_spill(region_id)
+
     def _split(self, act: ScaleDown, eng: Engine) -> int:
         """Undo a merge: transform back onto the engine's home workers;
         the loans are returned and the donors revived once the session
@@ -340,9 +402,12 @@ class ClusterEngine:
             if not self._place(req):
                 self.waiting.insert(0, req)
                 break
+        # Alg 2 over dwell-gated, non-transforming instances (spill
+        # participants cannot transform while their regions are open)
         eligible = [
             e for e in self._active_engines()
             if e.tp > 1 and not e.transforming
+            and not e._spills and not e._hosted
             and self.steps - self._last_transform_step[e.iid]
             >= self.dwell_steps]
         for act in self.scheduler.schedule_parallelism(
@@ -368,6 +433,7 @@ class ClusterEngine:
                 # dwell counts from the END of a transformation
                 self._last_transform_step[e.iid] = self.steps
         self._finalize_releases()
+        self._finalize_spills()
         self._feed_measured_costs()
         self.total_tokens += emitted
         self.steps += 1
@@ -378,17 +444,20 @@ class ClusterEngine:
                 "parked": sum(e.parked for e in self.engines)}
 
     def _feed_measured_costs(self) -> None:
-        """Stream every new transform record into an attached cost
-        model's ``observe_transform`` (none is ported yet: a no-op unless
-        the caller attaches one)."""
+        """Stream every new transform and spill record into an attached
+        cost model's ``observe_transform`` (none is ported yet: a no-op
+        unless the caller attaches one)."""
         cm = getattr(self.scheduler, "cost_model", None)
         if cm is None or not hasattr(cm, "observe_transform"):
             return
         for e in self.engines:
-            fed = self._cost_fed.get(e.iid, 0)
-            for rec in e.transform_log[fed:]:
+            t_fed, s_fed = self._cost_fed.get(e.iid, (0, 0))
+            for rec in e.transform_log[t_fed:]:
                 cm.observe_transform(rec)
-            self._cost_fed[e.iid] = len(e.transform_log)
+            for rec in e.spill_log[s_fed:]:
+                cm.observe_transform(rec)
+            self._cost_fed[e.iid] = (len(e.transform_log),
+                                     len(e.spill_log))
 
     # ------------------------------------------------------------------
     @property

@@ -45,8 +45,12 @@ Engines with workers also take part in cross-instance merges, driven by
 ``import_request`` -> ``transform(W')`` on the target, and on a split
 ``transform(1, devices=home_devices)`` then ``revive`` on the donor.
 Workers are ``launch.mesh.Worker`` identities, so an engine's home and
-adopted workers may share one card.  Recurrent block kinds and KV
-spill are not ported yet (ROADMAP queue 1).
+adopted workers may share one card.  They also take part in KV spill
+(rung 1 of the capacity ladder): a host reserves whole free slots for
+a guest's overflow pages (``host_spilled``), and the guest serves the
+request on an extended view of its slot and the hosted pages
+(``admit_spilled``).  Recurrent block kinds are not ported yet (ROADMAP
+queue 1).
 
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
 caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
@@ -61,7 +65,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, SLIDING, ModelConfig
+from repro_torch.configs.base import ATTN, MOE, SLIDING, ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core import kv_transform as KT
 from repro_torch.core import transform_engine as TE
@@ -74,6 +78,15 @@ from repro_torch.models import model as M
 from repro_torch.models.blocks import _window_of
 from repro_torch.paged import pool as pp
 from repro_torch.serving.request import ServeRequest, State
+
+
+def kv_bytes_per_token(cfg: ModelConfig) -> float:
+    """KV bytes a token of context takes (attention layers only; the
+    reference's ``core.costmodel.kv_bytes_per_token``, which the spill
+    log's byte count uses)."""
+    dh = cfg.resolved_head_dim
+    n_attn = sum(1 for k in cfg.pattern if k in (ATTN, SLIDING, MOE))
+    return n_attn * cfg.num_kv_heads * dh * 2 * 2
 
 
 class Engine:
@@ -155,6 +168,16 @@ class Engine:
         # plan and its progress (the KV lives in the slot's pool pages)
         self._prefilling: Dict[int, Dict] = {}
         self._prefill_deferred = 0   # consecutive decode-priority defers
+        # -- KV spill (Infinite-LLM-style distributed pool) -------------
+        # guest side: slot -> {"req", "host", "hosting", "ext_tokens"};
+        # plans keyed by rid until the request admits into a slot.  Host
+        # side: handle -> {"slots", "pages"}, whole local slots reserved
+        # to carry a neighbour's overflow pages.
+        self._spills: Dict[int, Dict] = {}
+        self._spill_plans: Dict[int, Dict] = {}
+        self._hosted: Dict[int, Dict] = {}
+        self._hosted_ids = itertools.count()
+        self.spill_log: List[Dict] = []
 
     def _init_workers(self, params: Optional[M.Model], workers: List[Worker],
                       seed: int, plan: Optional[PaddingPlan]) -> None:
@@ -299,6 +322,10 @@ class Engine:
 
     def kv_used_tokens(self) -> int:
         used = sum(r.context_len for r in self.slots if r is not None)
+        # whole slots reserved to host a neighbour's spilled pages are
+        # consumed capacity as far as admission is concerned
+        used += sum(len(h["slots"]) for h in self._hosted.values()) \
+            * self.max_seq()
         return used + sum(len(r.prompt) for r in self.waiting)
 
     def kv_used_fraction(self) -> float:
@@ -323,10 +350,14 @@ class Engine:
         self.waiting.append(req)
 
     def _free_slot(self) -> Optional[int]:
+        hosted = self._hosted_slots()
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None and i not in hosted:
                 return i
         return None
+
+    def _hosted_slots(self) -> set:
+        return {s for h in self._hosted.values() for s in h["slots"]}
 
     def _n_decoding(self) -> int:
         return sum(1 for r in self.slots
@@ -336,14 +367,16 @@ class Engine:
         """While capacity is on its way (a transform that grows the
         ceiling is in flight), a request longer than the current pool
         waits in the queue instead of admitting into a slot it would
-        overflow."""
+        overflow.  A spilled request carries its own extension."""
         return not (req.total_tokens > self.max_seq_alloc
+                    and req.rid not in self._spill_plans
                     and self.tp_pending is not None)
 
     # -- slot views (the reference's extract / adopt) -----------------------
     def _slot_caches(self, slot: int) -> List[pp.PagedState]:
         """Batch-1 in-place views of ``slot`` in every layer's cache (on
-        every worker that holds it, for an engine with workers)."""
+        every worker that holds it, for an engine with workers; at TP1
+        one a layer)."""
         if self.mesh is None:
             return [pp.slot_view(c, slot) for c in self.caches]
         rows = M.RowSet([slot], self.max_batch)
@@ -357,8 +390,19 @@ class Engine:
         req.state = State.PREFILL
         req.slot = slot
         self.slots[slot] = req
+        plan = self._spill_plans.pop(req.rid, None)
+        if plan is not None:
+            self._spills[slot] = {"req": req, **plan}
         chunks = self.prefill_policy.chunk_sizes(len(req.prompt),
                                                  self.page_tokens)
+        if (plan is not None and len(chunks) == 1
+                and chunks[0] > self._min_chunk_cap()):
+            # a spilled prompt longer than the local pool MUST chunk: the
+            # chunk path computes on the extended (local + hosted) view
+            # once the cursor crosses the local ceiling
+            cap = self._min_chunk_cap()
+            c = chunks[0]
+            chunks = [cap] * (c // cap) + ([c % cap] if c % cap else [])
         if len(chunks) > 1:
             # ring-cache models: no chunk may exceed the smallest
             # attention capacity (a page multiple, so the page-boundary
@@ -427,17 +471,26 @@ class Engine:
         size = prog["chunks"][prog["ci"]]
         tokens = torch.tensor(req.prompt[start:start + size],
                               dtype=torch.long)[None]
-        self._sanitize_sub(self._slot_caches(slot), start)
+        # a spilled slot past the local ceiling computes the chunk on the
+        # EXTENDED view (local + hosted pages) and writes it back through
+        # ``spill_slot``
+        ext = slot in self._spills and start + size > self._local_page_cap()
+        views = (self._assemble_spilled(slot) if ext
+                 else self._slot_caches(slot))
+        self._sanitize_sub(views, start)
         if self.mesh is None:
             logits = self.model.prefill_chunk(
                 tokens.to(self.device),
                 torch.full((1,), start, dtype=torch.int32,
                            device=self.device),
-                self._slot_caches(slot), first_chunk=start == 0)
+                views, first_chunk=start == 0)
         else:
             positions = (start + torch.arange(size, dtype=torch.int32))[None]
             logits = self._walk([slot], tokens, positions, "chunk",
-                                first_chunk=start == 0)[:, None]
+                                first_chunk=start == 0,
+                                caches=views if ext else None)[:, None]
+        if ext:
+            self.spill_slot(slot, views)
         prog["done"] += size
         prog["ci"] += 1
         if prog["done"] >= len(req.prompt):
@@ -447,12 +500,15 @@ class Engine:
         return 0
 
     def _walk(self, rows: List[int], tokens: torch.Tensor,
-              positions: torch.Tensor, mode: str, first_chunk: bool = False
+              positions: torch.Tensor, mode: str, first_chunk: bool = False,
+              caches: Optional[List[pp.PagedState]] = None
               ) -> torch.Tensor:
         """One pass of ``rows`` through the per-worker layers (an engine
         with workers); mid-session the decode walk streams the session's
         staged layer groups, and the static weights are the session's
-        (a cross-assembly session moves them in its final step)."""
+        (a cross-assembly session moves them in its final step).
+        ``caches``: a one-row set's per-layer states in place of its
+        slot views (a spilled slot's extended view)."""
         s = self._session
         hook = s.on_decode_layer if s is not None and mode == "decode" \
             else None
@@ -461,7 +517,7 @@ class Engine:
         return M.walk_layers(self.layers, static, self.cfg, self.plan,
                              smesh, M.RowSet(rows, self.max_batch), tokens,
                              positions, mode, first_chunk=first_chunk,
-                             on_layer=hook)
+                             on_layer=hook, caches=caches)
 
     def _pin_prefill_cursors(self) -> None:
         """Decode iterations append masked filler for EVERY slot at its
@@ -506,7 +562,7 @@ class Engine:
         # the prefill-emitted token counts against the budget too
         if (len(req.generated) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id)
-                or req.context_len >= self.max_seq_alloc):
+                or req.context_len >= self._slot_ceiling(slot)):
             req.state = State.DONE
             req.t_done = self._clock()
             self.slots[slot] = None
@@ -542,6 +598,10 @@ class Engine:
         the TP degree); the shrink half runs when it lands."""
         assert self.mesh is not None, "transform requires devices="
         assert self._session is None, "transformation already in progress"
+        assert not self._spills and not self._hosted, (
+            "no transforms while KV spill regions are open: a pool resize "
+            "would move hosted or overflow pages out from under their "
+            "extended views")
         target = list(self.devices if devices is None else devices)
         if tp_to == self.tp and target == self.mesh.workers:
             return 0
@@ -660,6 +720,8 @@ class Engine:
         assert all(s is None for s in self.slots) and not self.waiting \
             and not self._prefilling, (
                 "park requires a drained engine (export_active first)")
+        assert not self._spills and not self._hosted, (
+            "cannot park an engine taking part in a KV spill")
         workers = list(self.devices)
         self.parked = True
         self.layers, self.static, self.mesh = [], None, None
@@ -740,6 +802,189 @@ class Engine:
             return self.caches
         return [I.join_cache(l.cache, l.attn_layout) for l in self.layers]
 
+    # -- KV spill (rung 1 of the capacity ladder) ---------------------------
+    #
+    # The reference's Infinite-LLM-style distributed pool: a host engine
+    # reserves whole free slots for a guest's overflow pages; the guest
+    # computes a spilled slot's chunks and decode steps on a batch-1
+    # EXTENDED view (``paged.pool.concat_spilled``: the slot's local
+    # pages, then the hosted ones, as one identity-paged state), on the
+    # ordinary decode and chunk-prefill kernels, and writes the view back
+    # (``spill_slot``): the local part into the slot, the overflow pages
+    # into the host's pool through ``kv_transform.migrate_slot_pages``
+    # (the page-copy kernel).  As in the reference, every extended step
+    # re-copies the whole overflow both ways.  Spill runs at TP1 and
+    # outside transform sessions (the control plane keeps spill
+    # participants out of transforms).
+
+    def _local_page_cap(self) -> int:
+        """Page-rounded capacity of a full-attention slot: the
+        discriminator of full-attention caches (ring caches keep their
+        window and never spill)."""
+        return -(-self.max_seq_alloc // self.page_tokens) * self.page_tokens
+
+    def host_spilled(self, n_pages: int) -> Optional[Dict]:
+        """Host side of a KV spill: reserve whole FREE slots to carry
+        ``n_pages`` of a neighbour's overflow.  Returns the hosting
+        descriptor (handle, reserved slots, granted page count), or None
+        when the pool lacks the free slots: the control plane then falls
+        back down the capacity ladder."""
+        if self.parked or self.transforming or n_pages <= 0:
+            return None
+        mps = self._local_page_cap() // self.page_tokens
+        need = -(-n_pages // mps)
+        hosted = self._hosted_slots()
+        free = [i for i, s in enumerate(self.slots)
+                if s is None and i not in hosted]
+        if len(free) < need:
+            return None
+        slots = tuple(free[:need])
+        # a free slot's positions still name what its last request, or
+        # the batched decode's filler at its idle cursor, left there: the
+        # guest's extended view would read those as keys.  Empty them
+        # (the reference does not: ROADMAP queue 3).
+        for j in slots:
+            for v in self._slot_caches(j):
+                v.positions.fill_(-1)
+                v.seq_lens.zero_()
+        handle = next(self._hosted_ids)
+        self._hosted[handle] = {"slots": slots, "pages": need * mps}
+        return {"handle": handle, "slots": slots, "pages": need * mps,
+                "page_tokens": self.page_tokens}
+
+    def release_hosted(self, handle: int) -> None:
+        self._hosted.pop(handle, None)
+
+    def admit_spilled(self, req: ServeRequest, host: "Engine",
+                      hosting: Dict) -> None:
+        """Guest side: queue a request whose overflow KV will live in
+        ``host``'s pool (the reservation from ``host.host_spilled``)."""
+        assert hosting["page_tokens"] == self.page_tokens, (
+            "KV spill requires a uniform page size across the cluster")
+        ext_tokens = self._local_page_cap() \
+            + hosting["pages"] * self.page_tokens
+        assert ext_tokens >= req.total_tokens, (
+            ext_tokens, req.total_tokens)
+        self._spill_plans[req.rid] = {"host": host, "hosting": hosting,
+                                      "ext_tokens": ext_tokens}
+        self.submit(req)
+
+    def _slot_ceiling(self, slot: int) -> int:
+        """Context ceiling of one slot: the pool allocation, extended by
+        the hosted overflow for a spilled slot."""
+        sp = self._spills.get(slot)
+        return self.max_seq_alloc if sp is None else sp["ext_tokens"]
+
+    def _slot_states(self, slot: int) -> List[Tuple[pp.PagedState, int]]:
+        """Each layer's whole cache holding ``slot`` and the slot's index
+        in it (at TP1: the cache of the worker that owns the slot)."""
+        if self.mesh is None:
+            return [(c, slot) for c in self.caches]
+        assert self.tp == 1, "spilled slots live at TP1"
+        out = []
+        for layer in self.layers:
+            w, local = self._holder(layer, slot)
+            out.append((layer.cache[w], local))
+        return out
+
+    def _assemble_spilled(self, slot: int) -> List[pp.PagedState]:
+        """Extended batch-1 view of a spilled slot, one state a layer:
+        the slot's local pages followed by the host-pool overflow pages
+        of each full-attention layer (a copy, on the slot's device); a
+        ring cache's own slot view otherwise."""
+        sp = self._spills[slot]
+        host: Engine = sp["host"]
+        cap = self._local_page_cap()
+        parts = [host._slot_caches(j) for j in sp["hosting"]["slots"]]
+        return [pp.concat_spilled([loc] + [p[i] for p in parts])
+                if loc.capacity == cap else loc
+                for i, loc in enumerate(self._slot_caches(slot))]
+
+    def spill_slot(self, slot: int, ext: List[pp.PagedState]) -> None:
+        """Write a spilled slot back after an extended-view compute: the
+        local part lands in the slot's own pages, and the overflow pages
+        MIGRATE into the host engine's pool (``write_spill_pages`` ->
+        ``kv_transform.migrate_slot_pages`` -> the page-copy kernel).
+        This is where KV bytes cross engines."""
+        t0 = time.monotonic()
+        sp = self._spills[slot]
+        host: Engine = sp["host"]
+        host_slots = sp["hosting"]["slots"]
+        counts = [self._local_page_cap() // self.page_tokens] \
+            + [host._local_page_cap() // host.page_tokens] * len(host_slots)
+        ext_cap = sum(counts) * self.page_tokens
+        host_parts: List[List[Optional[pp.PagedState]]] = [
+            [None] * len(ext) for _ in host_slots]
+        for i, (view, loc) in enumerate(zip(ext, self._slot_caches(slot))):
+            if view.capacity != ext_cap:
+                continue        # a ring cache, computed in place
+            parts = pp.split_spilled(view, counts)
+            loc.pool.copy_(parts[0].pool)
+            loc.positions.copy_(parts[0].positions)
+            loc.seq_lens.copy_(parts[0].seq_lens)
+            for k, part in enumerate(parts[1:]):
+                host_parts[k][i] = part
+        for k, j in enumerate(host_slots):
+            host.write_spill_pages(j, host_parts[k])
+        overflow_pages = sum(counts[1:])
+        self.spill_log.append({
+            "kind": "spill", "tp_from": 0, "tp_to": 0,
+            "wall_s": time.monotonic() - t0,
+            "bytes": kv_bytes_per_token(self.cfg) * overflow_pages
+            * self.page_tokens,
+            "pages": overflow_pages,
+        })
+
+    def write_spill_pages(self, j: int,
+                          part: List[Optional[pp.PagedState]]) -> None:
+        """Host side of ``spill_slot``: land one overflow segment in
+        reserved slot ``j``'s page range, one batch-1 state a layer (None
+        for layers that do not spill).  Pool bytes move through
+        ``kv_transform.migrate_slot_pages``; the positions ride alongside
+        so hosted pages stay self-describing."""
+        for (dst, local), src in zip(self._slot_states(j), part):
+            if src is None:
+                continue
+            mps_d = dst.page_table.shape[-1]
+            mps_s = src.page_table.shape[-1]
+            assert mps_s <= mps_d, (mps_s, mps_d)
+            KT.migrate_slot_pages(src.pool, dst.pool, mps_s, local * mps_d)
+            row = dst.positions[local]
+            cap_s = src.positions.shape[-1]
+            row[:cap_s].copy_(src.positions[0].to(row.device))
+            row[cap_s:].fill_(-1)
+
+    def _decode_spilled(self, r: ServeRequest) -> int:
+        """One decode step for a slot whose context has outgrown the
+        local pool: assemble the extended view, run the ordinary decode
+        on it (batch-1), sample as the batched path does, write back."""
+        assert self._session is None, (
+            "spilled slots decode outside transform sessions")
+        slot = r.slot
+        ext = self._assemble_spilled(slot)
+        tok = torch.tensor([r.generated[-1]], dtype=torch.long)
+        pos = torch.tensor([r.context_len - 1], dtype=torch.int32)
+        if self.mesh is None:
+            logits = self.model.decode_step(ext, tok.to(self.device),
+                                            pos.to(self.device))
+        else:
+            logits = self._walk([slot], tok[:, None], pos[:, None],
+                                "decode", caches=ext)
+        t = self._sample(logits[0], r.temperature)
+        self.spill_slot(slot, ext)
+        r.generated.append(t)
+        if (len(r.generated) >= r.max_new_tokens
+                or (r.eos_id is not None and t == r.eos_id)
+                or r.context_len >= self._slot_ceiling(slot)):
+            r.state = State.DONE
+            r.t_done = self._clock()
+            self.slots[slot] = None
+        return 1
+
+    def _release_spill(self, slot: int) -> None:
+        sp = self._spills.pop(slot)
+        sp["host"].release_hosted(sp["hosting"]["handle"])
+
     # -- one engine iteration -----------------------------------------------
     @torch.no_grad()
     def step(self) -> Dict[str, int]:
@@ -762,10 +1007,33 @@ class Engine:
         decode_emitted = 0
         active = [r for r in self.slots
                   if r is not None and r.state == State.DECODE]
-        if active:
+        # spilled slots past the local ceiling decode one by one on the
+        # extended (local + hosted pages) view; the rest stay batched
+        lcap = self._local_page_cap() if self._spills else 0
+        ext_active = [r for r in active if r.slot in self._spills
+                      and r.context_len - 1 >= lcap]
+        ext_slots = {r.slot for r in ext_active}
+        batch_active = [r for r in active if r.slot not in ext_slots]
+        # the batched decode appends masked filler at EVERY row's cursor:
+        # the cursor of a spilled slot outside the batch (prefilling, or
+        # decoding on the extended view) may sit at or past its local
+        # capacity, on real prefix, and a slot hosting a neighbour's
+        # overflow is idle here, its cursor on hosted pages.  Save those
+        # slots' views and restore them after the batch.  (The reference
+        # saves only the spilled slots that are not decoding on the
+        # extended view: ROADMAP queue 3.)
+        protect = set()
+        if batch_active:
+            protect = ({s for s in self._spills if self.slots[s] is not None}
+                       | self._hosted_slots()) \
+                - {r.slot for r in batch_active}
+        saved = {s: [pp.PagedState(v.pool.clone(), v.page_table,
+                                   v.seq_lens.clone(), v.positions.clone())
+                     for v in self._slot_caches(s)] for s in protect}
+        if batch_active:
             tokens = np.zeros((self.max_batch,), np.int64)
             positions = np.zeros((self.max_batch,), np.int32)
-            for r in active:
+            for r in batch_active:
                 tokens[r.slot] = r.generated[-1]
                 positions[r.slot] = r.context_len - 1
             # one batched step over every slot: idle and prefilling rows
@@ -773,7 +1041,7 @@ class Engine:
             logits = self._decode(torch.from_numpy(tokens),
                                   torch.from_numpy(positions))
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-            for r in active:
+            for r in batch_active:
                 tok = int(nxt[r.slot])
                 if r.temperature > 0:
                     tok = self._sample(logits[r.slot], r.temperature)
@@ -782,11 +1050,21 @@ class Engine:
                 decode_emitted += 1
                 if (len(r.generated) >= r.max_new_tokens
                         or (r.eos_id is not None and tok == r.eos_id)
-                        or r.context_len >= self.max_seq_alloc):
+                        or r.context_len >= self._slot_ceiling(r.slot)):
                     r.state = State.DONE
                     r.t_done = self._clock()
                     self.slots[r.slot] = None
             self._pin_prefill_cursors()
+        for s, views in saved.items():
+            for v, keep in zip(self._slot_caches(s), views):
+                v.pool.copy_(keep.pool)
+                v.seq_lens.copy_(keep.seq_lens)
+                v.positions.copy_(keep.positions)
+        for r in ext_active:
+            emitted += self._decode_spilled(r)
+            decode_emitted += 1
+        for s in [s for s in self._spills if self.slots[s] is None]:
+            self._release_spill(s)
         if self._session is not None and self._session.all_dispatched:
             self._session.complete_step()
             if self._session.done:

@@ -371,7 +371,7 @@ def test_mlp_layout_of_a_pool_of_4_at_every_degree(t):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("flag", ["spill", "partial_merge", "layouts"])
+@pytest.mark.parametrize("flag", ["partial_merge", "layouts"])
 def test_unported_rungs_are_refused(flag):
     sched = GygesScheduler(SchedulerConfig(**{flag: True}))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
