@@ -118,19 +118,58 @@ exits non-zero:
               bytes the extended view's copies move, memory and the
               launches of kernels 1, 2 and 5 on this path.
 10. serve-cli — ``python -m repro_torch.launch.serve`` as a subprocess
-              with its defaults (reduced llama3-8b, fp32, 4 workers of
-              the card); it must exit 0, its ``[serve]`` lines are
-              echoed.  Right after phase 4b the same CLI serves
-              full-size qwen2.5-32b in bf16 on one worker.
+              with its defaults (reduced llama3-8b, fp32, 8 workers of
+              the card, its 4 kv heads copied twice); it must exit 0,
+              its ``[serve]`` lines are echoed.  Right after phase 4b
+              the same CLI serves full-size qwen2.5-32b in bf16 on one
+              worker.
+11. ladder-parity — reduced llama3-8b, fp32, 4 workers of the card: the
+              degree cycle TP2x2 -> TP4 -> TP1x4 -> TP2x2 mid-decode
+              gives the streams of the same run on CPU workers and of
+              an engine started at TP1, TP2 and TP4, the pool at
+              ``seq_quantum * tp`` after each landing; the same cycle
+              with no decode between steps leaves every worker's cache
+              bit-equal to the layout an engine at that degree holds
+              (``core.instance.split_cache``).
+12. ladder-serve — full-size llama3-8b in bf16 on 4 workers of the card
+              (four replicas): TP1x4 -> TP2x2 -> TP4 mid-decode, a
+              6000-token request only TP4 holds, TP4 -> TP2x2 ->
+              TP1x4.  Prints each session (wall, steps, exposed against
+              modeled, KV bytes against their bound, weight bytes),
+              stall steps, the long request's TTFT and TPOT, memory at
+              TP4 and the peak, and the six kernels' launches.
+13. replicated-serve — full-size gemma-2b in fp32 on 4 workers (its one
+              kv head copied into 4 kv slots, dh 256, geglu): TP1x4 ->
+              TP2x2 -> TP4 -> TP1x4 mid-decode gives the streams of a
+              TP1x4 engine that never transformed.
+14. cluster-partial — full-size gemma-2b in bf16, 4 instances x 2
+              workers (kv head copied into 8 slots),
+              ``SchedulerConfig(partial_merge=True, target_tp=4)``: a
+              short request on every instance, then a 6000-token one
+              only TP4 holds.  One ``ScaleUp`` with ``donor_devices``:
+              the donors shed a worker in place and never park, the
+              target widens to TP4 with no stall, the split returns the
+              loans and the donors widen back.  Prints the actions, the
+              donors' moves and bytes, the target's sessions, TTFT,
+              memory before, during and after, and the launches.
 
 The kernels phase also holds the page-migration and padded FFN kernels
-against their plain versions, at the shapes of phases 5-6.  Then the
+against their plain versions, at the shapes of phases 5-6, and every
+shape phases 12-14 give the kernels (``slice7_cases``: each engine's
+FFN, decode, chunk and flash shapes at each of its degrees, and each
+KV migration).  A shape census (``ShapeCensus``) records the shape
+key of every kernel launch, phase by phase; its ``shape-census`` line
+fails the run if a phase launched a shape that neither the kernels
+phase nor a parity phase (card against CPU engines) held against the
+plain version.  Then the
 card's name and power limit, one ``kernels`` line (launches counted
 on phase 9's path, and by path: serve / transform-serve, cluster-serve,
-serve-shapes and cluster-spill), and the last line
+serve-shapes, cluster-spill, ladder-serve, replicated-serve and
+cluster-partial), and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -688,12 +727,15 @@ def row_term(out, want, dtype) -> float:
 
 
 def case_ffn(dtype, T=4, tp=2, ff_full=14336, d=4096, W=2, ffp=None,
-             model="llama3-8b", iters=20):
+             model="llama3-8b", iters=20, ff=None, what=None,
+             activation="swiglu"):
     """The MLP of a worker engine: the full replica (``tp`` shards of the
     Eq. 2 layout, TP1xW) or one TP shard (``tp=1`` over ff_full / W
     columns).  ``ffp`` > ff pads each shard's ``ff/tp`` real columns with
     a zero tail, as ``make_plan(cfg, W, mode="page")`` does for
-    stablelm-12b and minicpm-2b.  ``library_ms``: ``dense_mlp`` on
+    stablelm-12b and minicpm-2b.  ``ff`` (with ``what`` naming it) sets
+    the real columns of ``tp`` shards directly; ``activation`` is the
+    gate's (gemma-2b's geglu).  ``library_ms``: ``dense_mlp`` on
     cuBLAS over the unpadded weights, two ``torch.matmul`` and the
     activation.  ``row_term_used``: the largest share of its output
     row's RMS that an element's error needed beyond one bf16 ulp (the
@@ -703,7 +745,7 @@ def case_ffn(dtype, T=4, tp=2, ff_full=14336, d=4096, W=2, ffp=None,
     from repro_torch.models import layers as Lyr
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
-    ff = ff_full if tp > 1 else ff_full // W
+    ff = ff or (ff_full if tp > 1 else ff_full // W)
     ffp = ffp or ff
     x = torch.randn((T, d), generator=g, device=dev).to(dtype)
     wi_c = (torch.randn((d, 2 * ff), generator=g, device=dev) / d ** 0.5
@@ -718,25 +760,28 @@ def case_ffn(dtype, T=4, tp=2, ff_full=14336, d=4096, W=2, ffp=None,
         wi[:, cols], wi[:, ffp + cols] = wi_c[:, :ff], wi_c[:, ff:]
         wo = torch.zeros((ffp, d), dtype=dtype, device=dev)
         wo[cols] = wo_c
-    out = PF.padded_ffn(x, wi, wo, tp=tp, ff=ff)
-    want = PF.plain(x, wi, wo, tp, ff)
+    out = PF.padded_ffn(x, wi, wo, tp=tp, ff=ff, activation=activation)
+    want = PF.plain(x, wi, wo, tp, ff, activation)
     row_tol = FFN_ROW_TOL if dtype == torch.bfloat16 else 0.0
     err = max_err("padded_ffn", out, want, dtype, row_tol=row_tol)
     flops = 2 * T * d * ff * 3
     byt = nbytes(x, wi_c, wo_c, out)     # the real weights, read once
     bms, by = bound_ms(byt, flops, dtype)
-    what = ("full replica" if tp > 1 and ffp == ff else
-            "one TP2 shard" if tp == 1 else f"{model} W={tp} plan")
+    what = what or ("full replica" if tp > 1 and ffp == ff else
+                    "one TP2 shard" if tp == 1 else f"{model} W={tp} plan")
     return dict(
         kernel="padded_ffn",
-        case=f"T={T} {what} (d={d}, ff={ff}, ffp={ffp}, tp={tp})",
+        case=f"T={T} {what} (d={d}, ff={ff}, ffp={ffp}, tp={tp}, "
+             f"{activation})",
         max_abs_err=err, row_term_used=row_term(out, want, dtype),
         tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
                                else ""),
-        ms=time_ms(lambda: PF.padded_ffn(x, wi, wo, tp=tp, ff=ff), iters),
-        plain_ms=time_ms(lambda: PF.plain(x, wi, wo, tp, ff), 5),
-        library_ms=time_ms(lambda: Lyr.dense_mlp(x, wi_c, wo_c, "swiglu"),
-                           iters),
+        ms=time_ms(lambda: PF.padded_ffn(x, wi, wo, tp=tp, ff=ff,
+                                         activation=activation), iters),
+        plain_ms=time_ms(lambda: PF.plain(x, wi, wo, tp, ff, activation),
+                         5),
+        library_ms=time_ms(lambda: Lyr.dense_mlp(x, wi_c, wo_c,
+                                                 activation), iters),
         library="dense_mlp on cuBLAS (2 matmuls + activation)",
         bound_ms=bms, bound_by=by)
 
@@ -851,9 +896,10 @@ SERVE_SHAPES = ("qwen2.5-32b", "stablelm-12b", "gemma-2b")
 def head_shape_cases():
     """The three attention kernels at every other registered head shape
     (``configs/registry.py``): (model, case function, keywords).  Models
-    the serve-shapes phase serves get the llama3-8b rows' three cases
-    (flash at S=4096, chunk 512 over 3584, decode at the serve shape: 4
-    rows, 2048 live in 8192-token slots); the rest a flash and a decode
+    the serve-shapes phase serves get the llama3-8b rows' cases (flash
+    at S=4096, a 4096-token first chunk, chunk 512 over 3584, decode at
+    the serve shape: 4 rows, 2048 live in 8192-token slots); the rest a
+    flash and a decode
     case, recurrentgemma-9b's on its 2048-token window (decode on the
     wrapped ring)."""
     from repro_torch.configs import get_config
@@ -872,8 +918,10 @@ def head_shape_cases():
             continue
         out += [(name, case_flash, heads),
                 (name, case_decode, dict(B=4, ctx=2048, cap=8192, **heads))]
-        if name in SERVE_SHAPES:
-            out.append((name, case_chunk, heads))
+        if name in SERVE_SHAPES:   # a prompt's first chunk, then a later one
+            out += [(name, case_chunk, dict(S=4096, done=0, cap=8192,
+                                            attend_prefix=False, **heads)),
+                    (name, case_chunk, heads)]
     return out
 
 
@@ -913,6 +961,8 @@ def phase_kernels():
                  (case_ffn, dict(T=44)), (case_ffn, dict(T=44, tp=1)),
                  *padded_ffn_cases()]
         cases = [("llama3-8b", fn, kw) for fn, kw in cases]
+        # slice 7's shapes: its engines' degrees and KV migrations
+        cases += slice7_cases()
         for model, fn, kw in cases + head_shape_cases():
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
@@ -1051,6 +1101,11 @@ def phase_serve(smi: str):
     return launches
 
 
+def bare(fn):
+    """A kernel wrapper without the shape census's recorder."""
+    return getattr(fn, "__wrapped__", fn)
+
+
 def wrapper_host_us(calls: int = 200) -> dict:
     """Host microseconds a prefill wrapper call takes to enqueue its
     launches (no synchronise inside the window), at a tiny shape so the
@@ -1067,10 +1122,11 @@ def wrapper_host_us(calls: int = 200) -> dict:
         pt = torch.arange(2, dtype=torch.int32, device="cuda")[None]
         kvpos = torch.full((1, 128), -1, dtype=torch.int32, device="cuda")
         qpos = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+        # the wrappers themselves, without the shape census around them
+        fa, cp = bare(FA.flash_attention), bare(CP.chunk_prefill_attention)
         calls_of = {
-            "flash_attention": lambda: FA.flash_attention(q, k, k),
-            "chunk_prefill": lambda: CP.chunk_prefill_attention(
-                q, k, k, pool, pt, kvpos, qpos)}
+            "flash_attention": lambda: fa(q, k, k),
+            "chunk_prefill": lambda: cp(q, k, k, pool, pt, kvpos, qpos)}
         for name, fn in calls_of.items():
             fn()
             torch.cuda.synchronize()
@@ -1100,7 +1156,8 @@ def decode_wrapper_host_us(calls: int = 200) -> dict:
         pt = torch.arange(2, dtype=torch.int32, device=dev)[None]
         qpos = torch.full((1,), 100, dtype=torch.int32, device=dev)
         kvpos = stored_positions(qpos, 128)
-        fn = lambda: PA.paged_decode(q, pool, pt, kvpos, qpos)  # noqa: E731
+        decode = bare(PA.paged_decode)
+        fn = lambda: decode(q, pool, pt, kvpos, qpos)  # noqa: E731
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1575,7 +1632,8 @@ QWEN_CLI = ("--arch", "qwen2.5-32b", "--no-smoke", "--instances", "1",
 
 def phase_serve_cli(args=()):
     """The port's entry point as a subprocess, its [serve] lines echoed:
-    with its defaults (reduced llama3-8b, fp32, 4 workers of the card),
+    with its defaults (reduced llama3-8b, fp32, 8 workers of the card:
+    2 instances of 4, its 4 kv heads copied twice),
     or serving full-size qwen2.5-32b (``QWEN_CLI``, which needs the card
     nearly to itself: this process's own tensors are freed first and
     its allocation printed)."""
@@ -1591,7 +1649,7 @@ def phase_serve_cli(args=()):
     if args:
         assert any("finished=4, total=4" in l for l in lines), lines
     else:
-        assert any(" -> TP2 " in l for l in lines), lines
+        assert any(" -> TP4 " in l for l in lines), lines
         assert "[serve] final TPs: [1, 1]" in lines, lines
     emit(phase="serve-cli", args=list(args), lines=lines,
          parent_allocated_gb=parent_gb, seconds=time.monotonic() - t0)
@@ -1944,6 +2002,693 @@ def phase_cluster_spill(smi: str, dev: str = "cuda", cfg=None,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: partial TP degrees, replicated kv heads, partial merges
+# ---------------------------------------------------------------------------
+
+#: slice 7's engines as its phases build them: (model, workers, padding
+#: plan width S, the degrees the engine runs at, slots)
+SLICE7_ENGINES = (
+    ("llama3-8b", 4, 4, (1, 2, 4), 4),     # ladder-serve
+    ("gemma-2b", 4, 4, (1, 2, 4), 4),      # replicated-serve
+    ("gemma-2b", 2, 8, (1,), 2),           # cluster-partial: an instance
+    ("gemma-2b", 1, 8, (1,), 2),           # a donor that shed a worker
+    ("gemma-2b", 4, 8, (4,), 2))           # the merged target
+
+#: and their KV migrations: (model, S, (ta, workers), (tb, workers after))
+SLICE7_MOVES = (
+    ("llama3-8b", 4, (1, 4), (2, 4)), ("llama3-8b", 4, (2, 4), (4, 4)),
+    ("llama3-8b", 4, (4, 4), (2, 4)), ("llama3-8b", 4, (2, 4), (1, 4)),
+    ("gemma-2b", 4, (1, 4), (2, 4)), ("gemma-2b", 4, (2, 4), (4, 4)),
+    ("gemma-2b", 4, (4, 4), (1, 4)),
+    ("gemma-2b", 8, (1, 2), (1, 1)), ("gemma-2b", 8, (1, 1), (1, 2)),
+    ("gemma-2b", 8, (1, 2), (4, 4)), ("gemma-2b", 8, (4, 4), (1, 2)))
+
+
+def slice7_cases():
+    """(model, case function, keywords) for every kernel shape slice 7's
+    engines give the kernels, from the port's own layout functions: at
+    each degree t of an engine, a worker's padded FFN (``mlp_shards(t,
+    S, d_ff)`` with its padded columns; T = 1 and just above the
+    decode/prefill switch), its paged decode (the plan's q heads and kv
+    slots over t, one row per slot its group holds), its chunk prefill
+    (a prompt's first chunk and a later one) and flash prefill; then
+    each KV migration of those engines at the model's kv slots and head
+    dimension."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import instance as I
+    from repro_torch.core.padding import make_plan
+    from repro_torch.kernels import padded_ffn as PF
+    out, seen = [], set()
+
+    def add(model, fn, kw):
+        key = (fn.__name__, tuple(sorted(kw.items())))
+        if key not in seen:
+            seen.add(key)
+            out.append((model, fn, kw))
+
+    for name, W, S, degrees, slots in SLICE7_ENGINES:
+        cfg = get_config(name)
+        plan = make_plan(cfg, S, mode="page")
+        dh = cfg.resolved_head_dim
+        for t in degrees:
+            tp, ff = I.mlp_shards(t, S, cfg.d_ff)
+            ffp = (plan.d_ff_padded or cfg.d_ff) // t
+            heads = dict(Hq=plan.q_heads_padded // t, kvs=plan.kv_slots // t,
+                         dh=dh)
+            what = f"TP{t} x{W // t} of a plan of {S}"
+            for T in (1, PF.DECODE_MAX_T + 1):
+                add(name, case_ffn, dict(
+                    T=T, tp=tp, ff=ff, ffp=ffp, d=cfg.d_model, model=name,
+                    what=what, activation=cfg.activation, iters=10))
+            add(name, case_decode, dict(B=slots // (W // t), ctx=2048,
+                                        cap=4096, **heads))
+            add(name, case_chunk, dict(S=512, done=0, cap=4096,
+                                       attend_prefix=False, **heads))
+            add(name, case_chunk, heads)
+            add(name, case_flash, dict(S=1024, **heads))
+    for name, S, (ta, W), (tb, W2) in SLICE7_MOVES:
+        cfg = get_config(name)
+        add(name, case_reshard, dict(
+            ta=ta, tb=tb, W=W, W2=W2, kvs=make_plan(cfg, S,
+                                                    mode="page").kv_slots,
+            dh=cfg.resolved_head_dim))
+    return out
+
+
+@contextlib.contextmanager
+def captured_calls(mod, names):
+    """Record ``(name, args, kwargs)`` of every call of the functions
+    ``names`` of module ``mod`` inside the block (they still run)."""
+    calls, orig = [], {n: getattr(mod, n) for n in names}
+
+    def recorder(name):
+        def call(*a, **kw):
+            calls.append((name, a, kw))
+            return orig[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(mod, n, recorder(n))
+    try:
+        yield calls
+    finally:
+        for n, f in orig.items():
+            setattr(mod, n, f)
+
+
+def case_reshard(dtype, ta=1, tb=2, W=4, W2=None, slots=4, cap=6144,
+                 kvs=8, P=64, dh=128):
+    """One layer's pools moved from TP``ta`` on W workers to TP``tb`` on
+    W2 (``kv_transform.migrate_sharded``: a worker in both assemblies
+    copies what it keeps pool to pool, every source gathers the rest,
+    the exchange, the scatter kernel where arrivals are not runs of
+    whole pages): every destination pool bit-equal to the same move on
+    CPU copies (the plain versions).  Then the first call of each kind
+    (gather; copy kept or arrived) that the move made on worker 0's side,
+    held bit-equal to its plain version on the same inputs and timed
+    against one advanced-indexing call with L2 evicted first (a move
+    reads pools that decode steps have pushed out of L2; ``*_warm_l2``
+    back to back); each is bound by the bytes it must read and write."""
+    from repro_torch.core import kv_transform as KT
+    from repro_torch.kernels import page_migrate as PM
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import InstanceMesh
+    W2 = W if W2 is None else W2
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(17)
+    NP, H = slots * cap // P // (W // ta), kvs // ta
+    pools = [torch.randn((NP, H, 2, P, dh), generator=g, device=dev
+                         ).to(dtype) for _ in range(W)]
+    src, dst = InstanceMesh([dev] * W, ta), InstanceMesh([dev] * W2, tb)
+    with captured_calls(PM, ("gather_page_slices", "copy_page_slices")
+                        ) as calls:
+        out, moved = KT.migrate_sharded(pools, src, ta, dst, tb)
+    cpu = [p.cpu() for p in pools]
+    want, _ = KT.migrate_sharded(cpu, InstanceMesh(["cpu"] * W, ta), ta,
+                                 InstanceMesh(["cpu"] * W2, tb), tb)
+    assert all(torch.equal(o.cpu(), w) for o, w in zip(out, want)), (
+        "migrate_sharded", ta, tb)
+    case = (f"TP{ta} x{W // ta} -> TP{tb} x{W2 // tb}: {slots} slots x "
+            f"{cap} tokens, kvs={kvs}, P={P}, dh={dh}")
+    rows, kinds = [], set()
+    for name, a, kw in calls:
+        h = kw["heads_per_slice"]
+        kind = ("gather" if name == "gather_page_slices" else
+                "kept" if any(a[0] is p for p in pools) else "arrived")
+        if kind in kinds:
+            continue
+        kinds.add(kind)
+        if kind == "gather":
+            pool, pages, blocks = a
+            what = "a source's send lists"
+            send = PM.gather_page_slices(pool, pages, blocks,
+                                         heads_per_slice=h)
+            assert torch.equal(send, ref.gather_page_slices_ref(
+                pool, pages, blocks, h)), "gather"
+            view = pool.view(pool.shape[0], pool.shape[1] // h, h,
+                             *pool.shape[2:])
+            pl, bl = pages.long(), blocks.long()
+            seg, idx = nbytes(send), nbytes(pages, blocks)
+            run = (lambda: PM.gather_page_slices(
+                pool, pages, blocks, heads_per_slice=h))
+            plain = (lambda: ref.gather_page_slices_ref(pool, pages,
+                                                        blocks, h))
+            lib = (lambda: view[pl, bl])
+        else:
+            s_, d_, sp, sb, dp, db = a
+            what = ("a worker's kept slice, pool to pool" if kind == "kept"
+                    else "a destination's arrivals")
+            d0 = torch.zeros_like(d_)
+            PM.copy_page_slices(s_, d0, sp, sb, dp, db, heads_per_slice=h)
+            assert torch.equal(d0, ref.copy_page_slices_ref(
+                s_, torch.zeros_like(d_), sp, sb, dp, db, h)), "copy"
+            sview = s_.view(s_.shape[0], s_.shape[1] // h, h, *s_.shape[2:])
+            dview = d0.view(d0.shape[0], d0.shape[1] // h, h, *d0.shape[2:])
+            spl, sbl, dpl, dbl = (t.long() for t in (sp, sb, dp, db))
+            seg, idx = sp.numel() * nbytes(s_[:1, :h]), nbytes(sp, sb, dp, db)
+            run = (lambda: PM.copy_page_slices(
+                s_, d0, sp, sb, dp, db, heads_per_slice=h))
+            plain = (lambda: ref.copy_page_slices_ref(
+                s_, d0, sp, sb, dp, db, h))
+            lib = (lambda: dview.index_put_((dpl, dbl), sview[spl, sbl]))
+        rows.append(dict(
+            kernel=name, case=f"{case}: {what} (h={h})",
+            max_abs_err=0.0, bit_equal=True, bytes_moved_by_move=moved,
+            ms=time_ms_cold(run, 50), ms_warm_l2=time_ms(run, 50),
+            plain_ms=time_ms(plain, 20), library_ms=time_ms_cold(lib, 20),
+            library_ms_warm_l2=time_ms(lib, 20),
+            timing="L2 evicted before every call (a 64 MiB buffer read)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(2 * seg + idx, 0, dtype)))))
+    return rows
+
+
+def _landed_equal(eng, before, tp) -> int:
+    """Every worker's cache after a landing equals the layout an engine
+    at TP``tp`` holds for the pre-transform bytes (``split_cache`` of
+    the global cache, resized to the landed pool); returns the bytes
+    compared."""
+    from repro_torch.core import instance as I
+    from repro_torch.core import kv_transform as KT
+    n = 0
+    mps = eng.layers[0].cache[0].page_table.shape[1]
+    devs = [w.device for w in eng.devices]
+    for layer, glob in zip(eng.layers, before):
+        want = I.split_cache(KT.resize_slot_capacity(glob, mps,
+                                                     eng.max_batch),
+                             tp, devs)
+        for got, exp in zip(layer.cache, want):
+            for f in ("pool", "page_table", "seq_lens", "positions"):
+                a, b = getattr(got, f), getattr(exp, f)
+                assert torch.equal(a, b), ("landed cache", tp, f)
+                n += a.numel() * a.element_size()
+    return n
+
+
+def phase_ladder_parity(dev: str = "cuda", cycle=(2, 4, 1, 2)):
+    """Reduced llama3-8b, fp32, 4 workers: the reference test's degree
+    cycle mid-decode on workers of the card equals the same run on CPU
+    workers and an engine started at each degree; after each landing of
+    the cycle with no decode between steps, every worker's pool is
+    bit-equal to the layout an engine at that degree holds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="float32")
+    t0 = time.monotonic()
+    kw = dict(max_batch=4, max_seq=64, page_tokens=16)
+    prompts = _prompts(torch.Generator().manual_seed(29), (6, 9, 5, 7),
+                       cfg.vocab_size)
+    model = M.build(cfg, make_plan(cfg, 4, mode="page"), seed=7,
+                    device="cpu")
+
+    def engine(where):
+        return Engine(cfg, params=copy.deepcopy(model).to(where),
+                      devices=[where] * 4, **kw)
+
+    def run(where, before, plan, start=None):
+        eng = engine(where)
+        if start is not None:
+            eng.transform(start)
+            while eng.transforming:
+                eng.step()
+        reqs = [ServeRequest(p, max_new_tokens=8) for p in prompts]
+        allocs = []
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(before):
+            eng.step()
+        for tp in plan:
+            eng.transform(tp)
+            while eng.transforming:
+                eng.step()
+                eng.check_capacity_invariant()
+            allocs.append(eng.max_seq_alloc == eng.seq_quantum * tp)
+        eng.run_until_done()
+        return [r.generated for r in reqs], allocs
+
+    card, allocs = run(dev, 2, cycle)
+    host, _ = run("cpu", 2, cycle)
+    assert card == host, (card, host)
+    assert all(allocs), allocs
+    started = {t: run(dev, 0, (), start=t)[0] for t in (1, 2, 4)}
+    assert all(s == card for s in started.values()), started
+    eng = engine(dev)
+    for p in prompts:
+        eng.submit(ServeRequest(p, max_new_tokens=8))
+    for _ in range(5):
+        eng.step()
+    compared = 0
+    for tp in cycle:
+        before = eng.global_caches()
+        eng.transform(tp)
+        while not eng._session.done:
+            eng._session.step()
+        eng._finish_transform()
+        compared += _landed_equal(eng, before, tp)
+    del eng
+    if dev == "cuda":
+        free_card()
+    emit(phase="ladder-parity", model=cfg.name, dtype=cfg.dtype, workers=4,
+         cycle=list(cycle), prompts=[len(p) for p in prompts],
+         streams_equal_cpu_workers=True,
+         streams_equal_engines_started_at=[1, 2, 4],
+         alloc_is_quantum_times_tp=True, landed_bytes_compared=compared,
+         seconds=time.monotonic() - t0)
+
+
+def _stepper(eng, steps, sync_dev):
+    """One engine step, recorded as (where, wall s, decode tokens,
+    prefill work this step?, active decoders before) for step summaries
+    and stall counts."""
+    def progress():
+        return (len(eng.waiting),
+                sum(p["done"] for p in eng._prefilling.values()))
+
+    def step():
+        decoding = sum(1 for r in eng.slots
+                       if r is not None and r.state.name == "DECODE")
+        before = progress()
+        sync(sync_dev)
+        t = time.monotonic()
+        where = (f"TP{eng.tp}x{eng.W // eng.tp}" if not eng.transforming
+                 else f"TP{eng.tp}->TP{eng.tp_pending}")
+        out = eng.step()
+        sync(sync_dev)
+        prefill = (out["emitted"] > out["decode_emitted"]
+                   or before != progress())
+        steps.append((where, time.monotonic() - t, out["decode_emitted"],
+                      prefill, decoding))
+    return step
+
+
+def _stalls(steps) -> int:
+    """Session steps with decoders active and no decode token."""
+    return sum(1 for w, _, n, _, dec in steps if "->" in w and dec and not n)
+
+
+def ladder_sessions(eng, reports_from: int = 0) -> list:
+    """Each session of ``eng.transform_log``: wall, steps, exposed
+    against modeled seconds, the bytes its kernels and exchange moved,
+    the weight bytes that crossed, and the least a KV migration must
+    move (the (k-1)/k foreign head slices of every page, k = max/min
+    degree, read once and written once) over the card's memory rate."""
+    out, reps = [], eng.transform_reports[reports_from:]
+    for log in eng.transform_log:
+        mine, reps = reps[:log["steps"]], reps[log["steps"]:]
+        k = max(log["tp_from"], log["tp_to"]) // min(log["tp_from"],
+                                                     log["tp_to"])
+        pool = sum(r.kv_pool_bytes for r in mine)
+        bound = 2 * pool * (k - 1) // k
+        out.append({
+            "from": log["layout_from"], "to": log["layout_to"],
+            "tp_from": log["tp_from"], "tp_to": log["tp_to"],
+            "cross": log["cross"], "steps": log["steps"],
+            "wall_s": log["wall_s"], "measured_s": log["measured_s"],
+            "exposed_s": log["exposed_s"], "modeled_s": log["modeled_s"],
+            "kv_bytes": log["kv_bytes"], "weight_bytes": log["weight_bytes"],
+            "kv_pool_bytes": pool, "kv_bytes_bound": bound,
+            "kv_bound_ms": bound / HBM_BPS * 1e3})
+    return out
+
+
+def phase_ladder_serve(smi: str, dev: str = "cuda", cfg=None,
+                       quantum: int = 1536, lens=(300, 600, 900, 1200),
+                       new: int = 128, long_len: int = 6000,
+                       long_new: int = 32, page_tokens: int = 64):
+    """llama3-8b at full width and depth, bf16, 4 workers of the card
+    (four replicas, about 64 GB): TP1x4 -> TP2x2 -> TP4 mid-decode, a
+    6000-token request only TP4 holds, then TP4 -> TP2x2 -> TP1x4
+    mid-decode of a second batch.  Returns the six kernels' launches on
+    this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or get_config("llama3-8b")
+    t0 = time.monotonic()
+    eng = Engine(cfg, devices=[dev] * 4, seed=0, max_batch=4,
+                 max_seq=4 * quantum, page_tokens=page_tokens)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(31)
+    warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reset_launch_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    step = _stepper(eng, steps, dev)
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    long_prompt = _prompts(gen, (long_len,), cfg.vocab_size)[0]
+    t_run = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    while any(not r.generated for r in reqs):
+        step()
+    for tp in (2, 4):
+        eng.transform(tp)
+        while eng.transforming:
+            step()
+        assert eng.tp == tp and eng.max_seq_alloc == quantum * tp
+    mem_tp4 = mem_gb(dev)
+    long_ = ServeRequest(long_prompt, max_new_tokens=long_new)
+    assert eng.max_seq_at(2) < long_.total_tokens <= eng.max_seq_at(4)
+    eng.submit(long_)
+    while not long_.done:
+        step()
+    # a second batch decodes through the way down
+    back = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    for r in back:
+        eng.submit(r)
+    while any(not r.generated for r in back):
+        step()
+    for tp in (2, 1):
+        eng.transform(tp)
+        while eng.transforming:
+            step()
+    while any(not r.done for r in reqs + back):
+        step()
+    wall = time.monotonic() - t_run
+    launches = launch_counts()
+    assert eng.tp == 1 and eng.max_seq_alloc == quantum
+    for r in reqs + back + [long_]:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert len(long_.generated) == long_new
+    if dev == "cuda":
+        assert all(launches[k] > 0 for k in launches), launches
+    sessions = ladder_sessions(eng)
+    stalls = _stalls(steps)
+    assert stalls == 0, stalls
+    emit(phase="ladder-serve", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=4, quantum=quantum, prompts=list(lens),
+         long_prompt=long_len, weights_init_s=t_init, wall_s=wall,
+         sessions=sessions, stall_steps=stalls,
+         steps_by_layout=step_summary([s[:4] for s in steps]),
+         long_ttft_s=long_.ttft, long_tpot_s=long_.tpot,
+         ttft_s=[r.ttft for r in reqs + back],
+         tpot_s=[r.tpot for r in reqs + back],
+         mem_gb_at_tp4=mem_tp4, launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del eng
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def phase_replicated_serve(smi: str, dev: str = "cuda", cfg=None,
+                           quantum: int = 512, lens=(100, 250, 400, 180),
+                           new: int = 128, before: int = 4):
+    """gemma-2b at full width and depth (one kv head copied into four kv
+    slots, dh 256, geglu), fp32, 4 workers of the card: TP1x4 -> TP2x2
+    -> TP4 -> TP1x4 mid-decode gives the streams of a TP1x4 engine that
+    never transformed (fp32: the stream check is exact).  Returns the
+    kernels' launches on the transforming run."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or dataclasses.replace(get_config("gemma-2b"),
+                                     dtype="float32")
+    t0 = time.monotonic()
+    prompts = _prompts(torch.Generator().manual_seed(37), lens,
+                       cfg.vocab_size)
+
+    def run(plan):
+        eng = Engine(cfg, devices=[dev] * 4, seed=0, max_batch=4,
+                     max_seq=4 * quantum, page_tokens=64)
+        assert eng.plan.kv_replication == 4
+        reqs = [ServeRequest(p, max_new_tokens=new) for p in prompts]
+        reset_launch_counts()
+        steps = []
+        step = _stepper(eng, steps, dev)
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(before):
+            step()
+        for tp in plan:
+            eng.transform(tp)
+            while eng.transforming:
+                step()
+            assert eng.tp == tp
+        while any(not r.done for r in reqs):
+            step()
+        out = ([r.generated for r in reqs], launch_counts(),
+               ladder_sessions(eng), _stalls(steps), mem_gb(dev))
+        del eng
+        if dev == "cuda":
+            free_card()
+        return out
+
+    plain, _, _, _, _ = run(())
+    got, launches, sessions, stalls, mem = run((2, 4, 1))
+    assert got == plain, "replicated kv heads: streams differ"
+    assert stalls == 0, stalls
+    emit(phase="replicated-serve", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=4, kv_replication=4, cycle=[2, 4, 1],
+         prompts=list(lens), new_tokens=new,
+         streams_equal_untransformed=True, stall_steps=stalls,
+         sessions=sessions, launches=launches, mem_gb_after=mem,
+         seconds=time.monotonic() - t0, gpu=smi)
+    return launches
+
+
+def phase_cluster_partial(smi: str, dev: str = "cuda", cfg=None,
+                          quantum: int = 2048, lens=(300, 600, 900, 1200),
+                          new: int = 64, long_len: int = 6000,
+                          long_new: int = 32, page_tokens: int = 64,
+                          budget: int = 2048):
+    """gemma-2b at full width and depth, bf16, 4 instances x 2 workers
+    of the card (kv head copied into 8 kv slots) under
+    ``SchedulerConfig(partial_merge=True, target_tp=4)``: one short
+    request on every instance, then a request only TP4 holds.  One
+    ``ScaleUp`` with ``donor_devices``: the donors shed a worker in
+    place and keep serving, the target widens to TP4; the split returns
+    the loans and the donors widen back.  Returns the six kernels'
+    launches on this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import (GygesScheduler, PrefillPolicy,
+                                            ScaleUp, SchedulerConfig)
+    from repro_torch.serving import ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+
+    cfg = cfg or get_config("gemma-2b")
+    t0 = time.monotonic()
+    sched = GygesScheduler(SchedulerConfig(
+        long_threshold=quantum, target_tp=4, partial_merge=True))
+    cl = ClusterEngine(cfg, [dev] * 8, n_instances=4, max_batch=2,
+                       max_seq=2 * quantum, page_tokens=page_tokens,
+                       scheduler=sched, dwell_steps=4, seed=0,
+                       prefill_policy=PrefillPolicy(token_budget=budget,
+                                                    mode="mixed"))
+    assert cl.plan.kv_replication == 8
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(41)
+    for e in cl.engines:
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        e.submit(warm)
+        e.run_until_done()
+    reset_launch_counts()
+    mem = {"before": mem_gb(dev)}
+    shorts = [ServeRequest(p, max_new_tokens=new)
+              for p in _prompts(gen, lens, cfg.vocab_size)]
+    long_ = ServeRequest(_prompts(gen, (long_len,), cfg.vocab_size)[0],
+                         max_new_tokens=long_new)
+    t_run = time.monotonic()
+    for r in shorts:
+        cl.submit(r)
+    assert sorted(cl.placements[r.rid] for r in shorts) == [0, 1, 2, 3]
+    while any(not r.generated for r in shorts):
+        cl.step()
+    cl.submit(long_)
+    partial = [a for a in cl.actions
+               if isinstance(a, ScaleUp) and a.donor_devices]
+    assert len(partial) == 1 and partial[0].tp_to == 4, cl.actions
+    act = partial[0]
+    donors = [cl._engine(i) for i in act.donor_iids]
+    shed = [(d.iid, d.W, d.tp, d.parked) for d in donors]
+    assert all(W == 1 and not parked for _, W, _, parked in shed), shed
+    move_bytes = sum(m["kv_bytes"] for d in donors for m in d.move_log)
+    target = cl._engine(act.iid)
+    for _ in range(20000):
+        if long_.done and cl.idle and all(e.W == 2 for e in cl.engines):
+            break
+        cl.step()
+        if target.tp == 4 and "during" not in mem:
+            mem["during"] = mem_gb(dev)
+    else:
+        raise RuntimeError("cluster-partial did not drain and split")
+    wall = time.monotonic() - t_run
+    mem["after"] = mem_gb(dev)
+    launches = launch_counts()
+    assert cl.stall_steps == 0, cl.stall_steps
+    assert not cl.partition._loans
+    cl.partition.check_invariants()
+    assert all(not e.parked and e.W == 2 and e.tp == 1
+               for e in cl.engines)
+    assert cl.metrics()["partial_merges"] == 1
+    for r in shorts + [long_]:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    if dev == "cuda":
+        assert all(launches[k] > 0 for k in launches), launches
+    moves = [m for d in donors for m in d.move_log]
+    emit(phase="cluster-partial", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=8, instances=4, kv_replication=8,
+         quantum=quantum, prompts=list(lens), long_prompt=long_len,
+         weights_init_s=t_init, wall_s=wall, actions=cluster_actions(cl),
+         donor_devices=list(act.donor_devices), donors_after_shed=shed,
+         partial_merges=cl.metrics()["partial_merges"],
+         donor_moves=[{k: m[k] for k in ("layout_from", "layout_to",
+                                         "wall_s", "kv_bytes", "bytes")}
+                      for m in moves],
+         donor_move_kv_bytes=move_bytes,
+         target_sessions=ladder_sessions(target),
+         stall_steps=cl.stall_steps, long_ttft_s=long_.ttft,
+         long_tpot_s=long_.tpot, ttft_s=[r.ttft for r in shorts],
+         mem_gb=mem, launches=launches, gpu=smi)
+    del cl, target, donors
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Shape census: every kernel shape the phases launch was held against its
+# plain version
+# ---------------------------------------------------------------------------
+
+def _decode_key(q, pool, page_table, kv_positions, q_positions, window=0):
+    return (("Hq", q.shape[1]), ("kvs", pool.shape[1]), ("dh", q.shape[2]),
+            ("P", pool.shape[3]), ("windowed", window > 0))
+
+
+def _chunk_key(q, k_new, v_new, pool, page_table, kv_positions,
+               q_positions, *, window=0, attend_prefix=True):
+    return (("Hq", q.shape[2]), ("kvs", pool.shape[1]), ("dh", q.shape[3]),
+            ("P", pool.shape[3]), ("windowed", window > 0),
+            ("attend_prefix", attend_prefix))
+
+
+def _flash_key(q, k, v, causal=True, window=0):
+    return (("Hq", q.shape[2]), ("kvs", k.shape[2]), ("dh", q.shape[3]),
+            ("windowed", window > 0))
+
+
+def _ffn_key(x, wi, wo, *, tp, ff, activation="swiglu", decode=None):
+    from repro_torch.kernels import padded_ffn as PF
+    tiling = None
+    if x.dtype == torch.bfloat16:
+        dec = x.shape[0] <= PF.DECODE_MAX_T if decode is None else decode
+        tiling = "decode" if dec else "prefill"
+    return (("d", x.shape[1]), ("ffp", wi.shape[1] // 2), ("tp", tp),
+            ("ff", ff), ("activation", activation), ("tiling", tiling))
+
+
+def _gather_key(pool, pages, hblocks, *, heads_per_slice):
+    return (("H", pool.shape[1]), ("h", heads_per_slice),
+            ("P", pool.shape[3]), ("dh", pool.shape[4]))
+
+
+def _copy_key(src, dst, sp, sb, dp, db, *, heads_per_slice):
+    return (("H_src", src.shape[1]), ("H_dst", dst.shape[1]),
+            ("h", heads_per_slice), ("P", dst.shape[3]),
+            ("dh", dst.shape[4]))
+
+
+#: (kernel, module of ``repro_torch.kernels``, wrapper, its shape key):
+#: the key holds what picks the kernel's code and tiling, not the sizes
+#: (rows, tokens, pages) it loops over
+CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
+          ("chunk_prefill", "chunk_prefill", "chunk_prefill_attention",
+           _chunk_key),
+          ("flash_attention", "flash_attention", "flash_attention",
+           _flash_key),
+          ("padded_ffn", "padded_ffn", "padded_ffn", _ffn_key),
+          ("gather_page_slices", "page_migrate", "gather_page_slices",
+           _gather_key),
+          ("copy_page_slices", "page_migrate", "copy_page_slices",
+           _copy_key))
+
+#: phases that hold the card's engines against CPU engines (the plain
+#: versions) on the same weights and prompts: the shapes they launch are
+#: checked there, the rest only by the kernels phase
+PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
+                 "spill-parity", "ladder-parity")
+
+
+class ShapeCensus:
+    """The shape key (``CENSUS``) and dtype of every kernel wrapper call
+    on CUDA tensors, by the phase that made it (``into``; None records
+    nothing).  Installed over the six wrappers' module attributes, which
+    every call site reads at call time.  The kernels phase and the
+    parity phases check what they launch; ``report`` fails on a shape
+    another phase launched that no check launched."""
+
+    def __init__(self):
+        self.into = None
+        self.seen = {}
+
+    def install(self) -> None:
+        import importlib
+        for kernel, mod, attr, key in CENSUS:
+            m = importlib.import_module(f"repro_torch.kernels.{mod}")
+            setattr(m, attr, self._watch(kernel, getattr(m, attr), key))
+
+    def _watch(self, kernel, fn, key):
+        def call(*a, **kw):
+            if self.into is not None and a[0].is_cuda:
+                k = (kernel, str(a[0].dtype).replace("torch.", ""),
+                     key(*a, **kw))
+                self.seen.setdefault(k, set()).add(self.into)
+            return fn(*a, **kw)
+        call.__wrapped__ = fn
+        return call
+
+    def report(self) -> None:
+        checks = {"kernels", *PARITY_PHASES}
+        rows, bad = [], []
+        for (kernel, dtype, key), phases in sorted(
+                self.seen.items(), key=lambda kv: repr(kv[0])):
+            row = {"kernel": kernel, "dtype": dtype, **dict(key),
+                   "checked_by": sorted(phases & checks),
+                   "launched_by": sorted(phases - checks)}
+            rows.append(row)
+            if row["launched_by"] and not row["checked_by"]:
+                bad.append(row)
+        emit(phase="shape-census", shapes=len(rows), unchecked=bad,
+             rows=rows)
+        assert not bad, f"{len(bad)} kernel shapes launched unchecked"
+
+
 def launch_counts() -> dict:
     from repro_torch.kernels import chunk_prefill as CP
     from repro_torch.kernels import flash_attention as FA
@@ -2269,25 +3014,44 @@ def main():
     emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
          gpu=smi)
     phase_build()
-    main_cases = phase_kernels()
-    phase_parity()
-    launches = phase_serve(smi)
+    census = ShapeCensus()
+    census.install()
+
+    def run(label, fn, *a):
+        census.into = label
+        try:
+            return fn(*a)
+        finally:
+            census.into = None
+
+    main_cases = run("kernels", phase_kernels)
+    run("parity", phase_parity)
+    launches = run("serve", phase_serve, smi)
     free_card()
     # every registered head shape the port builds, end to end
-    shapes = phase_serve_shapes(smi)
+    shapes = run("serve-shapes", phase_serve_shapes, smi)
+    # a subprocess: its launches are not in the census (serve-shapes
+    # launches qwen2.5-32b's shapes in this process)
     phase_serve_cli(QWEN_CLI)
-    phase_transform_parity()
+    run("transform-parity", phase_transform_parity)
     # kernels 1-3 count on the single-engine serve path (phase 4), the
     # padded FFN and the page migration on the transform path (phase 6)
-    launches.update({k: v for k, v in phase_transform_serve(smi).items()
-                     if k not in launches})
-    phase_transform_w4()
-    phase_cluster_parity()
+    launches.update({k: v for k, v in run(
+        "transform-serve", phase_transform_serve, smi).items()
+        if k not in launches})
+    run("transform-w4", phase_transform_w4)
+    run("cluster-parity", phase_cluster_parity)
     # this slice's path: every kernel launches on it (phase 9)
-    cluster = phase_cluster_serve(smi)
-    phase_spill_parity()
-    spill = phase_cluster_spill(smi)
+    cluster = run("cluster-serve", phase_cluster_serve, smi)
+    run("spill-parity", phase_spill_parity)
+    spill = run("cluster-spill", phase_cluster_spill, smi)
     phase_serve_cli()
+    # slice 7: partial degrees, replicated kv heads, partial merges
+    run("ladder-parity", phase_ladder_parity)
+    ladder = run("ladder-serve", phase_ladder_serve, smi)
+    replicated = run("replicated-serve", phase_replicated_serve, smi)
+    partial = run("cluster-partial", phase_cluster_partial, smi)
+    census.report()
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         r = main_cases[name]
@@ -2303,7 +3067,10 @@ def main():
                 "cluster-serve": cluster[name],
                 "serve-shapes": {m: c.get(name, 0)
                                  for m, c in shapes.items()},
-                "cluster-spill": spill[name]}})
+                "cluster-spill": spill[name],
+                "ladder-serve": ladder[name],
+                "replicated-serve": replicated[name],
+                "cluster-partial": partial[name]}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,15 +13,19 @@ The counterpart of ``repro.core.kv_transform``.  Two planes:
   resize, the cross-engine slot export and import (a merge donor's
   in-flight KV: ``export_slot`` packs a slot's pages with the gather
   kernel, ``import_slot`` lands them at the head of a free slot's wider
-  page range with the scatter kernel) and the sharded TP1 x W <-> TPW
-  migration over a worker list (gather kernel per worker, the mesh's
-  all-to-all, then placement), exactly as the reference's shard_map
-  pipeline does.  The sharded migration also runs between two
-  assemblies: TP1 over a merge target's own workers to TP over those
-  plus the adopted ones, and back.
+  page range with the scatter kernel) and the sharded migration over a
+  worker list between any two TP degrees (gather kernel per worker, the
+  exchange, then placement by the scatter kernel): the reference's
+  shard_map pipeline for TP1 x W <-> TPW, and the bytes its GSPMD
+  ``device_put`` moves for partial degrees (``transform_engine.py:
+  393-416``), moved explicitly.  The sharded migration also runs
+  between two assemblies: TP1 over a merge target's own workers to a
+  degree over those plus the adopted ones, a donor's move onto fewer
+  workers, and back.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -106,10 +110,9 @@ def account_scale_up(layout: str, n_workers: int, pages_per_worker: int,
 def sharded_migration_stats(n_workers: int, pages_per_worker: int,
                             kv_slots: int, page_tokens: int, head_dim: int,
                             dtype_bytes: int = 2) -> MigrationStats:
-    """Accounting for ONE ``migrate_scale_up_sharded`` /
-    ``migrate_scale_down_sharded`` run: every worker ships the (n-1)/n
-    foreign head slices of its pages, one segment per (page,
-    destination) pair."""
+    """Accounting for ONE TP1 x n <-> TPn ``migrate_sharded`` run: every
+    worker ships the (n-1)/n foreign head slices of its pages, one
+    segment per (page, destination) pair."""
     return account_scale_up("header_centric", n_workers, pages_per_worker,
                             kv_slots, page_tokens, head_dim,
                             dtype_bytes=dtype_bytes)
@@ -246,56 +249,130 @@ def import_slot(state: PagedState, sub: PagedState, slot: int) -> None:
 # Data plane: the sharded migration over a worker list (paper §4.1)
 # ---------------------------------------------------------------------------
 
-def migrate_scale_up_sharded(pools: List[torch.Tensor], mesh, dst=None
-                             ) -> List[torch.Tensor]:
-    """Header-centric TP1 x W -> TPW'.  ``pools[u]``: worker u of
-    ``mesh``'s local pages, all heads (NP, H, 2, P, dh).  Returns the
-    pool of each worker of ``dst`` (default ``mesh``; a merge's widened
-    assembly) after the migration: every global page (u*NP + p), its
-    head slice (W*NP, H/W', 2, P, dh).  Per worker the gather kernel
-    packs one contiguous segment per (page, destination); the all-to-all
-    delivers them, and the received buffer IS the new pool (global page
-    id u*NP + p is the identity placement)."""
-    dst = dst or mesh
-    Wd = dst.W
-    NP, H = pools[0].shape[:2]
-    assert H % Wd == 0, (H, Wd)
-    send = []
-    for pool in pools:
-        pages, hblk = PM.scale_up_send_index(NP, Wd, pool.device)
-        send.append(PM.gather_page_slices(pool, pages, hblk,
-                                          heads_per_slice=H // Wd))
-    return mesh.all_to_all(send, dst)
+def _block(W: int, t: int, NP: int, H: int, w: int) -> Tuple[int, ...]:
+    """Worker w's rectangle at degree ``t``: global pages [p0, p1) of its
+    group and kv slots [h0, h1) of its position."""
+    g, p = divmod(w, t)
+    return g * NP, (g + 1) * NP, p * H, (p + 1) * H
 
 
-def migrate_scale_down_sharded(pools: List[torch.Tensor], mesh, dst=None
-                               ) -> List[torch.Tensor]:
-    """Reverse of ``migrate_scale_up_sharded``.  ``pools[w]``: every
-    global page, head slice w of worker w of ``mesh`` (NPt, H/W, 2, P,
-    dh).  Returns worker u of ``dst`` (default ``mesh``; a split's home
-    assembly, of W' workers) its local pages [u*NP, (u+1)*NP) with all
-    heads (NP, H, 2, P, dh), NP = NPt/W': each worker ships its head
-    slice of u's pages to u, and the scatter kernel places each arrival
-    at head block (sender) of its page."""
-    dst = dst or mesh
-    W = mesh.W
-    NPt, hps = pools[0].shape[:2]
-    assert NPt % dst.W == 0, (NPt, dst.W)
-    NP = NPt // dst.W
-    send = []
-    for pool in pools:
-        ids = torch.arange(NPt, dtype=torch.int32, device=pool.device)
-        send.append(PM.gather_page_slices(pool, ids, torch.zeros_like(ids),
-                                          heads_per_slice=hps))
-    recv = mesh.all_to_all(send, dst)
+def _segments(rect, mine, h: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (page, head block) segments of the global rectangle ``rect``
+    in the local ids of a worker whose rectangle is ``mine``, page-major,
+    at ``h`` heads a block."""
+    p0, p1, c0, c1 = rect
+    nb = (c1 - c0) // h
+    pages = torch.arange(p0 - mine[0], p1 - mine[0],
+                         dtype=torch.int32).repeat_interleave(nb)
+    blocks = torch.arange((c0 - mine[2]) // h, (c1 - mine[2]) // h,
+                          dtype=torch.int32).repeat(p1 - p0)
+    return pages, blocks
+
+
+def migrate_sharded(pools: List[torch.Tensor], src, ta: int, dst, tb: int
+                    ) -> Tuple[List[torch.Tensor], int]:
+    """Header-centric migration of one layer's pools from degree ``ta``
+    on the workers of ``src`` to degree ``tb`` on those of ``dst``
+    (``core.instance``'s layout: group g of a degree holds its slots'
+    pages, position p its kv slots).  Every (source, destination) pair
+    whose rectangles of (pages x kv slots) meet moves exactly that
+    intersection, in segments of ``h = gcd`` of the two head counts:
+
+    * a worker in both assemblies keeps what it holds of its own new
+      rectangle: ONE scatter-kernel launch copies it from its old pool
+      into its new one, and it never enters the exchange;
+    * each source packs its segments for every other destination, in
+      destination order, with ONE gather-kernel launch;
+    * the exchange copies each destination's chunks into its receive
+      buffer, in source order (``InstanceMesh.all_to_all``'s order);
+    * each destination places its arrivals with ONE scatter-kernel
+      launch, unless they are whole pages of its heads (any scale-up, as
+      in a full merge): each chunk is then a run of its pool's pages,
+      and the exchange writes it there.
+
+    A scale-up by k = tb/ta thus has each worker keep the head slice it
+    retains and send the others to its k-1 peers of the target group; a
+    scale-down is the mirror image, and TP1 x W <-> TPW, a same-degree
+    move onto other workers and every partial degree are cases of it.
+    Returns the destination pools and the bytes the kernels and the
+    exchange read and wrote."""
+    NPa, Ha = pools[0].shape[:2]
+    H, NPt = Ha * ta, NPa * (src.W // ta)
+    assert H % tb == 0 and NPt % (dst.W // tb) == 0, (H, NPt, dst.W, tb)
+    NPb, Hb = NPt // (dst.W // tb), H // tb
+    h = math.gcd(Ha, Hb)
+    src_r = [_block(src.W, ta, NPa, Ha, u) for u in range(src.W)]
+    dst_r = [_block(dst.W, tb, NPb, Hb, w) for w in range(dst.W)]
+    meet = {}
+    for u, a in enumerate(src_r):
+        for w, b in enumerate(dst_r):
+            r = (max(a[0], b[0]), min(a[1], b[1]),
+                 max(a[2], b[2]), min(a[3], b[3]))
+            if r[0] < r[1] and r[2] < r[3]:
+                meet[u, w] = r
+
+    def own(u: int, w: int) -> bool:
+        return src.workers[u] == dst.workers[w]
+
+    send, chunk, moved = [], {}, 0
+    for u, pool in enumerate(pools):
+        segs = [(w, _segments(meet[u, w], src_r[u], h))
+                for w in range(dst.W) if (u, w) in meet and not own(u, w)]
+        n = 0
+        for w, (pg, _) in segs:
+            chunk[u, w] = (n, n + pg.numel())
+            n += pg.numel()
+        if not segs:
+            send.append(None)
+            continue
+        pages = torch.cat([pg for _, (pg, _) in segs]).to(pool.device)
+        blocks = torch.cat([bl for _, (_, bl) in segs]).to(pool.device)
+        buf = PM.gather_page_slices(pool, pages, blocks, heads_per_slice=h)
+        moved += 4 * buf.numel() * buf.element_size()  # gather, exchange
+        send.append(buf)
+    seg_bytes = pools[0][:1, :h].numel() * pools[0].element_size()
     out = []
-    for buf in recv:
-        dev = buf.device
-        ids = torch.arange(W * NP, dtype=torch.int32, device=dev)
-        zeros = torch.zeros_like(ids)
-        dst_pages, dst_hblk = PM.scale_up_send_index(NP, W, dev)
-        pool = torch.empty((NP, W * hps, *buf.shape[2:]), dtype=buf.dtype,
-                           device=dev)
-        out.append(PM.copy_page_slices(buf, pool, ids, zeros, dst_pages,
-                                       dst_hblk, heads_per_slice=hps))
-    return out
+    for w, wk in enumerate(dst.workers):
+        srcs = [u for u in range(src.W) if (u, w) in meet]
+        pool = torch.empty((NPb, Hb, *pools[0].shape[2:]),
+                           dtype=pools[0].dtype, device=wk.device)
+        n = 0
+        for u in srcs:
+            if own(u, w):
+                sp, sb = _segments(meet[u, w], src_r[u], h)
+                dp, db = _segments(meet[u, w], dst_r[w], h)
+                PM.copy_page_slices(
+                    pools[u], pool, sp.to(wk.device), sb.to(wk.device),
+                    dp.to(wk.device), db.to(wk.device), heads_per_slice=h)
+                moved += 2 * sp.numel() * seg_bytes
+                n += sp.numel()
+        foreign = [u for u in srcs if not own(u, w)]
+        m = sum(chunk[u, w][1] - chunk[u, w][0] for u in foreign)
+        assert (n + m) * h == NPb * Hb, "the sources must cover every segment"
+        if not foreign:
+            out.append(pool)
+            continue
+        if h == Hb:                   # whole pages: runs of the pool's
+            for u in foreign:
+                lo, hi = chunk[u, w]
+                p0 = meet[u, w][0] - dst_r[w][0]
+                pool[p0:p0 + hi - lo].copy_(send[u][lo:hi])
+            out.append(pool)
+            continue
+        recv = torch.empty((m, h, *pools[0].shape[2:]),
+                           dtype=pools[0].dtype, device=wk.device)
+        o, places = 0, []
+        for u in foreign:
+            lo, hi = chunk[u, w]
+            recv[o:o + hi - lo].copy_(send[u][lo:hi])
+            o += hi - lo
+            places.append(_segments(meet[u, w], dst_r[w], h))
+        ids = torch.arange(m, dtype=torch.int32, device=wk.device)
+        PM.copy_page_slices(
+            recv, pool, ids, torch.zeros_like(ids),
+            torch.cat([pg for pg, _ in places]).to(wk.device),
+            torch.cat([bl for _, bl in places]).to(wk.device),
+            heads_per_slice=h)
+        moved += 2 * recv.numel() * recv.element_size()
+        out.append(pool)
+    return out, moved

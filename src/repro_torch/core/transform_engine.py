@@ -19,13 +19,16 @@ Differences from the reference:
     ``unstack_decode_state`` / ``restack_decode_state`` have no
     counterpart: a session flips each layer's layout in place, and
     ``close_owner_session`` flips the owner's ``tp``.
-  * An ``mlp`` op re-splits the layer's MLP weights (scale-up: each
-    worker keeps its shard as a compact tensor of its own and drops the
-    replica; scale-down: each worker gathers the shards into a full
-    replica).  A ``kv`` op runs the sharded migration of the layer's
-    pages and moves the attention weights with them, so each half of a
-    layer is at one layout at any time (the reference's ``mlp`` op
-    moves the whole layer's weights; GSPMD computes the mixed state).
+  * An ``mlp`` op re-splits the layer's MLP weights from degree a to
+    degree b inside each TP group (scale-up: each worker keeps its
+    S/b-shard slice as a compact tensor of its own and drops the rest;
+    scale-down: each worker gathers its S/b shards from its group's
+    peers).  A ``kv`` op runs the sharded migration of the layer's pages
+    (``kv_transform.migrate_sharded``) and moves the attention weights
+    with them, so each half of a layer is at one degree at any time
+    (the reference's ``mlp`` op moves the whole layer's weights; GSPMD
+    computes the mixed state, and its ``device_put`` does the partial
+    degrees' moves that the port makes explicitly).
   * Everything is issued on the current stream; overlapping a step
     under decode on a side CUDA stream is later work.  A step's
     ``seconds`` run from staging to ``torch.cuda.synchronize`` after
@@ -134,9 +137,7 @@ def scale_down_schedule(n_layers: int, layers_per_step: int = 1,
 
 def _mlp_stats(sched: Schedule, cfg: ModelConfig, plan: PaddingPlan,
                method: str) -> WT.WeightTransformStats:
-    if sched.direction == "up":
-        return WT.account_scale_up(cfg, plan, sched.tp_to, method)
-    return WT.account_scale_down(cfg, plan, sched.tp_from, method)
+    return WT.account_regroup(cfg, plan, sched.tp_from, sched.tp_to, method)
 
 
 def schedule_cost(sched: Schedule, cfg: ModelConfig, plan: PaddingPlan,
@@ -175,23 +176,22 @@ def open_owner_session(owner, tp_to: int, layers_per_step: int = 1,
                        devices: Optional[List] = None
                        ) -> "TransformSession":
     """Open a session on anything owning ``layers/static/cfg/plan/tp/
-    mesh/page_tokens/_session`` (the serving engine): a full merge
-    (TP1 x W -> TPW') or decompose (TPW -> TP1 x W') onto the workers
-    ``devices`` (default: the owner's own).  When those are not the
-    owner's current assembly the session is CROSS-assembly (a merge
-    onto adopted workers, or a split back onto the home workers): its
-    schedule is layer-coherent (every step moves whole layers), so each
-    layer sits on exactly one assembly at any time and serving goes on
-    through the session."""
+    mesh/page_tokens/_session`` (the serving engine, ``InstanceGroup``):
+    a change of TP degree to any ``tp_to`` dividing the target worker
+    count, ``(rep, tp) -> (rep', tp')`` (TP1 x W -> TPW' is a full merge,
+    TPW -> TP1 x W' a decompose, TP1 x 4 -> TP2 x 2 a partial one), onto
+    the workers ``devices`` (default: the owner's own).  When those are
+    not the owner's current assembly the session is CROSS-assembly (a
+    merge onto adopted workers, or a split back onto the home workers):
+    its schedule is layer-coherent (every step moves whole layers), so
+    each layer sits on exactly one assembly at any time and serving
+    goes on through the session."""
     assert owner._session is None, "transformation already in progress"
     mesh_from = owner.mesh
     workers = mesh_from.workers if devices is None else list(devices)
     tp_from = owner.tp
-    if tp_to > tp_from:
-        ok = tp_from == 1 and tp_to == len(workers)
-    else:
-        ok = tp_to == 1 and tp_from == mesh_from.W
-    assert ok, (tp_from, tp_to, mesh_from.W, len(workers))
+    assert tp_to != tp_from and len(workers) % tp_to == 0, (
+        tp_from, tp_to, len(workers))
     mesh_to = InstanceMesh(workers, tp_to)
     n = len(owner.layers)
     cross = not mesh_from.same_workers(mesh_to)
@@ -286,7 +286,7 @@ class TransformSession:
         self._next = 0               # completed steps
         self._dispatched = 0         # staged steps (>= completed)
         self._pending: Optional[Dict] = None
-        self.target = I.TP if schedule.direction == "up" else I.REP
+        self.target = schedule.tp_to
 
     # -- progress -------------------------------------------------------
     @property
@@ -303,12 +303,11 @@ class TransformSession:
         if op.component == "mlp":
             return _mlp_stats(sched, self.cfg, self.plan, "padded").time_s(
                 self.link, overlap=op.overlap)
+        # the accounting plane models a TP1 x k -> TPk merge; a partial
+        # a -> b re-splits heads among groups of k = max/min workers
         pool = layer.cache[0].pool
-        W = layer.mesh.W
-        if layer.attn_layout == I.TP:
-            NPt, kvs = pool.shape[0], pool.shape[1] * W
-        else:
-            NPt, kvs = pool.shape[0] * W, pool.shape[1]
+        t = layer.attn_layout
+        NPt, kvs = pool.shape[0] * (layer.mesh.W // t), pool.shape[1] * t
         k = max(sched.tp_from, sched.tp_to) // max(
             1, min(sched.tp_from, sched.tp_to))
         stats = KT.account_scale_up(
@@ -333,33 +332,19 @@ class TransformSession:
     def _run_mlp(self, layer: I.WorkerLayer) -> int:
         """Re-split the layer's MLP weights; returns the bytes that
         crossed assemblies."""
-        src, mesh, old = layer.mesh, self.mesh_to, layer.mlp
-        if self.target == I.TP:
-            layer.mlp = I.shard_across(old, src, mesh, I.shard_mlp)
-        else:
-            layer.mlp = I.gather_mlp(old, src, mesh)
-        layer.mlp_layout = self.target
+        src, old = layer.mesh, layer.mlp
+        I.move_mlp(layer, self.mesh_to, self.target, self.plan.max_tp)
         return self._crossed_bytes(src, old, layer.mlp)
 
     def _run_kv(self, layer: I.WorkerLayer) -> Tuple[int, int, int]:
         """Migrate the layer's pages and attention weights; returns the
-        bytes the gather, exchange and scatter read and wrote, the bytes
+        bytes the migration's kernels and exchange read and wrote, the bytes
         of the migrated pool and the attention bytes that crossed
         assemblies."""
-        src, mesh, old = layer.mesh, self.mesh_to, layer.attn
-        pools = [c.pool for c in layer.cache]
-        pool_bytes = sum(p.numel() * p.element_size() for p in pools)
-        if self.target == I.TP:
-            new = KT.migrate_scale_up_sharded(pools, src, mesh)
-            layer.cache = I.cache_to_tp(layer.cache, new, src, mesh)
-            layer.attn = I.shard_across(old, src, mesh, I.shard_attn)
-            moved = 4 * pool_bytes       # gather r+w, exchange r+w
-        else:
-            new = KT.migrate_scale_down_sharded(pools, src, mesh)
-            layer.cache = I.cache_to_rep(layer.cache, new, src, mesh)
-            layer.attn = I.gather_attn(old, src, mesh)
-            moved = 6 * pool_bytes       # gather, exchange, scatter
-        layer.attn_layout = self.target
+        src, old = layer.mesh, layer.attn
+        pool_bytes = sum(c.pool.numel() * c.pool.element_size()
+                         for c in layer.cache)
+        moved = I.move_attn(layer, self.mesh_to, self.target, self.plan)
         return moved, pool_bytes, self._crossed_bytes(src, old, layer.attn)
 
     def _move_norms(self, layer: I.WorkerLayer) -> int:

@@ -139,3 +139,28 @@ def account_scale_down(cfg: ModelConfig, plan: PaddingPlan, tp: int,
                                     page_ops=pages)
     return WeightTransformStats(bytes_copied=shard_bytes,
                                 bytes_transferred=gathered, page_ops=pages)
+
+
+def account_regroup(cfg: ModelConfig, plan: PaddingPlan, tp_from: int,
+                    tp_to: int, method: str) -> WeightTransformStats:
+    """Per-layer MLP cost of a partial ``tp_from -> tp_to`` inside each
+    TP group: a worker's S/a-shard tensor becomes an S/b-shard one.  On
+    a scale-up it keeps 1/b of the layer and releases the rest of its
+    1/a; on a scale-down it gathers the 1/b - 1/a it lacks from its
+    peers.  From TP1 or to TP1 this is ``account_scale_up`` /
+    ``account_scale_down``."""
+    if tp_from == 1 or tp_to == 1:
+        if tp_to > tp_from:
+            return account_scale_up(cfg, plan, tp_to, method)
+        return account_scale_down(cfg, plan, tp_from, method)
+    layer_bytes = mlp_layer_bytes(cfg, plan, padded=(method == "padded"))
+    held, kept = layer_bytes // tp_from, layer_bytes // tp_to
+    swap = not (method == "padded" and plan.page_aligned)
+    if tp_to > tp_from:
+        pages = max(1, (held - kept) // PAGE_BYTES)
+        return WeightTransformStats(bytes_copied=kept if swap else 0,
+                                    page_ops=pages)
+    gathered = kept - held
+    return WeightTransformStats(bytes_copied=held if swap else 0,
+                                bytes_transferred=gathered,
+                                page_ops=max(1, gathered // PAGE_BYTES))

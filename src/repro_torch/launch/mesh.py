@@ -100,8 +100,10 @@ class Layout:
 
 class InstanceMesh:
     """W workers arranged as ``(rep, tp)`` for one layout (sp = 1;
-    sequence-parallel layouts are ROADMAP queue 1 item 6).  ``devices``
-    may be workers or devices (``workers_of``)."""
+    sequence-parallel layouts are ROADMAP queue 1 item 6), ordered as
+    the reference's reshape ``(rep, sp, tp)`` orders its devices: worker
+    w is in TP group ``w // tp`` at position ``w % tp``.  ``devices`` may
+    be workers or devices (``workers_of``)."""
 
     def __init__(self, devices: Sequence, layout):
         lay = Layout.of(layout)
@@ -120,6 +122,16 @@ class InstanceMesh:
     @property
     def W(self) -> int:
         return len(self.workers)
+
+    @property
+    def rep(self) -> int:
+        return self.W // self.layout.tp
+
+    def groups(self, t: int) -> List[range]:
+        """The worker indices of each TP group at degree ``t``: ``W/t``
+        runs of ``t`` consecutive workers."""
+        assert self.W % t == 0, (self.W, t)
+        return [range(g * t, (g + 1) * t) for g in range(self.W // t)]
 
     def same_workers(self, other: "InstanceMesh") -> bool:
         return self.workers == other.workers
@@ -147,13 +159,24 @@ class InstanceMesh:
             recv.append(out)
         return recv
 
-    def all_reduce_sum(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The sum over workers (fp32, in worker order, rounded once to
-        the inputs' type), one copy on each worker."""
-        total = xs[0].float()
-        for x in xs[1:]:
-            total = total + x.to(total.device).float()
-        return self.replicate(total.to(xs[0].dtype))
+    def all_reduce_sum(self, xs: List[Optional[torch.Tensor]], tp: int
+                       ) -> List[Optional[torch.Tensor]]:
+        """The sum over each TP group at degree ``tp`` (fp32, in worker
+        order, rounded once to the inputs' type), one copy on each worker
+        of the group.  A group whose entries are None (it holds none of
+        the rows) stays None: groups never mix, since each holds other
+        slots' partial products."""
+        out: List[Optional[torch.Tensor]] = [None] * len(xs)
+        for grp in self.groups(tp):
+            if xs[grp[0]] is None:
+                continue
+            total = xs[grp[0]].float()
+            for w in grp[1:]:
+                total = total + xs[w].to(total.device).float()
+            total = total.to(xs[grp[0]].dtype)
+            for w in grp:
+                out[w] = total.to(self.devices[w], copy=True)
+        return out
 
     def all_gather(self, xs: List[torch.Tensor], dim: int,
                    dst: Optional["InstanceMesh"] = None
@@ -171,4 +194,3 @@ class InstanceMesh:
                 o += x.shape[dim]
             outs.append(out)
         return outs
-

@@ -8,14 +8,14 @@ the trace, and prints what the control plane did.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch llama3-8b] \
         [--instances 2] [--requests 16] [--long-every 5] [--scheduler gyges] \
-        [--device cuda] [--workers 4] [--no-smoke]
+        [--device cuda] [--workers 8] [--no-smoke]
 
-The pool is ``--workers`` workers of ``--device``: by default 4 workers
-of the card (it raises without a GPU; ``--device cpu`` runs the plain
-PyTorch path).  The reference defaults to 8 fake devices; the port to 4,
-because at 8 the reduced ``llama3-8b`` (4 kv heads) would need
-replicated kv heads, which the port does not have yet (ROADMAP queue 1
-item 5).  Short requests spread over the TP1 instances, a long request
+The pool is ``--workers`` workers of ``--device``: by default 8 workers
+of the card, as the reference's 8 devices (it raises without a GPU;
+``--device cpu`` runs the plain PyTorch path).  At 8 the reduced
+``llama3-8b`` (4 kv heads) runs with replicated kv heads, as the
+reference's GQA padding rule lays them out.  Short requests spread over
+the TP1 instances, a long request
 triggers a scheduler-issued live scale-up (``Engine.transform``, one
 §4.3 schedule step per engine step), and the Alg-2 scan decomposes the
 instance once the long request drains.
@@ -93,7 +93,7 @@ def main(argv=None) -> None:
                          "and depth, in its own dtype")
     ap.add_argument("--device", default="cuda",
                     help="device of every worker (default the card)")
-    ap.add_argument("--workers", type=int, default=4,
+    ap.add_argument("--workers", type=int, default=8,
                     help="workers of --device in the pool")
     args = ap.parse_args(argv)
 

@@ -87,7 +87,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  plan: PaddingPlan, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> q: (B,S,Hq,dh); k,v replicated to kv_slots."""
+    """x: (B,S,d) -> q: (B,S,Hq,dh); k,v replicated to kv_slots.  A
+    worker's TP shard holds a slice of the q heads and the kv heads its
+    kv slots copy (``core.instance.kv_heads_of``), so the copies a head
+    gets here are the shard's own count: its slots (q heads over the
+    plan's q heads per slot) over its kv heads."""
     B, S, d = x.shape
     dh = cfg.resolved_head_dim
     # heads by -1: a worker's TP shard holds a slice of them
@@ -97,8 +101,10 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = Lyr.apply_rope(q, positions, cfg.rope_theta)
     k = Lyr.apply_rope(k, positions, cfg.rope_theta)
     if plan.kv_replication > 1:
-        k = torch.repeat_interleave(k, plan.kv_replication, dim=2)
-        v = torch.repeat_interleave(v, plan.kv_replication, dim=2)
+        slots = q.shape[2] * plan.kv_slots // plan.q_heads_padded
+        rep = slots // k.shape[2]
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
     return q, k, v.contiguous()
 
 

@@ -216,33 +216,32 @@ def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, *, device
 #
 # The counterpart of the reference's per-layer paths
 # (``repro.models.model.decode_step_layers`` / ``prefill_chunk_layers``).
-# Each layer's attention and MLP sit at a layout of ``core.instance``
-# (REP or TP) on the layer's assembly of workers (``WorkerLayer.mesh``)
-# and, mid-transform, layers (and the two halves of a layer) may sit at
-# different layouts, and layers on different assemblies (a merge or a
-# split).  Activations of a row set (the decode batch, or one
-# prefilling slot) follow the placement of the sub-layer about to run:
-# at REP worker w holds the rows of its own slots; at TP every worker
-# holds all rows.  At a layout boundary they are joined (an all-gather)
-# or re-split (each worker slices its own copy); at an assembly boundary
-# they move once from one assembly's workers to the other's.  This is
-# the counterpart of ``_boundary_put``.  A TP sub-layer ends in an
-# all-reduce-sum of the workers' partial outputs, after the attention
-# ``wo`` and after the MLP ``wo``.
+# Each layer's attention and MLP sit at a TP degree t of
+# ``core.instance`` on the layer's assembly of workers
+# (``WorkerLayer.mesh``) and, mid-transform, layers (and the two halves
+# of a layer) may sit at different degrees, and layers on different
+# assemblies (a merge or a split).  Activations of a row set (the decode
+# batch, or one prefilling slot) follow the placement of the sub-layer
+# about to run: every worker of TP group g holds the rows of the group's
+# slots.  At a degree or assembly boundary a worker whose own rows cover
+# its new ones keeps a slice of them; the others receive the rows
+# joined once from one worker of each source group.  This is the
+# counterpart of ``_boundary_put``.  A sub-layer at t > 1 ends in an
+# all-reduce-sum of the partial outputs inside each TP group, after the
+# attention ``wo`` and after the MLP ``wo``: groups hold different
+# slots, so their partial products never mix.
 
 
 class RowSet:
     """Global slots ``rows`` (sorted) of a ``batch``-slot engine;
-    ``span(layout, W, w)`` is the index range into ``rows`` that worker
-    w of a W-worker assembly holds at that layout."""
+    ``span(t, W, w)`` is the index range into ``rows`` that worker w of
+    a W-worker assembly holds at TP degree t (its group's slots)."""
 
     def __init__(self, rows: Sequence[int], batch: int):
         self.rows, self.batch = list(rows), batch
 
-    def span(self, layout: str, W: int, w: int) -> Tuple[int, int]:
-        if layout == I.TP:
-            return 0, len(self.rows)
-        lo, hi = I.rows_of(I.REP, self.batch, W, w)
+    def span(self, t: int, W: int, w: int) -> Tuple[int, int]:
+        lo, hi = I.rows_of(t, self.batch, W, w)
         idx = [i for i, r in enumerate(self.rows) if lo <= r < hi]
         return (idx[0], idx[-1] + 1) if idx else (0, 0)
 
@@ -251,37 +250,42 @@ class RowSet:
         """Worker w's cache for these rows: the whole cache for the full
         batch, else a batch-1 in-place view of the one slot (None when
         worker w holds none of the rows)."""
-        W = layer.mesh.W
-        lo, hi = self.span(layer.attn_layout, W, w)
+        W, t = layer.mesh.W, layer.attn_layout
+        lo, hi = self.span(t, W, w)
         if hi == lo:
             return None
         cache = layer.cache[w]
         if len(self.rows) == self.batch:
             return cache
         assert len(self.rows) == 1, "row sets are one slot or the batch"
-        base = I.rows_of(layer.attn_layout, self.batch, W, w)[0]
+        base = I.rows_of(t, self.batch, W, w)[0]
         return pp.slot_view(cache, self.rows[0] - base)
 
 
 def relayout(xs: List[torch.Tensor], src: Tuple, dst: Tuple,
              rows: RowSet) -> List[torch.Tensor]:
     """Move a row set's activations from placement ``src`` to ``dst``, a
-    placement being ``(layout, mesh)``."""
-    (lay_s, mesh_s), (lay_d, mesh_d) = src, dst
-    if mesh_s.same_workers(mesh_d):
-        if lay_s == lay_d:
-            return xs
-        if lay_d == I.TP:                # join: every worker, all rows
-            return mesh_s.all_gather(xs, 0)
-        return [x[slice(*rows.span(I.REP, mesh_s.W, w))]   # re-split
-                for w, x in enumerate(xs)]
-    # another assembly: join the rows once, then place them
-    full = xs[0] if lay_s == I.TP else torch.cat(
-        [x.to(xs[0].device) for x in xs])
-    if lay_d == I.TP:
-        return mesh_d.replicate(full)
-    return [full[slice(*rows.span(I.REP, mesh_d.W, w))].to(d, copy=True)
-            for w, d in enumerate(mesh_d.devices)]
+    placement being ``(degree, mesh)``: a worker of both whose rows
+    cover its new ones slices its own tensor; every other worker
+    receives its rows from the rows joined once (one worker of each
+    source group, in slot order)."""
+    (ts, ms), (td, md) = src, dst
+    if ts == td and ms.same_workers(md):
+        return xs
+    out, full = [], None
+    for w, wk in enumerate(md.workers):
+        lo, hi = rows.span(td, md.W, w)
+        if wk in ms.workers:
+            u = ms.workers.index(wk)
+            a, b = rows.span(ts, ms.W, u)
+            if a <= lo and hi <= b:
+                out.append(xs[u][lo - a:hi - a])
+                continue
+        if full is None:
+            dev = ms.devices[0]
+            full = torch.cat([xs[g].to(dev) for g in range(0, ms.W, ts)])
+        out.append(full[lo:hi].to(wk.device, copy=True))
+    return out
 
 
 def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
@@ -301,21 +305,21 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
     with its scatter).  ``on_layer(i)`` runs after layer i has been
     issued (the transform session's hook).  ``caches``: one batch-1
     state a layer that replaces the worker's view of a one-row set (a
-    spilled slot's extended view, the layers at REP).  The MLP replicas
+    spilled slot's extended view, the layers at TP1).  The MLP replicas
     are in the Eq. 2 layout of ``plan.max_tp`` shards.  Returns the last token's
     logits (R, vocab_padded) on ``static_mesh``'s worker 0."""
     eps = cfg.norm_eps
     S = plan.max_tp
 
-    def part(t: torch.Tensor, layout: str, mesh, w: int) -> torch.Tensor:
-        return t[slice(*rows.span(layout, mesh.W, w))].to(mesh.devices[w])
+    def part(x: torch.Tensor, t: int, mesh, w: int) -> torch.Tensor:
+        return x[slice(*rows.span(t, mesh.W, w))].to(mesh.devices[w])
 
     # the embedding runs where the first layer's attention does, or on
-    # every static worker when that is another assembly
+    # every static worker (one group) when that is another assembly
     first = (layers[0].attn_layout, layers[0].mesh) if layers else (
-        I.TP, static_mesh)
-    here = (first[0] if static_mesh.same_workers(first[1]) else I.TP,
-            static_mesh)
+        static_mesh.W, static_mesh)
+    here = (first[0] if static_mesh.same_workers(first[1])
+            else static_mesh.W, static_mesh)
     xs = [static[w]["embed"][part(tokens, here[0], static_mesh, w)]
           for w in range(static_mesh.W)]
     for i, layer in enumerate(layers):
@@ -349,7 +353,7 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
         xs = _residual(xs, outs, here[0], mesh)
         xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
         here = (layer.mlp_layout, mesh)
-        tp, ff = I.mlp_shards(here[0], S, cfg.d_ff, mesh.W)
+        tp, ff = I.mlp_shards(here[0], S, cfg.d_ff)
         outs = []
         for w in range(mesh.W):
             if xs[w].shape[0] == 0:
@@ -361,19 +365,18 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
         if on_layer is not None:
             on_layer(i)
     if not here[1].same_workers(static_mesh):
-        xs = relayout(xs, here, (I.TP, static_mesh), rows)
-        here = (I.TP, static_mesh)
-    if here[0] == I.TP:
-        return lm_logits(static[0], plan, cfg, xs[0][:, -1:])[:, 0]
+        xs = relayout(xs, here, (static_mesh.W, static_mesh), rows)
+        here = (static_mesh.W, static_mesh)
+    # the head runs on one worker of each group, over the group's rows
     dev0 = static_mesh.devices[0]
-    parts = [lm_logits(static[w], plan, cfg, x[:, -1:])[:, 0].to(dev0)
-             for w, x in enumerate(xs) if x.shape[0]]
-    return torch.cat(parts)
+    parts = [lm_logits(static[w], plan, cfg, xs[w][:, -1:])[:, 0].to(dev0)
+             for w in range(0, static_mesh.W, here[0]) if xs[w].shape[0]]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _residual(xs, outs, layout: str, mesh) -> List[torch.Tensor]:
-    """x + sub-layer output; a TP sub-layer's partial outputs are summed
-    over the workers first."""
-    if layout == I.TP:
-        outs = mesh.all_reduce_sum(outs)
+def _residual(xs, outs, t: int, mesh) -> List[torch.Tensor]:
+    """x + sub-layer output; at t > 1 the partial outputs are summed
+    inside each TP group first."""
+    if t > 1:
+        outs = mesh.all_reduce_sum(outs, t)
     return [x if o is None else x + o for x, o in zip(xs, outs)]

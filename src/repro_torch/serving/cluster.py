@@ -30,12 +30,22 @@ drives them with one ``core.scheduler`` policy:
   host engine reserves whole free slots for the overflow pages
   (``Engine.host_spilled``) and the guest serves the request on an
   extended view of its slot and those pages (``Engine.admit_spilled``).
-  A host that cannot grant falls back down the ladder to a merge.
+  A host that cannot grant falls back down the ladder to a partial
+  merge, then a full one.
 
-Partial merges and elastic SP layouts are decided by the ported
-scheduler but have no data plane here: a ``SchedulerConfig`` that
-enables them is refused at construction (ROADMAP queue 1).
-``metrics()`` is key-for-key ``serving.metrics.METRIC_KEYS``.
+* **partial merge** (rung 2, opt-in with
+  ``SchedulerConfig(partial_merge=True)``): a ``ScaleUp`` naming
+  ``donor_devices`` has each donor shed that many workers in place (a
+  same-degree move, or a narrower degree, onto the workers it keeps:
+  it keeps serving and never parks), lends them to the target, and once
+  every donor's move has landed the target adopts them and widens to
+  the action's degree (``_advance_partials``).  The split returns the
+  loans and the donors widen back onto them.
+
+Elastic SP layouts are decided by the ported scheduler but have no data
+plane here: a ``SchedulerConfig`` that enables them is refused at
+construction (ROADMAP queue 1 item 6).  ``metrics()`` is key-for-key
+``serving.metrics.METRIC_KEYS``.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.padding import make_plan
-from repro_torch.core.partition import PoolPartitionManager
+from repro_torch.core.partition import Loan, PoolPartitionManager
 from repro_torch.core.scheduler import (Action, BaseScheduler,
                                         GygesScheduler, PrefillPolicy,
                                         ScaleDown, ScaleUp, SchedulerConfig,
@@ -59,8 +69,7 @@ from repro_torch.serving.metrics import summarize
 from repro_torch.serving.request import ServeRequest, State
 
 #: the reference's opt-in rungs whose data plane is not ported
-UNPORTED = {"partial_merge": "partial merges are ROADMAP queue 1 item 8b",
-            "layouts": "SP layouts are ROADMAP queue 1 item 6"}
+UNPORTED = {"layouts": "SP layouts are ROADMAP queue 1 item 6"}
 
 
 class ClusterEngine:
@@ -99,8 +108,7 @@ class ClusterEngine:
         for flag, why in UNPORTED.items():
             if getattr(sc, flag, False):
                 raise NotImplementedError(
-                    f"SchedulerConfig({flag}=True): {why}; the port's "
-                    "cluster runs the default path only")
+                    f"SchedulerConfig({flag}=True): {why}")
         workers = workers_of(devices)
         W = len(workers) // n_instances
         self.cfg = cfg
@@ -156,6 +164,8 @@ class ClusterEngine:
         for e in self.engines:
             self.partition.register(e.iid, list(e.devices))
         self._releasing: Set[int] = set()       # splits awaiting drain
+        # partial merges whose donors are still shedding their loans
+        self._pending_partials: List[Dict] = []
         # the merges this cluster ran: target, donors, cluster step and
         # the (rid, target slot) of each imported request
         self.merge_log: List[Dict] = []
@@ -179,9 +189,11 @@ class ClusterEngine:
         advertises its target capacity).  Engines with open spill
         regions (guest or host) cannot transform until they close: a
         pool resize would move hosted or overflow pages out from under
-        the extended views."""
+        the extended views; a partial-merge target awaiting its loaned
+        workers is already committed."""
         return [e for e in self.engines
                 if not e.transforming and not e.parked
+                and not e.awaiting_devices
                 and not e._spills and not e._hosted]
 
     def _update_reserve(self) -> None:
@@ -264,7 +276,11 @@ class ClusterEngine:
         """Execute one declarative action.  False when a merge's
         preconditions fail; nothing is mutated then."""
         eng = self._engine(act.iid)
-        if isinstance(act, ScaleUp) and act.donor_iids:
+        if isinstance(act, ScaleUp) and act.donor_devices:
+            n_steps = self._merge_partial(act, eng)
+            if n_steps is None:
+                return False
+        elif isinstance(act, ScaleUp) and act.donor_iids:
             n_steps = self._merge(act, eng)
             if n_steps is None:
                 return False
@@ -276,7 +292,7 @@ class ClusterEngine:
         self.n_transforms += 1
         self._last_transform_step[eng.iid] = self.steps
         self._update_reserve()
-        assert n_steps > 0 or act.tp_to == eng.tp, act
+        assert n_steps > 0 or act.tp_to == eng.tp or act.donor_devices, act
         return True
 
     def _merge(self, act: ScaleUp, eng: Engine) -> Optional[int]:
@@ -316,6 +332,65 @@ class ClusterEngine:
         self.merge_log.append({"iid": eng.iid, "donors": act.donor_iids,
                                "step": self.steps, "slots": slots})
         return eng.transform(act.tp_to)
+
+    def _merge_partial(self, act: ScaleUp, eng: Engine) -> Optional[int]:
+        """Partial merge (LoongServe-style fractional elasticity): each
+        donor sheds ``act.donor_devices`` of its workers in place, onto
+        the workers it keeps, at the largest degree they carry: it keeps
+        serving, nothing parks and no KV is exported.  The target widens
+        onto the loaned workers once every donor has landed
+        (``_advance_partials``).  Returns the donors' summed session
+        steps (0 for same-degree moves), or None when preconditions fail
+        (nothing mutated)."""
+        donors = [self._engine(i) for i in act.donor_iids]
+        if eng.transforming or eng.parked or eng.tp != 1 \
+                or eng.awaiting_devices:
+            return None
+        if any(d.transforming or d.parked or d is eng
+               or d.awaiting_devices for d in donors):
+            return None
+        if any(n <= 0 or n >= d.W
+               for d, n in zip(donors, act.donor_devices)):
+            return None        # a donor keeps at least one worker
+        assert all(d.seq_quantum == eng.seq_quantum for d in donors), (
+            "partial merges require uniform per-worker admission quanta")
+        n_steps = 0
+        loans: List[Loan] = []
+        for d, n in zip(donors, act.donor_devices):
+            keep = list(d.devices[:d.W - n])
+            lent = list(d.devices[d.W - n:])
+            new_tp = max(t for t in range(1, min(d.tp, len(keep)) + 1)
+                         if len(keep) % t == 0)
+            n_steps += d.transform(new_tp, devices=keep)
+            loans.append(self.partition.lend(d.iid, eng.iid, lent,
+                                             whole=False))
+            self._last_transform_step[d.iid] = self.steps
+        eng.awaiting_devices = True
+        self._pending_partials.append(
+            {"iid": eng.iid, "tp_to": act.tp_to, "loans": loans,
+             "donors": [d.iid for d in donors]})
+        return n_steps
+
+    def _advance_partials(self) -> None:
+        """Second half of a partial merge: once every donor's move has
+        landed (the loaned workers hold nothing of the donor), the target
+        adopts them and widens across the grown assembly, serving its
+        own work throughout."""
+        for p in list(self._pending_partials):
+            donors = [self._engine(i) for i in p["donors"]]
+            eng = self._engine(p["iid"])
+            if any(d.transforming for d in donors) or eng.transforming:
+                continue
+            self._pending_partials.remove(p)
+            eng.adopt_devices([w for loan in p["loans"]
+                               for w in loan.devices])
+            for loan in p["loans"]:
+                self.partition.adopt(eng.iid, loan)
+            eng.transform(p["tp_to"])
+            eng.awaiting_devices = False
+            self.partial_merges += 1
+            self._last_transform_step[eng.iid] = self.steps
+            self._update_reserve()
 
     def _execute_spill(self, req: ServeRequest, act: Spill) -> bool:
         """Rung 1 of the capacity ladder: serve a request above its
@@ -365,8 +440,10 @@ class ClusterEngine:
 
     def _finalize_releases(self) -> None:
         """Second half of a split: once the session has drained (the
-        engine's tensors live on its home workers only), return each loan
-        and revive its parked donor from the split engine's replica."""
+        engine's tensors live on its home workers only), return each
+        loan: a parked whole-engine donor revives from the split engine's
+        replica, a partial donor (which never stopped serving) widens
+        back onto its returned workers at its degree."""
         for iid in list(self._releasing):
             eng = self._engine(iid)
             if eng.transforming:
@@ -378,8 +455,13 @@ class ClusterEngine:
             for lender_iid, loans in by_lender.items():
                 workers = [w for ln in loans
                            for w in self.partition.return_loan(ln)]
-                self.partition.revive(lender_iid)
-                self._engine(lender_iid).revive(workers, eng)
+                donor = self._engine(lender_iid)
+                if any(ln.whole for ln in loans):
+                    self.partition.revive(lender_iid)
+                    donor.revive(workers, eng)
+                else:
+                    donor.transform(donor.tp,
+                                    devices=list(donor.devices) + workers)
                 self._last_transform_step[lender_iid] = self.steps
             self._update_reserve()
 
@@ -408,6 +490,7 @@ class ClusterEngine:
             e for e in self._active_engines()
             if e.tp > 1 and not e.transforming
             and not e._spills and not e._hosted
+            and not e.awaiting_devices
             and self.steps - self._last_transform_step[e.iid]
             >= self.dwell_steps]
         for act in self.scheduler.schedule_parallelism(
@@ -432,6 +515,7 @@ class ClusterEngine:
             if e.transforming:
                 # dwell counts from the END of a transformation
                 self._last_transform_step[e.iid] = self.steps
+        self._advance_partials()
         self._finalize_releases()
         self._finalize_spills()
         self._feed_measured_costs()
@@ -463,6 +547,7 @@ class ClusterEngine:
     @property
     def idle(self) -> bool:
         return (not self.waiting and not self._releasing
+                and not self._pending_partials
                 and all(not e.transforming and not e.waiting
                         and all(s is None for s in e.slots)
                         for e in self.engines))

@@ -28,12 +28,16 @@ Two placements, as in the reference:
     (``launch.mesh.InstanceMesh``; the entries may repeat, e.g. two
     workers on one card) starting at TP1 x W, its layers held per worker
     (``core.instance.WorkerLayer``), with the MLP on the padded FFN
-    kernel.  ``transform(tp_to)`` opens a §4.3 session, and each
-    ``step()`` executes one schedule step around its decode iteration,
-    so page migration (gather/scatter kernels and an all-to-all)
-    interleaves with serving.  Only full merges and decompositions
-    (TP1 x W <-> TPW) are ported; partial degrees and SP layouts are
-    ROADMAP queue 1 items 5 and 6.
+    kernel.  ``transform(tp_to)`` opens a §4.3 session to any degree
+    dividing the worker count (TP1 x 4 -> TP2 x 2 -> TP4 and back: the
+    ``(rep, tp)`` layouts of ``core.instance``), and each ``step()``
+    executes one schedule step around its decode iteration, so page
+    migration (gather/scatter kernels and the exchange) interleaves
+    with serving; ``transform(tp, devices=...)`` at the same degree
+    moves the engine onto other workers in one synchronous re-shard.
+    Replicated kv heads (fewer kv heads than workers) are laid out as
+    the reference's GQA rule gives them.  SP layouts are ROADMAP queue
+    1 item 6.
 
 The capacity contract is the reference's (``max_seq_at``): ``seq_quantum``
 is the per-worker admission share, ``max_seq_at(tp) = seq_quantum * tp``
@@ -132,12 +136,19 @@ class Engine:
         self._pending_devices: Optional[List[Worker]] = None
         self.transform_reports: List[TE.StepReport] = []
         self.transform_log: List[Dict] = []
+        # same-degree moves onto other workers (no session; kept apart
+        # from transform_log, which the metrics and cost model read, as
+        # the reference records none)
+        self.move_log: List[Dict] = []
         # -- cross-instance merge lifecycle (serving.cluster) -------------
         # reserved: earmarked as the next scale-up candidate (Alg 2 line
         # 9)
         self.reserved = False
         self.parked = False
         self.adopted_devices: List[Worker] = []
+        # a partial-merge target whose loaned workers are still leaving
+        # their donors (serving.cluster): committed, not transformable
+        self.awaiting_devices = False
         if devices is None:
             self.devices = None
             self.W = 1
@@ -198,10 +209,6 @@ class Engine:
         assert self.plan.max_tp % W == 0, (
             f"a plan for {self.plan.max_tp} shards cannot split over {W} "
             "workers")
-        if self.plan.kv_replication != 1:
-            raise NotImplementedError(
-                f"{cfg.name}: fewer kv heads than workers (replicated kv "
-                "heads) is not ported yet (ROADMAP queue 1 item 5)")
         if cfg.activation not in ("swiglu", "geglu"):
             raise NotImplementedError(
                 f"{cfg.name}: the worker engine's padded FFN takes gated "
@@ -224,7 +231,6 @@ class Engine:
         0 takes its tensors, every other worker a copy) or another engine
         at TP1, whose worker-0 replica every worker copies (a revived
         donor: weights are identical cluster-wide)."""
-        devs = self.mesh.devices
         if isinstance(source, Engine):
             assert source.tp == 1 and not source.transforming, (
                 "a replica source must be at TP1 with no session open")
@@ -236,30 +242,11 @@ class Engine:
                       for b in source.layers]
             static, share = source.static(), True
 
-        def per_worker(t):
-            return [I.own_copy(t.detach(), d, w) if share
-                    else t.detach().to(d, copy=True)
-                    for w, d in enumerate(devs)]
-
-        def dicts(p):
-            cols = {k: per_worker(v) for k, v in p.items()}
-            return [{k: v[w] for k, v in cols.items()}
-                    for w in range(len(devs))]
-
         mps = -(-self.max_seq_alloc // self.page_tokens)
-        self.layers: List[I.WorkerLayer] = [
-            I.WorkerLayer(kind, I.REP, I.REP, per_worker(ln1),
-                          per_worker(ln2), dicts(attn), dicts(mlp),
-                          I.init_worker_caches(
-                              self.plan.kv_slots, self.page_tokens,
-                              self.cfg.resolved_head_dim, self.max_batch,
-                              mps, static["embed"].dtype, devs), self.mesh)
-            for kind, ln1, ln2, attn, mlp in blocks]
-        static = {k: None if v is None else per_worker(v)
-                  for k, v in static.items()}
-        self.static = [{k: None if v is None else v[w]
-                        for k, v in static.items()}
-                       for w in range(len(devs))]
+        self.layers, self.static = I.place_replicas(
+            blocks, static, self.mesh, share, self.plan.kv_slots,
+            self.page_tokens, self.cfg.resolved_head_dim, self.max_batch,
+            mps)
 
     def _min_chunk_cap(self) -> int:
         """Largest chunk one prefill call may carry: the smallest
@@ -364,13 +351,15 @@ class Engine:
                    if r is not None and r.state == State.DECODE)
 
     def _admittable_now(self, req: ServeRequest) -> bool:
-        """While capacity is on its way (a transform that grows the
-        ceiling is in flight), a request longer than the current pool
-        waits in the queue instead of admitting into a slot it would
-        overflow.  A spilled request carries its own extension."""
+        """While capacity is on its way (a partial merge's loaned workers
+        not yet adopted, or a transform that grows the ceiling in
+        flight), a request longer than the current pool waits in the
+        queue instead of admitting into a slot it would overflow.  A
+        spilled request carries its own extension."""
         return not (req.total_tokens > self.max_seq_alloc
                     and req.rid not in self._spill_plans
-                    and self.tp_pending is not None)
+                    and (self.awaiting_devices
+                         or self.tp_pending is not None))
 
     # -- slot views (the reference's extract / adopt) -----------------------
     def _slot_caches(self, slot: int) -> List[pp.PagedState]:
@@ -584,8 +573,10 @@ class Engine:
     # -- §4.3 live transformation -------------------------------------------
     def transform(self, tp_to: int, layers_per_step: int = 1,
                   devices: Optional[List[Worker]] = None) -> int:
-        """Begin a live transformation to degree ``tp_to``: a full merge
-        (TP1 x W -> TPW') or decompose (TPW -> TP1 x W').  Returns the
+        """Begin a live transformation to degree ``tp_to``, any divisor of
+        the target worker count: the layout ``(rep = W/tp_to) x (tp =
+        tp_to)`` (a full merge TP1 x W -> TPW', a decompose TPW -> TP1 x
+        W', or a partial change such as TP1 x 4 -> TP2 x 2).  Returns the
         number of schedule steps; each later ``step()`` executes one of
         them around its decode iteration, while requests keep decoding.
 
@@ -595,7 +586,12 @@ class Engine:
         ones are shed).  When they differ from the workers the layers
         sit on, the session crosses assemblies, layer by layer.  The pool
         grows to the target ceiling before the session (memory follows
-        the TP degree); the shrink half runs when it lands."""
+        the TP degree); the shrink half runs when it lands.
+
+        At the same degree on other workers (a partial-merge donor
+        shedding workers, or widening back onto returned ones) there is
+        no session: the whole state moves in one synchronous re-shard
+        between steps (``_move_workers``), and this returns 0."""
         assert self.mesh is not None, "transform requires devices="
         assert self._session is None, "transformation already in progress"
         assert not self._spills and not self._hosted, (
@@ -605,15 +601,15 @@ class Engine:
         target = list(self.devices if devices is None else devices)
         if tp_to == self.tp and target == self.mesh.workers:
             return 0
-        full_up = self.tp == 1 and tp_to == len(target) > 1
-        full_down = tp_to == 1 and self.tp == self.mesh.W > 1
-        if not (full_up or full_down):
-            raise NotImplementedError(
-                f"TP{self.tp} -> TP{tp_to} on {self.mesh.W} -> "
-                f"{len(target)} workers: only full merges and "
-                "decompositions (TP1 x W <-> TPW) are ported; partial "
-                "degree changes and same-degree device migrations are "
-                "ROADMAP queue 1 item 5")
+        assert len(target) % tp_to == 0, (
+            f"TP{tp_to} does not divide {len(target)} workers")
+        assert self.max_batch % (len(target) // tp_to) == 0, (
+            f"max_batch={self.max_batch} must split over the "
+            f"{len(target) // tp_to} TP groups of TP{tp_to}")
+        I.check_degree(self.plan, tp_to)
+        if tp_to == self.tp:
+            self._move_workers(target)
+            return 0
         if self.max_seq_alloc < self.seq_quantum * tp_to:
             self._resize_pool(self.seq_quantum * tp_to)
         session = TE.open_owner_session(self, tp_to, layers_per_step,
@@ -624,6 +620,43 @@ class Engine:
         self._session_cross = session.cross
         self._session_t0 = time.monotonic()
         return session.schedule.n_steps
+
+    def _move_workers(self, target: List[Worker]) -> None:
+        """Same-degree move onto the workers ``target``: every layer's
+        weights, pages and metadata re-shard to the same degree on the
+        new assembly (``core.kv_transform.migrate_sharded``, the gather
+        and scatter kernels), the replicated weights follow, and the pool
+        is sized to ``seq_quantum * len(target)`` (trimmed before the
+        move, grown after it).  Live contexts must fit that allocation
+        (the scheduler's ``donor_loanable`` keeps a shrink legal)."""
+        need = self._live_need()
+        alloc = self.seq_quantum * len(target)
+        assert need <= alloc, (
+            f"live context ({need} tok) exceeds the retained width's "
+            f"allocation ({alloc} tok)")
+        t0 = time.monotonic()
+        if alloc < self.max_seq_alloc:
+            self._resize_pool(alloc)
+        src, dst, t = self.mesh, InstanceMesh(target, self.tp), self.tp
+        moved = 0
+        for layer in self.layers:
+            moved += I.move_attn(layer, dst, t, self.plan)
+            I.move_mlp(layer, dst, t, self.plan.max_tp)
+            layer.ln1 = I.replicas_across(layer.ln1, src, dst)
+            layer.ln2 = I.replicas_across(layer.ln2, src, dst)
+            layer.mesh = dst
+        self.static = I.replicas_across(self.static, src, dst)
+        self.mesh, self.devices, self.W = dst, list(target), len(target)
+        self._resize_pool(alloc)
+        TE._sync(src.devices + dst.devices)
+        self.move_log.append({
+            "kind": "move", "tp_from": t, "tp_to": t,
+            "layout_from": f"{src.W // t}xTP{t}",
+            "layout_to": f"{dst.W // t}xTP{t}",
+            "bytes": sum(c.pool.numel() * c.pool.element_size()
+                         for layer in self.layers for c in layer.cache),
+            "wall_s": time.monotonic() - t0, "kv_bytes": moved})
+        self.check_capacity_invariant()
 
     @property
     def transforming(self) -> bool:
@@ -664,13 +697,17 @@ class Engine:
             self._pending_devices = None
         # memory follows the TP degree: trim the pool to the landed
         # degree's allocation, never below a live context's footprint
-        live = [s for s in self.slots if s is not None] + self.waiting
-        need = max((r.total_tokens for r in live), default=0)
-        need = -(-need // self.page_tokens) * self.page_tokens
-        target = max(self.seq_quantum * self.tp, need)
+        target = max(self.seq_quantum * self.tp, self._live_need())
         if target < self.max_seq_alloc:
             self._resize_pool(target)
         self.check_capacity_invariant()
+
+    def _live_need(self) -> int:
+        """The page-rounded footprint of the longest live or queued
+        request."""
+        live = [r for r in self.slots if r is not None] + self.waiting
+        need = max((r.total_tokens for r in live), default=0)
+        return -(-need // self.page_tokens) * self.page_tokens
 
     def _resize_pool(self, new_max_seq: int) -> None:
         """Reallocate every full-attention pool at ``new_max_seq`` tokens
@@ -682,7 +719,7 @@ class Engine:
         new_mps = -(-new_max_seq // self.page_tokens)
         for layer in self.layers:
             lo, hi = I.rows_of(layer.attn_layout, self.max_batch,
-                               layer.mesh.W, 0)
+                               layer.mesh.W, 0)       # a group's slots
             layer.cache = [
                 c if c.capacity != old_cap
                 else KT.resize_slot_capacity(c, new_mps, hi - lo)
@@ -750,8 +787,8 @@ class Engine:
         self.check_capacity_invariant()
 
     def _holder(self, layer: I.WorkerLayer, slot: int) -> Tuple[int, int]:
-        """(worker, local slot) holding ``slot`` of a layer at REP."""
-        assert layer.attn_layout == I.REP, "slots move at TP1 only"
+        """(worker, local slot) holding ``slot`` of a layer at TP1."""
+        assert layer.attn_layout == 1, "slots move at TP1 only"
         per = self.max_batch // layer.mesh.W
         return slot // per, slot % per
 

@@ -9,7 +9,8 @@ Reduced llama3-8b in float32, two instances over a pool of 4 CPU workers
 reduced config has 4 kv heads and the port has no replicated kv heads.
 Short requests land on both instances, then a 96-token request that
 only the merged engine holds triggers the merge; Alg 2 splits it after
-the dwell and the donor is revived.
+the dwell and the donor is revived.  (Eight workers, with replicated kv
+heads, are ``tests/test_torch_partial_merge.py``'s.)
 
 Each reference cluster runs once, in a subprocess of its own with 4
 fake host devices (both start together), and writes its weights,
@@ -360,18 +361,16 @@ def test_mlp_layout_of_a_pool_of_4_at_every_degree(t):
     wi, wo = relayout_mlp_for_tp(wi, wo, ff, 4)
     x = torch.randn(5, d, generator=g)
     want = ffn_reference(x, torch.cat([gate, up], dim=1), down)
-    W = t
-    layout = I.REP if t == 1 else I.TP
-    tp, ffk = I.mlp_shards(layout, 4, ff, W)
+    tp, ffk = I.mlp_shards(t, 4, ff)
     shards = ([{"wi": wi, "wo": wo}] if t == 1 else
-              [I.shard_mlp({"wi": wi, "wo": wo}, w, W) for w in range(W)])
+              [I.shard_mlp({"wi": wi, "wo": wo}, t, w, 4) for w in range(t)])
     got = sum(KR.padded_ffn_ref(x, s["wi"], s["wo"], tp=tp, ff=ffk,
                                 activation="swiglu") for s in shards)
     assert (tp, ffk) == (4 // t, ff // t)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("flag", ["partial_merge", "layouts"])
+@pytest.mark.parametrize("flag", ["layouts"])
 def test_unported_rungs_are_refused(flag):
     sched = GygesScheduler(SchedulerConfig(**{flag: True}))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
@@ -379,11 +378,20 @@ def test_unported_rungs_are_refused(flag):
 
 
 def test_engine_refuses_partial_and_same_degree_moves():
+    """Once refused, now ported: a same-degree shrink onto fewer workers
+    lands at once (no session), with the pool at the retained width's
+    allocation; what is still refused is moving a slot off an engine
+    at TP > 1 (export and import assert TP1)."""
     cfg = _cfg()
     cl = ClusterEngine(cfg, ["cpu"] * 4, **KW)
     eng = cl.engines[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        eng.transform(1, devices=cl.engines[0].devices[:1])
+    home = list(eng.devices)
+    assert eng.transform(1, devices=home[:1]) == 0
+    assert not eng.transforming and eng.W == 1 and eng.tp == 1
+    assert eng.max_seq_alloc == eng.seq_quantum
+    assert eng.layers[0].mesh.workers == home[:1]
+    assert eng.transform(1, devices=home) == 0 and eng.W == 2
+    eng.check_capacity_invariant()
     # a slot moves at TP1 only: export and import assert it
     eng.transform(2)
     with pytest.raises(AssertionError):

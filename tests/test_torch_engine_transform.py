@@ -179,7 +179,7 @@ def test_cache_bytes_identical_across_migration(reference, d_ff):
     while not c._session.done:
         c._session.step()
     c._finish_transform()
-    assert c.layers[0].attn_layout == "tp"
+    assert c.layers[0].attn_layout == 2
     _cache_equal(before, c.global_caches())
     c.transform(1)
     while not c._session.done:
@@ -222,14 +222,30 @@ def test_round_trip_on_four_workers():
 
 
 def test_only_full_merges_and_decompositions():
+    """Once only full merges and decompositions; now any degree dividing
+    the workers: ``transform(2)`` on 4 workers lands at TP2 x 2 (two
+    groups of two, each over its own slots)."""
     cfg = _cfg()
     from repro_torch.models import model as M
     eng = Engine(cfg, params=M.build(cfg, make_plan(cfg, 4, mode="page"), 0,
                                          device="cpu"),
                  devices=["cpu"] * 4, max_batch=4, max_seq=128,
                  page_tokens=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        eng.transform(2)
+    assert eng.transform(2) == 2 * cfg.num_layers
+    while eng.transforming:
+        eng.step()
+    assert eng.tp == 2 and eng.mesh.rep == 2
+    assert eng.max_seq_alloc == 2 * eng.seq_quantum
+    for layer in eng.layers:
+        assert layer.attn_layout == layer.mlp_layout == 2
+        assert [c.page_table.shape[0] for c in layer.cache] == [2] * 4
+        assert layer.cache[0].pool.shape[1] == cfg.num_kv_heads // 2
+    with pytest.raises(AssertionError):
+        eng.transform(3)
+    assert eng.transform(2) == 0
+    eng.transform(1)
+    while eng.transforming:
+        eng.step()
     assert eng.transform(1) == 0 and not eng.transforming
     single = Engine(cfg, max_seq=64, page_tokens=16, device="cpu")
     with pytest.raises(AssertionError, match="devices="):

@@ -146,13 +146,14 @@ def test_sharded_migration_over_workers_equals_local(W):
     NP, H, P, dh = 5, 8, 4, 8
     pools = _rand((W, NP, H, 2, P, dh), W)
     mesh = InstanceMesh(["cpu"] * W, 1)
-    up = TKT.migrate_scale_up_sharded(
-        [torch.from_numpy(pools[w].copy()) for w in range(W)], mesh)
+    up, _ = TKT.migrate_sharded(
+        [torch.from_numpy(pools[w].copy()) for w in range(W)], mesh, 1,
+        mesh, W)
     jup = np.asarray(JPM.migrate_scale_up_local(jnp.asarray(pools),
                                                 interpret=True))
     for w in range(W):
         np.testing.assert_array_equal(up[w].numpy(), jup[w])
-    down = TKT.migrate_scale_down_sharded(up, mesh)
+    down, _ = TKT.migrate_sharded(up, mesh, W, mesh, 1)
     jdown = np.asarray(JPM.migrate_scale_down_local(jnp.asarray(jup),
                                                     interpret=True))
     for w in range(W):
@@ -161,6 +162,42 @@ def test_sharded_migration_over_workers_equals_local(W):
     # no worker's result aliases another's
     ptrs = {t.data_ptr() for t in up + down}
     assert len(ptrs) == 2 * W
+
+
+# (ta, workers) -> (tb, workers after), and the bytes the move's kernels
+# and exchange read and write, in pools: a worker in both assemblies
+# copies the slice it keeps once (2x its bytes); the rest is gathered,
+# exchanged (4x) and, unless it lands as whole pages, scattered (6x)
+MOVES = [((1, 4), (2, 4), 3.0), ((2, 4), (4, 4), 3.5),
+         ((4, 4), (2, 4), 5.0), ((2, 4), (1, 4), 4.0),
+         ((1, 4), (4, 4), 3.5), ((1, 2), (1, 1), 3.0),
+         ((1, 1), (1, 2), 3.0), ((1, 2), (4, 4), 3.5),
+         ((4, 4), (1, 2), 5.0)]
+
+
+@pytest.mark.parametrize("src,dst,pools_moved", MOVES)
+def test_sharded_migration_keeps_own_slice(src, dst, pools_moved):
+    """Every partial degree and worker set: each destination pool equals
+    its rectangle of the global (pages x kv slots) array, and a worker
+    in both assemblies keeps its slice without the exchange."""
+    (ta, W), (tb, W2) = src, dst
+    NPt, H, P, dh = 8, 8, 4, 8
+    glob = torch.from_numpy(_rand((NPt, H, 2, P, dh), 11))
+
+    def rect(t, n, w):
+        g, pos = divmod(w, t)
+        rows, cols = NPt // (n // t), H // t
+        return glob[g * rows:(g + 1) * rows, pos * cols:(pos + 1) * cols]
+
+    pools = [rect(ta, W, u).clone() for u in range(W)]
+    out, moved = TKT.migrate_sharded(
+        pools, InstanceMesh(["cpu"] * W, ta), ta,
+        InstanceMesh(["cpu"] * W2, tb), tb)
+    assert len(out) == W2
+    for w in range(W2):
+        assert torch.equal(out[w], rect(tb, W2, w))
+    assert moved == pools_moved * glob.numel() * glob.element_size()
+    assert not {o.data_ptr() for o in out} & {p.data_ptr() for p in pools}
 
 
 def test_merge_and_split_references_equal():
@@ -181,7 +218,7 @@ def test_mesh_exchanges():
     for w in range(W):
         assert torch.equal(recv[w][:, 0], torch.arange(W).float()
                            .repeat_interleave(2))
-    red = mesh.all_reduce_sum(xs)
+    red = mesh.all_reduce_sum(xs, W)
     assert all(torch.equal(r, torch.full((W * 2, 3), 3.0)) for r in red)
     assert len({r.data_ptr() for r in red}) == W
     gat = mesh.all_gather(xs, 1)

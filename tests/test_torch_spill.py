@@ -350,9 +350,9 @@ def test_hosted_pages_equal_the_extended_view_overflow(ported):
 def test_refused_grant_falls_back_to_a_full_merge(monkeypatch):
     """The counterpart of ``tests/test_cluster_merge.py::
     test_live_spill_grant_failure_falls_back_to_partial_merge`` with
-    partial merges off (not ported): the scheduler decides a spill, the
-    host cannot grant it, and the placement falls down the ladder to a
-    full merge; the request is served, not dropped."""
+    partial merges off: the scheduler decides a spill, the host cannot
+    grant it, and the placement falls down the ladder to a full merge;
+    the request is served, not dropped."""
     cfg = _cfg()
     from repro_torch.models import model as M
     model = M.build(cfg, make_plan(cfg, 2, mode="page"), seed=3,
@@ -377,6 +377,44 @@ def test_refused_grant_falls_back_to_a_full_merge(monkeypatch):
     m = cl.metrics()
     assert m["spill_pages"] == 0 and m["n_transforms"] == 2, m
     assert all(not e.parked and e.W == 1 for e in cl.engines)
+    cl.partition.check_invariants()
+
+
+def test_refused_grant_falls_back_to_a_partial_merge(monkeypatch):
+    """The same with ``partial_merge=True`` on 4 instances of 2 workers
+    (the reference's shape): the refused grant falls one rung, to a
+    partial merge; the donors shed a worker each and keep serving, and
+    the split widens them back."""
+    cfg = _cfg()
+    from repro_torch.models import model as M
+    model = M.build(cfg, make_plan(cfg, 8, mode="page"), seed=3,
+                    device="cpu")
+    cl = ClusterEngine(cfg, ["cpu"] * 8, params=model, n_instances=4,
+                       max_batch=2, max_seq=32, page_tokens=16,
+                       dwell_steps=4, scheduler=GygesScheduler(
+                           SchedulerConfig(long_threshold=16, target_tp=4,
+                                           spill=True, partial_merge=True,
+                                           spill_slack=2.0)))
+    for e in cl.engines:
+        monkeypatch.setattr(e, "host_spilled", lambda n_pages: None)
+    rng = np.random.default_rng(1)
+    long_ = ServeRequest(rid=9, prompt=rng.integers(0, 512, size=24
+                                                    ).tolist(),
+                         max_new_tokens=16)
+    assert isinstance(cl.scheduler.decide_capacity(cl._transformable(),
+                                                   40), Spill)
+    cl.submit(long_)
+    assert not any(isinstance(a, Spill) for a in cl.actions), cl.actions
+    partial = [a for a in cl.actions
+               if isinstance(a, ScaleUp) and a.donor_devices]
+    assert partial and partial[0].tp_to == 4, cl.actions
+    assert sorted(e.W for e in cl.engines) == [1, 1, 2, 2]
+    cl.run(max_steps=5000)
+    assert long_.finished and len(long_.generated) == 16
+    m = cl.metrics()
+    assert m["spill_pages"] == 0 and m["partial_merges"] == 1, m
+    assert all(not e.parked and e.W == 2 for e in cl.engines)
+    assert not cl.partition._loans
     cl.partition.check_invariants()
 
 
