@@ -206,8 +206,18 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2.0 ** -7)}
 FFN_ROW_TOL = 2.0 ** -8
 
 
+#: every line ``emit`` prints is also appended here: the whole log, for
+#: a caller that keeps only the end of the output (the shape-census line
+#: alone is some 60 KB)
+LOG_PATH = os.path.join(ROOT, "build", "chip_smoke.jsonl")
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    line = json.dumps(kw)
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(line + "\n")
 
 
 def max_err(what, out, want, dtype, rows=None, row_tol=0.0):
@@ -875,16 +885,22 @@ def decode_walk():
     card) against its host model (``live_pages`` cut by
     ``split_pages``, which the CPU tests hold against the JAX
     reference): every 7th query position from -1 to past twice the
-    capacity, with and without a window, at several split counts."""
+    capacity, with and without a window, at several split counts, on
+    whole rows and on sp shards (pages [page0, page0 + n) of n_total)."""
     from repro_torch.kernels import paged_attention as PA
     q = torch.arange(-1, 2 * 8192 + 100, 7, dtype=torch.int32)
-    layouts = ((128, 64, 0, 9), (128, 64, 0, 16), (512, 16, 0, 8),
-               (16, 64, 1024, 4), (64, 16, 333, 5))
-    for n, P, window, splits in layouts:
-        got = PA.walk_ranges(q.cuda(), n, P, window, splits).cpu()
-        want = PA.walk_ranges(q, n, P, window, splits)
+    # n, P, window, splits, page0, n_total (0: n)
+    layouts = ((128, 64, 0, 9, 0, 0), (128, 64, 0, 16, 0, 0),
+               (512, 16, 0, 8, 0, 0), (16, 64, 1024, 4, 0, 0),
+               (64, 16, 333, 5, 0, 0), (48, 64, 0, 16, 48, 96),
+               (48, 64, 0, 16, 0, 96), (32, 64, 0, 8, 64, 128))
+    for n, P, window, splits, page0, n_total in layouts:
+        got = PA.walk_ranges(q.cuda(), n, P, window, splits, page0,
+                             n_total).cpu()
+        want = PA.walk_ranges(q, n, P, window, splits, page0, n_total)
         bad = int((got != want).any(dim=-1).sum())
-        assert bad == 0, ("decode walk", n, P, window, splits, bad)
+        assert bad == 0, ("decode walk", n, P, window, splits, page0,
+                          bad)
     emit(phase="kernels", what="decode-walk", positions=q.numel(),
          layouts=[list(x) for x in layouts], tol="bit-equal")
 
@@ -961,8 +977,9 @@ def phase_kernels():
                  (case_ffn, dict(T=44)), (case_ffn, dict(T=44, tp=1)),
                  *padded_ffn_cases()]
         cases = [("llama3-8b", fn, kw) for fn, kw in cases]
-        # slice 7's shapes: its engines' degrees and KV migrations
-        cases += slice7_cases()
+        # slice 7's shapes: its engines' degrees and KV migrations; slice
+        # 8's: the partial entries and the combine at its shard shapes
+        cases += slice7_cases() + slice8_cases()
         for model, fn, kw in cases + head_shape_cases():
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
@@ -974,6 +991,9 @@ def phase_kernels():
                 if (dtype == torch.bfloat16 and not kw
                         and model == "llama3-8b"):
                     main[r["kernel"]] = r
+                if (dtype == torch.bfloat16 and fn in (case_decode_sp,
+                                                       case_chunk_sp)):
+                    main.setdefault(r["kernel"] + "@sp", r)
     ffn_tilings()
     decode_walk()
     emit(phase="kernels", seconds=time.monotonic() - t0)
@@ -2099,8 +2119,9 @@ def captured_calls(mod, names):
 
 def case_reshard(dtype, ta=1, tb=2, W=4, W2=None, slots=4, cap=6144,
                  kvs=8, P=64, dh=128):
-    """One layer's pools moved from TP``ta`` on W workers to TP``tb`` on
-    W2 (``kv_transform.migrate_sharded``: a worker in both assemblies
+    """One layer's pools moved from layout ``ta`` on W workers to ``tb``
+    on W2 (a TP degree, or an (sp, tp) pair; ``kv_transform.
+    migrate_sharded``: a worker in both assemblies
     copies what it keeps pool to pool, every source gathers the rest,
     the exchange, the scatter kernel where arrivals are not runs of
     whole pages): every destination pool bit-equal to the same move on
@@ -2113,24 +2134,27 @@ def case_reshard(dtype, ta=1, tb=2, W=4, W2=None, slots=4, cap=6144,
     from repro_torch.core import kv_transform as KT
     from repro_torch.kernels import page_migrate as PM
     from repro_torch.kernels import ref
-    from repro_torch.launch.mesh import InstanceMesh
+    from repro_torch.launch.mesh import InstanceMesh, Layout
     W2 = W if W2 is None else W2
+    la, lb = (Layout(*t) if isinstance(t, tuple) else Layout.of(t)
+              for t in (ta, tb))
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(17)
-    NP, H = slots * cap // P // (W // ta), kvs // ta
+    mps = cap // P
+    NP, H = slots // (W // la.degree) * (mps // la.sp), kvs // la.tp
     pools = [torch.randn((NP, H, 2, P, dh), generator=g, device=dev
                          ).to(dtype) for _ in range(W)]
-    src, dst = InstanceMesh([dev] * W, ta), InstanceMesh([dev] * W2, tb)
+    src, dst = InstanceMesh([dev] * W, la), InstanceMesh([dev] * W2, lb)
     with captured_calls(PM, ("gather_page_slices", "copy_page_slices")
                         ) as calls:
-        out, moved = KT.migrate_sharded(pools, src, ta, dst, tb)
+        out, moved = KT.migrate_sharded(pools, src, la, dst, lb, mps)
     cpu = [p.cpu() for p in pools]
-    want, _ = KT.migrate_sharded(cpu, InstanceMesh(["cpu"] * W, ta), ta,
-                                 InstanceMesh(["cpu"] * W2, tb), tb)
+    want, _ = KT.migrate_sharded(cpu, InstanceMesh(["cpu"] * W, la), la,
+                                 InstanceMesh(["cpu"] * W2, lb), lb, mps)
     assert all(torch.equal(o.cpu(), w) for o, w in zip(out, want)), (
-        "migrate_sharded", ta, tb)
-    case = (f"TP{ta} x{W // ta} -> TP{tb} x{W2 // tb}: {slots} slots x "
-            f"{cap} tokens, kvs={kvs}, P={P}, dh={dh}")
+        "migrate_sharded", str(la), str(lb))
+    case = (f"{la} x{W // la.degree} -> {lb} x{W2 // lb.degree}: {slots} "
+            f"slots x {cap} tokens, kvs={kvs}, P={P}, dh={dh}")
     rows, kinds = [], set()
     for name, a, kw in calls:
         h = kw["heads_per_slice"]
@@ -2192,7 +2216,7 @@ def _landed_equal(eng, before, tp) -> int:
     from repro_torch.core import instance as I
     from repro_torch.core import kv_transform as KT
     n = 0
-    mps = eng.layers[0].cache[0].page_table.shape[1]
+    mps = I.pages_per_slot(eng.layers[0])
     devs = [w.device for w in eng.devices]
     for layer, glob in zip(eng.layers, before):
         want = I.split_cache(KT.resize_slot_capacity(glob, mps,
@@ -2295,8 +2319,9 @@ def _stepper(eng, steps, sync_dev):
         before = progress()
         sync(sync_dev)
         t = time.monotonic()
-        where = (f"TP{eng.tp}x{eng.W // eng.tp}" if not eng.transforming
-                 else f"TP{eng.tp}->TP{eng.tp_pending}")
+        where = (f"{eng.par_layout}x{eng.W // eng.tp}"
+                 if not eng.transforming
+                 else f"{eng.par_layout}->{eng._session.target_layout}")
         out = eng.step()
         sync(sync_dev)
         prefill = (out["emitted"] > out["decode_emitted"]
@@ -2582,6 +2607,795 @@ def phase_cluster_partial(smi: str, dev: str = "cuda", cfg=None,
 
 
 # ---------------------------------------------------------------------------
+# Slice 8: sequence-parallel layouts, kernels 1 and 2 as softmax partials
+# ---------------------------------------------------------------------------
+
+#: a shard's partial state against its plain walk, on the (row, head)
+#: pairs that see a key: m (scores are O(1-10)) within 1e-3, l within
+#: 1e-3 of itself (both are fp32 sums of the same exponentials in other
+#: orders; the bf16 kernels take exp2 on the score's fp32 value), and
+#: acc / l within the dtype's TOL (plus the bf16 prefill tile's row
+#: term); rows with no visible key differ by design (the kernels give
+#: (NEG_INF, 0, 0), the plain walks the reference's finite arithmetic),
+#: and the combine weighs them as nothing
+PART_M_TOL, PART_L_TOL = 1e-3, 1e-3
+
+
+def hold_partials(what, buf, g, want, dtype, row_tol=0.0) -> dict:
+    """The kernel's partial state ``buf`` (``g``: its rows, kvs, splits,
+    rep, dh; the splits merged in fp32 here) against the plain walk's
+    ``want`` = (m, l, acc) of shape (rows, kvs, rep[, dh]) up to a
+    reshape; returns the max errors of m, l (relative) and acc / l."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as Lyr
+    m, l, acc = ref.unpack_partials(buf, g["rows"], g["kvs"], g["splits"],
+                                    g["rep"], g["dh"])
+    m, l, acc = Lyr.combine_softmax_partials(
+        m.transpose(2, 3), l.transpose(2, 3), acc.transpose(2, 3), axis=3)
+    shape = (g["rows"], g["kvs"], g["rep"])
+    wm, wl = want[0].reshape(shape), want[1].reshape(shape)
+    wacc = want[2].reshape(*shape, g["dh"])
+    live = wm > Lyr.NEG_INF / 2
+    if not live.any():          # a shard that sees no key of these rows
+        return {"m": 0.0, "l_rel": 0.0, "acc_over_l": 0.0, "live": 0}
+    em = (m - wm).abs()[live].max().item()
+    el = ((l - wl).abs() / wl)[live].max().item()
+    assert em <= PART_M_TOL and el <= PART_L_TOL, (what, str(dtype),
+                                                   "m", em, "l", el)
+    eo = max_err(what + " acc/l", acc / l[..., None],
+                 wacc / wl[..., None], dtype, rows=live, row_tol=row_tol)
+    return {"m": em, "l_rel": el, "acc_over_l": eo,
+            "live": int(live.sum())}
+
+
+def _shard_cache(pool, kvpos, n, sp, s, P):
+    """Shard s of sp of identity-paged rows of ``n`` pages: its pages (a
+    compact pool), identity page table and global positions."""
+    B = kvpos.shape[0]
+    ns = n // sp
+    part = pool.view(B, n, *pool.shape[1:])[:, s * ns:(s + 1) * ns]
+    pt = (torch.arange(B, device=pool.device)[:, None] * ns
+          + torch.arange(ns, device=pool.device)[None]).to(torch.int32)
+    return (part.reshape(B * ns, *pool.shape[1:]).clone(), pt,
+            kvpos[:, s * ns * P:(s + 1) * ns * P].contiguous())
+
+
+def case_decode_sp(dtype, q_pos=(6050, 420, 730, 1050), cap=6144, sp=2,
+                   Hq=16, kvs=4, dh=128, P=64, what=""):
+    """An sp group's decode: each of ``sp`` shards holds its slice of
+    every row's pages (identity-paged, global positions) and runs the
+    partial entry into its row of the group's buffer; each shard's
+    partials against its plain walk, the combine of the gathered buffer
+    against the plain decode of the whole rows.  Times: all shards'
+    partial calls (L2 evicted before each group), the combine, and SDPA
+    over each shard's keys (the library yardstick); bound: the visible
+    K/V bytes, the queries and the partial states written."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(43)
+    B, n, rep = len(q_pos), cap // P, Hq // kvs
+    pool = torch.randn((B * n, kvs, 2, P, dh), generator=g, device=dev
+                       ).to(dtype)
+    qpos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    kvpos = stored_positions(qpos, cap)
+    q = torch.randn((B, Hq, dh), generator=g, device=dev).to(dtype)
+    shards = [_shard_cache(pool, kvpos, n, sp, s, P) for s in range(sp)]
+    splits = PA.partial_splits(B, kvs, n // sp, q.device)
+    geo = dict(rows=B, kvs=kvs, splits=splits, rep=rep, dh=dh)
+    buf = torch.empty((sp, ref.partials_numel(**geo)), device=dev)
+
+    def group():
+        for s, (sp_pool, pt, kp) in enumerate(shards):
+            PA.paged_decode_partials(q, sp_pool, pt, kp, qpos, buf[s],
+                                     shard=(s, sp))
+
+    group()
+    errs = [hold_partials(f"decode partials shard {s}", buf[s], geo,
+                          ref.paged_decode_partials_ref(q, sp_pool, pt, kp,
+                                                        qpos), dtype)
+            for s, (sp_pool, pt, kp) in enumerate(shards)]
+    out = PA.softmax_combine(buf, B, kvs, splits, rep, dh, dtype)
+    gpt = (torch.arange(B, device=dev)[:, None] * n
+           + torch.arange(n, device=dev)[None]).to(torch.int32)
+    err = max_err("combined decode", out, PA.plain(q, pool, gpt, kvpos,
+                                                   qpos), dtype)
+    plain_buf = torch.empty((sp, ref.partials_numel(B, kvs, 1, rep, dh)),
+                            device=dev)
+
+    def plain():
+        for s, (sp_pool, pt, kp) in enumerate(shards):
+            ref.pack_partials(*ref.paged_decode_partials_ref(
+                q, sp_pool, pt, kp, qpos), plain_buf[s])
+
+    libs = []
+    for sp_pool, pt, kp in shards:
+        pages = sp_pool[pt.long()]
+        kd, vd = (pages[:, :, :, i].permute(0, 2, 1, 3, 4).reshape(
+            B, kvs, -1, dh).repeat_interleave(rep, dim=1).contiguous()
+            for i in (0, 1))
+        mask = ((kp >= 0) & (kp <= qpos[:, None]))[:, None, None, :]
+        libs.append((kd, vd, mask))
+    q4 = q[:, :, None, :].contiguous()
+
+    def lib():
+        for kd, vd, mask in libs:
+            torch.nn.functional.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask)
+
+    pairs = visible_pairs(qpos[:, None], kvpos, 0)
+    byt = (pairs * kvs * 2 * dh * pool.element_size()
+           + sp * nbytes(q, qpos, shards[0][1]) + nbytes(kvpos, buf))
+    bms, by = bound_ms(byt, 4 * pairs * Hq * dh, dtype)
+    # the combine reads the gathered buffer once and writes the output
+    cbms, cby = bound_ms(nbytes(buf, out), 0, dtype)
+    case = (f"{what}q_pos={list(q_pos)} cap={cap} P={P} over {sp} shards"
+            + heads_text(Hq, kvs, dh))
+    return [dict(kernel="paged_decode_partials", case=case,
+                 max_abs_err=max(e["acc_over_l"] for e in errs),
+                 partial_errors=errs, splits=splits,
+                 ms=time_ms_cold(group, 30), ms_warm_l2=time_ms(group, 30),
+                 plain_ms=time_ms(plain, 3), library_ms=time_ms_cold(lib, 20),
+                 timing="every shard's call; L2 evicted before each group",
+                 bound_ms=bms, bound_by=by),
+            dict(kernel="softmax_combine", case=case + f", {splits} splits "
+                 "a shard", max_abs_err=err,
+                 ms=time_ms(lambda: PA.softmax_combine(
+                     buf, B, kvs, splits, rep, dh, dtype), 50),
+                 plain_ms=time_ms(lambda: ref.softmax_combine_ref(
+                     buf, B, kvs, splits, rep, dh, dtype), 5),
+                 library_ms=None, bound_ms=cbms, bound_by=cby)]
+
+
+def case_chunk_sp(dtype, S=512, done=3584, cap=4096, sp=2, Hq=32, kvs=8,
+                  dh=128, P=64, what=""):
+    """A chunk of S tokens at position ``done`` on an sp group: each
+    shard holds its slice of the slot's pages; a later chunk runs the
+    partial entry a shard (shard 0 also over the chunk's own keys) and
+    the combine, held shard by shard against the plain walks and, merged,
+    against the plain one-shard chunk attention; a first chunk (``done
+    = 0``) runs the whole attention on every shard.  Each shard's pool
+    bytes equal the plain scatter's and the one-shard ``write_chunk``'s
+    slice.  Times: all shards' calls, SDPA over each shard's keys; bound:
+    the operations on this run's visible pairs."""
+    from repro_torch.kernels import chunk_prefill as CP
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.paged import pool as pp
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(47)
+    n, rep = cap // P, Hq // kvs
+    pool0 = torch.randn((n, kvs, 2, P, dh), generator=g, device=dev
+                        ).to(dtype)
+    kvpos = torch.full((1, cap), -1, dtype=torch.int32, device=dev)
+    kvpos[0, :done] = torch.arange(done, dtype=torch.int32, device=dev)
+    qpos = torch.arange(done, done + S, dtype=torch.int32, device=dev)[None]
+    q = torch.randn((1, S, Hq, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
+    first = done == 0
+    row_tol = CP.BF16_ROW_TOL if dtype == torch.bfloat16 else 0.0
+    shards = [_shard_cache(pool0, kvpos, n, sp, s, P) for s in range(sp)]
+    gpt = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    one = pp.PagedState(pool0.clone(), gpt, torch.zeros(
+        1, dtype=torch.int32, device=dev), kvpos.clone())
+    want = CP.plain(q, k, v, one.pool, gpt, kvpos, qpos,
+                    attend_prefix=not first)
+    geo = dict(rows=S, kvs=kvs, splits=1, rep=rep, dh=dh)
+    buf = torch.empty((sp, ref.partials_numel(**geo)), device=dev)
+    pools = [c[0].clone() for c in shards]
+
+    def group(pl):
+        outs = []
+        for s, (_, pt, kp) in enumerate(shards):
+            if first:
+                outs.append(CP.chunk_prefill_attention(
+                    q, k, v, pl[s], pt, kp, qpos, attend_prefix=False,
+                    shard=(s, sp)))
+            else:
+                CP.chunk_prefill_partials(q, k, v, pl[s], pt, kp, qpos,
+                                          buf[s], attend_self=s == 0,
+                                          shard=(s, sp))
+        return outs
+
+    outs = group(pools)
+    errs = []
+    for s, (p0, pt, kp) in enumerate(shards):
+        plain_pool = p0.clone()
+        if first:
+            errs.append({"out": max_err(f"first chunk shard {s}", outs[s],
+                                        want, dtype, row_tol=row_tol)})
+            CP.plain(q, k, v, plain_pool, pt, kp, qpos, attend_prefix=False,
+                     shard=(s, sp))
+        else:
+            errs.append(hold_partials(
+                f"chunk partials shard {s}", buf[s], geo,
+                ref.chunk_prefill_partials_ref(
+                    q, k, v, plain_pool, pt, kp, qpos, attend_self=s == 0,
+                    shard=(s, sp)), dtype, row_tol=row_tol))
+        assert torch.equal(pools[s], plain_pool), ("chunk pool", s)
+        assert torch.equal(pools[s], _shard_cache(one.pool, kvpos, n, sp, s,
+                                                  P)[0]), ("write_chunk", s)
+    rows = []
+    if not first:
+        out = PA.softmax_combine(buf, S, kvs, 1, rep, dh, dtype)
+        err = max_err("combined chunk", out.view(1, S, Hq, dh), want,
+                      dtype, row_tol=row_tol)
+        cbms, cby = bound_ms(nbytes(buf, out), 0, dtype)
+    libs, pairs, byt = [], 0, 0
+    for s, (p0, pt, kp) in enumerate(shards):
+        self_ = first or s == 0
+        kk = p0[:, :, 0].permute(0, 2, 1, 3).reshape(1, -1, kvs, dh)
+        vv = p0[:, :, 1].permute(0, 2, 1, 3).reshape(1, -1, kvs, dh)
+        kpos = kp
+        if first:
+            kk, vv, kpos = k, v, qpos
+        elif self_:
+            kk, vv = torch.cat([kk, k], 1), torch.cat([vv, v], 1)
+            kpos = torch.cat([kp, qpos], 1)
+        mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
+        libs.append((expand_kv(kk, rep), expand_kv(vv, rep), mask[:, None]))
+        pairs += visible_pairs(qpos, kpos, 0)
+        live = 0 if first else int((kp >= 0).sum())
+        byt += ((live + (S if self_ else 0)) * kvs * 2 * dh
+                * pool0.element_size())
+    qd = q.transpose(1, 2)
+
+    def lib():
+        for kd, vd, mask in libs:
+            torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask)
+
+    byt += sp * nbytes(q) + (nbytes(buf) if not first else sp * nbytes(q))
+    bms, by = bound_ms(byt, 4 * pairs * Hq * dh, dtype)
+    case = (f"{what}S={S} prefix={done} cap={cap} P={P} over {sp} shards"
+            + (", first chunk" if first else "") + heads_text(Hq, kvs, dh))
+    plain_pools = [c[0].clone() for c in shards]
+
+    def plain():
+        for s, (_, pt, kp) in enumerate(shards):
+            if first:
+                CP.plain(q, k, v, plain_pools[s], pt, kp, qpos,
+                         attend_prefix=False, shard=(s, sp))
+            else:
+                ref.chunk_prefill_partials_ref(
+                    q, k, v, plain_pools[s], pt, kp, qpos,
+                    attend_self=s == 0, shard=(s, sp))
+
+    rows.append(dict(
+        kernel="chunk_prefill" if first else "chunk_prefill_partials",
+        case=case, pool_equal=True, partial_errors=errs,
+        max_abs_err=max(max(v for k, v in e.items() if k != "live")
+                        for e in errs),
+        tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
+                               else ""),
+        ms=time_ms(lambda: group(pools), 20), plain_ms=time_ms(plain, 2),
+        library_ms=time_ms(lib, 20), timing="every shard's call",
+        bound_ms=bms, bound_by=by))
+    if not first:
+        rows.append(dict(
+            kernel="softmax_combine", case=case, max_abs_err=err,
+            tol=rows[0]["tol"],
+            ms=time_ms(lambda: PA.softmax_combine(buf, S, kvs, 1, rep, dh,
+                                                  dtype), 50),
+            plain_ms=time_ms(lambda: ref.softmax_combine_ref(
+                buf, S, kvs, 1, rep, dh, dtype), 5),
+            library_ms=None, bound_ms=cbms, bound_by=cby))
+    return rows
+
+
+#: slice 8's engines: (model, workers, plan width, layouts (sp, tp),
+#: slots, slot tokens): cluster-layout's merged engine on 2 workers (its
+#: launches are the kernels line's: its bf16 rows come first), then
+#: layout-serve's llama3-8b on 4.  Their padded FFN and flash shapes are
+#: those of pure-TP layouts of the same tp (slice 7's cases and the
+#: cluster cases hold them).
+SLICE8_ENGINES = (("llama3-8b", 2, 2, ((2, 1),), 4, 8192),
+                  ("llama3-8b", 4, 4, ((2, 2),), 4, 6144))
+#: and their KV migrations: (model, workers, layout from, layout to, slot
+#: tokens), a layout an (sp, tp) pair
+SLICE8_MOVES = (("llama3-8b", 4, (1, 1), (1, 4), 6144),   # TP1x4 -> TP4
+                ("llama3-8b", 4, (1, 4), (2, 2), 6144),
+                ("llama3-8b", 4, (2, 2), (1, 4), 6144),
+                ("llama3-8b", 2, (1, 2), (2, 1), 8192),
+                ("llama3-8b", 2, (2, 1), (1, 2), 8192))
+#: the prompt cluster-layout prefills in chunks at SP2xTP1 (its
+#: ``long2_len``), and the page size of its engines
+SP_CHUNKED_PROMPT, SP_PAGE_TOKENS = 4500, 64
+
+
+def slice8_cases():
+    """(model, case function, keywords): the partial entries and the
+    combine at the shard shapes slice 8's engines give them, each in the
+    engine's own slots: decode at the engine's rows, the chunks the
+    default prefill policy cuts ``SP_CHUNKED_PROMPT`` into (a first chunk
+    written over the shards, then the rest at their positions), a later
+    chunk of 512 over 3584 and one straddling the shards' boundary; then
+    their layout changes' KV migrations (pages moving between sp
+    shards)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    out = []
+    sizes = PrefillPolicy().chunk_sizes(SP_CHUNKED_PROMPT, SP_PAGE_TOKENS)
+    for name, W, S, layouts, slots, cap in SLICE8_ENGINES:
+        cfg = get_config(name)
+        plan = make_plan(cfg, S, mode="page")
+        for sp, tp in layouts:
+            kw = dict(cap=cap, sp=sp, Hq=plan.q_heads_padded // tp,
+                      kvs=plan.kv_slots // tp, dh=cfg.resolved_head_dim,
+                      what=f"SP{sp}xTP{tp} x{W // (sp * tp)} of {W}: ")
+            out.append((name, case_decode_sp, dict(
+                q_pos=(cap - 94, 420, 730, 1050)[:slots], **kw)))
+            for i in range(1, len(sizes)):
+                out.append((name, case_chunk_sp, dict(
+                    S=sizes[i], done=sum(sizes[:i]), **kw)))
+            straddling = dict(kw, what=kw["what"] + "straddling ")
+            out += [(name, case_chunk_sp, dict(S=512, done=3584, **kw)),
+                    (name, case_chunk_sp, dict(
+                        S=512, done=cap // sp - 256, **straddling)),
+                    (name, case_chunk_sp, dict(S=sizes[0], done=0, **kw))]
+    for name, W, la, lb, cap in SLICE8_MOVES:
+        cfg = get_config(name)
+        out.append((name, case_reshard, dict(
+            ta=la, tb=lb, W=W, cap=cap,
+            kvs=make_plan(cfg, W, mode="page").kv_slots,
+            dh=cfg.resolved_head_dim)))
+    return out
+
+
+#: the layout-parity engines: (start stages, live (stage, steps before
+#: it) pairs, page tokens, prefill token budget); a stage is (degree,
+#: (sp, tp) or None for pure TP)
+LAYOUT_PLANS = {
+    "tp4": ([(4, None)], [], 16, None),
+    "sp2tp2": ([(4, (2, 2))], [], 16, None),
+    "sp4tp1": ([(4, (4, 1))], [], 16, None),
+    "round_trip": ([(4, None)], [((4, (2, 2)), 4), ((4, (1, 4)), 3)], 16,
+                   None),
+    "tp2x2_cycle": ([(2, None)], [((4, (2, 2)), 4), ((2, None), 3)], 16,
+                    None),
+    # 8-token pages, a 24-token budget: the second chunk of the 40-token
+    # prompt straddles the shards' boundary at 32
+    "sp_chunks": ([(4, (2, 2))], [], 8, 24),
+}
+
+
+#: a decode row may pick another greedy token than the run it is held
+#: against only where that run's token lies within this of the row's top
+#: logit: a tie that fp32 sums in another order break either way.  Ten
+#: times the largest gap read at such a parting on the card (8.3e-7,
+#: PERF.md)
+TIE_GAP = 1e-5
+
+
+def _forced_run(eng, reqs, drive, want=None):
+    """Run ``drive()`` (which steps ``eng``), recording for every decode
+    token of ``reqs`` (``rid`` = index) the top-2 logit gap of the row
+    that chose it.  With ``want`` (the streams of the run held as the
+    reference, by rid), every decode row is held against it: where the
+    row's greedy token differs, the reference's token must lie within
+    ``TIE_GAP`` of the row's top logit, and the row takes it (teacher
+    forcing), so the whole stream goes on being compared on the
+    reference's tokens.  Returns ({rid: {token index: gap}}, partings
+    [rid, token index, the row's deficit])."""
+    from repro_torch.serving import State
+    orig = eng._decode
+    gaps = {r.rid: {} for r in reqs}
+    parts = []
+
+    def decode(tokens, positions):
+        logits = orig(tokens, positions)
+        for r in reqs:
+            if r.state != State.DECODE or eng.slots[r.slot] is not r:
+                continue
+            i = len(r.generated)
+            row = logits[r.slot].float()
+            top = row.topk(2).values
+            gaps[r.rid][i] = float(top[0] - top[1])
+            if want is None or i >= len(want[r.rid]):
+                continue
+            tok = want[r.rid][i]
+            if int(row.argmax()) != tok:
+                deficit = float(top[0] - row[tok])
+                assert deficit < TIE_GAP, (
+                    "a decode token parts from the reference's at no tie",
+                    r.rid, i, deficit)
+                parts.append([r.rid, i, deficit])
+                logits = logits.clone()
+                logits[r.slot, tok] = top[0] + 1.0
+        return logits
+
+    eng._decode = decode
+    try:
+        drive()
+    finally:
+        eng._decode = orig
+    return gaps, parts
+
+
+def phase_layout_parity(dev: str = "cuda"):
+    """Reduced llama3-8b, fp32, 4 workers: TP4 -> SP2xTP2 -> TP4 and
+    TP2x2 -> SP2xTP2 -> TP2x2 mid-decode, engines started at TP4,
+    SP2xTP2 and SP4xTP1, and a chunked prefill at SP2xTP2 whose chunk
+    straddles the shards' boundary: every CPU engine's streams equal the
+    CPU TP4 engine's, and the card's equal the same runs on CPU workers,
+    token by token (``_forced_run``: a row may pick another token only
+    at a tie under ``TIE_GAP``, and then goes on from the reference's
+    token; the line lists each parting); the layout cycle
+    with no decode between steps leaves every worker's cache equal to
+    ``split_cache`` at each layout.  The TP2x2 <-> SP2xTP2 sessions move
+    KV only (0 weight bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="float32")
+    t0 = time.monotonic()
+    model = M.build(cfg, make_plan(cfg, 4, mode="page"), seed=9,
+                    device="cpu")
+    gen = torch.Generator().manual_seed(53)
+    short = _prompts(gen, (16, 17, 18), cfg.vocab_size)
+    chunked = _prompts(gen, (40, 20), cfg.vocab_size)
+
+    def run(where, name, want=None):
+        start, live, page, budget = LAYOUT_PLANS[name]
+        policy = (None if budget is None else
+                  PrefillPolicy(token_budget=budget, mode="mixed"))
+        eng = Engine(cfg, params=copy.deepcopy(model).to(where),
+                     devices=[where] * 4, max_batch=4, max_seq=64,
+                     page_tokens=page, prefill_policy=policy)
+        prompts = chunked if name == "sp_chunks" else short
+        reqs = [ServeRequest(p, max_new_tokens=24, rid=k)
+                for k, p in enumerate(prompts)]
+
+        def goto(stage):
+            tp, lay = stage
+            eng.transform(tp, layout=None if lay is None else Layout(*lay))
+            while eng.transforming:
+                eng.step()
+                eng.check_capacity_invariant()
+
+        def drive():
+            for stage in start:
+                goto(stage)
+            for r in reqs:
+                eng.submit(r)
+            for stage, before in live:
+                for _ in range(before):
+                    eng.step()
+                goto(stage)
+            eng.run_until_done()
+
+        gaps, parts = _forced_run(eng, reqs, drive, want)
+        out = ([r.generated for r in reqs], str(eng.par_layout),
+               [(x["layout_from"], x["layout_to"], x["weight_bytes"])
+                for x in eng.transform_log], gaps, parts)
+        del eng
+        return out
+
+    # the CPU TP4 engine is the reference of the four engines on the same
+    # prompts; each card engine is held against its CPU twin
+    host = {n: run("cpu", n) for n in ("tp4", "sp_chunks")}
+    for n in ("sp2tp2", "sp4tp1", "round_trip", "tp2x2_cycle"):
+        host[n] = run("cpu", n, host["tp4"][0])
+    card = {n: run(dev, n, host[n][0]) for n in LAYOUT_PLANS}
+    partings = {}
+    for n in LAYOUT_PLANS:
+        assert card[n][1] == host[n][1], (n, card[n][1], host[n][1])
+        assert card[n][0] == host[n][0], (n, card[n][0], host[n][0])
+        partings[f"{n}: card vs cpu"] = [
+            p + [host[n][3][p[0]][p[1]]] for p in card[n][4]]
+        if n not in ("tp4", "sp_chunks"):
+            assert host[n][0] == host["tp4"][0], n
+            partings[f"{n} vs tp4 (cpu)"] = [
+                p + [host["tp4"][3][p[0]][p[1]]] for p in host[n][4]]
+    assert [x[:2] for x in card["round_trip"][2][1:]] == [
+        ("TP4", "SP2xTP2"), ("SP2xTP2", "TP4")], card["round_trip"][2]
+    kv_only = card["tp2x2_cycle"][2][1:]
+    assert [x[2] for x in kv_only] == [0, 0], kv_only
+    eng = Engine(cfg, params=copy.deepcopy(model).to(dev),
+                 devices=[dev] * 4, max_batch=4, max_seq=64, page_tokens=16)
+    for p in short + chunked[1:]:
+        eng.submit(ServeRequest(p, max_new_tokens=24))
+    for _ in range(6):
+        eng.step()
+    compared = 0
+    for tp, lay in ((4, None), (4, (2, 2)), (2, None), (4, (2, 2)),
+                    (4, (4, 1)), (4, None), (1, None)):
+        before = eng.global_caches()
+        eng.transform(tp, layout=None if lay is None else Layout(*lay))
+        while not eng._session.done:
+            eng._session.step()
+        eng._finish_transform()
+        compared += _landed_equal(eng, before, eng.par_layout)
+    del eng
+    if dev == "cuda":
+        free_card()
+    emit(phase="layout-parity", model=cfg.name, dtype=cfg.dtype, workers=4,
+         engines={n: {"layout": card[n][1], "sessions": card[n][2]}
+                  for n in LAYOUT_PLANS},
+         streams_equal_cpu_workers_and_tp4_engine=True,
+         partings_request_token_deficit_reference_gap=partings,
+         tie_gap=TIE_GAP,
+         largest_deficit=max((p[2] for v in partings.values() for p in v),
+                             default=0.0), landed_bytes_compared=compared,
+         seconds=time.monotonic() - t0)
+
+
+def sp_launch_counts() -> dict:
+    """Launches of slice 8's entries: the decode and chunk kernels'
+    partial entries and the combine."""
+    from repro_torch.kernels import chunk_prefill as CP
+    from repro_torch.kernels import paged_attention as PA
+    return {"paged_decode_partials": PA.partial_launches,
+            "chunk_prefill_partials": CP.partial_launches,
+            "softmax_combine": PA.combine_launches}
+
+
+def layout_sessions(eng, W: int = 0) -> list:
+    """``ladder_sessions``, with each session on one assembly of ``W``
+    workers (default the engine's) bound from its layouts instead
+    (``kv_transform.layout_migration_stats``: the bytes of every box
+    intersection that leaves its worker, read once and written once), and
+    its KV bytes also as multiples of the pools' bytes."""
+    from repro_torch.core import kv_transform as KT
+    out = ladder_sessions(eng)
+    W = W or eng.W
+    pool = eng.layers[0].cache[0].pool
+    eb, P, dh = pool.element_size(), eng.page_tokens, pool.shape[-1]
+    kvs, layers = eng.plan.kv_slots, len(eng.layers)
+    for s in out:
+        if not s["cross"]:
+            mps = s["kv_pool_bytes"] // (layers * eng.max_batch * kvs * 2
+                                         * P * dh * eb)
+            st = KT.layout_migration_stats(
+                W, _layout_of(s["from"]), W, _layout_of(s["to"]),
+                eng.max_batch, mps, kvs, P, dh, dtype_bytes=eb)
+            bound = 2 * st.bytes_moved * layers
+            s.update(kv_bytes_bound=bound, kv_bound_ms=bound / HBM_BPS * 1e3)
+        s.update(kv_bytes_over_pools=s["kv_bytes"] / s["kv_pool_bytes"],
+                 bound_over_pools=s["kv_bytes_bound"] / s["kv_pool_bytes"])
+    return out
+
+
+def _layout_of(text: str):
+    """``Layout`` from its string ("TP4", "SP2xTP2")."""
+    from repro_torch.launch.mesh import Layout
+    if text.startswith("SP"):
+        sp, tp = text[2:].split("xTP")
+        return Layout(int(sp), int(tp))
+    return Layout(1, int(text[2:]))
+
+
+def phase_layout_serve(smi: str, dev: str = "cuda", cfg=None,
+                       quantum: int = 1536, lens=(300, 600, 900),
+                       new: int = 160, long_len: int = 6000,
+                       long_new: int = 96, page_tokens: int = 64,
+                       dwell: int = 12):
+    """llama3-8b at full width and depth, bf16, 4 workers of the card,
+    brought to TP4 with no request in flight; three prompts and the
+    6000-token request, then, with the long request decoding, TP4 ->
+    SP2xTP2 -> TP4 mid-decode (``dwell`` decode steps at each layout).
+    Returns the launches on this path (the six kernels and slice 8's
+    entries)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or get_config("llama3-8b")
+    t0 = time.monotonic()
+    eng = Engine(cfg, devices=[dev] * 4, seed=0, max_batch=4,
+                 max_seq=4 * quantum, page_tokens=page_tokens)
+    eng.transform(4)
+    while eng.transforming:
+        eng.step()
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(59)
+    warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reset_launch_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    step = _stepper(eng, steps, dev)
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    long_ = ServeRequest(_prompts(gen, (long_len,), cfg.vocab_size)[0],
+                         max_new_tokens=long_new)
+    assert eng.max_seq_at(2) < long_.total_tokens <= eng.max_seq_at(4)
+    t_run = time.monotonic()
+    for r in reqs + [long_]:
+        eng.submit(r)
+    while any(not r.generated for r in reqs + [long_]):
+        step()
+    for _ in range(dwell):
+        step()
+    mem = {"TP4": mem_gb(dev)}
+    reports = len(eng.transform_log)
+    for lay in (Layout(2, 2), Layout(1, 4)):
+        assert not long_.done and all(not r.done for r in reqs)
+        eng.transform(4, layout=lay)
+        while eng.transforming:
+            step()
+        assert eng.par_layout == lay
+        mem[str(lay)] = mem_gb(dev)
+        for _ in range(dwell):
+            step()
+    while any(not r.done for r in reqs + [long_]):
+        step()
+    wall = time.monotonic() - t_run
+    launches = {**launch_counts(), **sp_launch_counts()}
+    for r in reqs + [long_]:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    if dev == "cuda":
+        assert all(launches[k] > 0 for k in (
+            "paged_decode_partials", "softmax_combine", "paged_attention",
+            "padded_ffn", "copy_page_slices", "gather_page_slices")), launches
+    sessions = layout_sessions(eng)[reports:]
+    stalls = _stalls(steps)
+    assert stalls == 0, stalls
+    by = step_summary([s[:4] for s in steps])
+    emit(phase="layout-serve", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=4, quantum=quantum, prompts=list(lens),
+         long_prompt=long_len, weights_init_s=t_init, wall_s=wall,
+         sessions=sessions, stall_steps=stalls, steps_by_layout=by,
+         tpot_s_by_layout={w: v["decode_only_step_ms_mean"]
+                           for w, v in by.items() if "->" not in w},
+         long_ttft_s=long_.ttft, long_tpot_s=long_.tpot,
+         ttft_s=[r.ttft for r in reqs], tpot_s=[r.tpot for r in reqs],
+         mem_gb=mem, launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del eng
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def phase_cluster_layout(smi: str, dev: str = "cuda", cfg=None,
+                         max_seq: int = 4096, lens=(300, 1200, 2500),
+                         long_len: int = 6000, new: int = 96,
+                         long_new: int = 48,
+                         page_tokens: int = SP_PAGE_TOKENS,
+                         long2_len: int = SP_CHUNKED_PROMPT,
+                         long2_new: int = 16):
+    """cluster-serve's configuration and trace (full-size llama3-8b,
+    bf16, 2 instances x 1 worker) under ``SchedulerConfig(layouts=True)``:
+    the merged TP2 engine holding the 6000-token request takes a
+    ``ScaleUp(layout=SP2xTP1)``; a second long request (``long2_len``
+    tokens) arrives once it is there and prefills in chunks at SP2xTP1
+    (the chunk kernel's partial entry); once the long work is done the
+    engine leaves the sp layout (to pure TP, or straight into the split)
+    and the split returns the loan.  Returns the launches on this
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import (GygesScheduler, ScaleUp,
+                                            SchedulerConfig)
+    from repro_torch.serving import ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+
+    cfg = cfg or get_config("llama3-8b")
+    t0 = time.monotonic()
+    sched = GygesScheduler(SchedulerConfig(
+        long_threshold=max_seq, target_tp=1, page_tokens=page_tokens,
+        layouts=True))
+    cl = ClusterEngine(cfg, [dev] * 2, n_instances=2, max_batch=4,
+                       max_seq=max_seq, page_tokens=page_tokens, seed=0,
+                       scheduler=sched)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(61)
+    for e in cl.engines:
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        e.submit(warm)
+        e.run_until_done()
+    reset_launch_counts()
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    long_ = ServeRequest(_prompts(gen, (long_len,), cfg.vocab_size)[0],
+                         max_new_tokens=long_new)
+    long2 = ServeRequest(_prompts(gen, (long2_len,), cfg.vocab_size)[0],
+                         max_new_tokens=long2_new)
+    mem, steps = {}, []
+
+    def where():
+        e = cl._engine(cl.merge_log[0]["iid"]) if cl.merge_log else None
+        if e is None:
+            return "TP1 x2 instances"
+        if e.transforming:
+            return f"{e.par_layout}->{e._session.target_layout}"
+        return str(e.par_layout) if e.tp > 1 else "TP1 after split"
+
+    def step():
+        w = where()
+        live = reqs + [long_, long2]
+        before = {id(r): len(r.generated) for r in live}
+        sync(dev)
+        t = time.monotonic()
+        cl.step()
+        sync(dev)
+        dec = sum(len(r.generated) - before[id(r)] for r in live
+                  if before[id(r)] > 0)
+        steps.append((w, time.monotonic() - t, dec, False))
+        if cl.merge_log and w not in mem:
+            mem[w] = mem_gb(dev)
+
+    t_run = time.monotonic()
+    for r in reqs:
+        cl.submit(r)
+    while any(not r.generated for r in reqs):
+        step()
+    for _ in range(4):
+        step()
+    mem["before_merge"] = mem_gb(dev)
+    cl.submit(long_)
+    assert cl.merge_log and cl.merge_log[0]["donors"], cl.actions
+    target = cl._engine(cl.merge_log[0]["iid"])
+    sp_seen = False
+    for _ in range(20000):
+        if long2.done and cl.idle and not any(e.parked
+                                              for e in cl.engines):
+            break
+        step()
+        at_sp = (str(target.par_layout) == "SP2xTP1"
+                 and not target.transforming)
+        if at_sp and not sp_seen:
+            cl.submit(long2)      # prefills in chunks at SP2xTP1
+            assert cl.placements[long2.rid] == target.iid
+            mem["at SP2xTP1"] = mem_gb(dev)
+        sp_seen |= at_sp
+    else:
+        raise RuntimeError("cluster-layout did not drain and split")
+    wall = time.monotonic() - t_run
+    launches = {**launch_counts(), **sp_launch_counts()}
+    acts = [a + [str(getattr(x, "layout", None))]
+            for a, x in zip(cluster_actions(cl), cl.actions)]
+    assert acts[0][0] == "ScaleUp" and acts[0][3], acts
+    lay_acts = [a for a in cl.actions if isinstance(a, ScaleUp)
+                and str(getattr(a, "layout", None)) == "SP2xTP1"]
+    assert lay_acts and sp_seen, acts
+    assert acts[-1][0] == "ScaleDown", acts
+    assert cl.stall_steps == 0, cl.stall_steps
+    assert not cl.partition._loans
+    cl.partition.check_invariants()
+    assert all(e.tp == 1 and not e.parked for e in cl.engines)
+    for r in reqs + [long_, long2]:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    if dev == "cuda":
+        assert all(launches[k] > 0 for k in launches), launches
+    by = step_summary(steps)
+    emit(phase="cluster-layout", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, instances=2, workers_each=1, prompts=list(lens),
+         long_prompt=long_len, actions=acts, weights_init_s=t_init,
+         wall_s=wall, sessions=layout_sessions(target, W=2),
+         stall_steps=cl.stall_steps, session_steps=cl.session_steps,
+         tokens_during_session=cl.tokens_during_session,
+         steps_by_layout=by,
+         tpot_s_by_layout={w: v["decode_only_step_ms_mean"]
+                           for w, v in by.items() if "->" not in w},
+         long_ttft_s=long_.ttft, long_tpot_s=long_.tpot,
+         long2_prompt=long2_len, long2_ttft_s=long2.ttft,
+         long2_tpot_s=long2.tpot,
+         ttft_s=[r.ttft for r in reqs], tpot_s=[r.tpot for r in reqs],
+         memory_allocated_gb=mem, launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del cl, target
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Shape census: every kernel shape the phases launch was held against its
 # plain version
 # ---------------------------------------------------------------------------
@@ -2592,10 +3406,30 @@ def _decode_key(q, pool, page_table, kv_positions, q_positions, window=0):
 
 
 def _chunk_key(q, k_new, v_new, pool, page_table, kv_positions,
-               q_positions, *, window=0, attend_prefix=True):
+               q_positions, *, window=0, attend_prefix=True, shard=(0, 1)):
     return (("Hq", q.shape[2]), ("kvs", pool.shape[1]), ("dh", q.shape[3]),
             ("P", pool.shape[3]), ("windowed", window > 0),
-            ("attend_prefix", attend_prefix))
+            ("attend_prefix", attend_prefix), ("sp", shard[1]))
+
+
+def _decode_partials_key(q, pool, page_table, kv_positions, q_positions,
+                         out, window=0, shard=(0, 1)):
+    return _decode_key(q, pool, page_table, kv_positions, q_positions,
+                       window) + (("sp", shard[1]),)
+
+
+def _chunk_partials_key(q, k_new, v_new, pool, page_table, kv_positions,
+                        q_positions, out, *, window=0, attend_prefix=True,
+                        attend_self=True, shard=(0, 1)):
+    return _chunk_key(q, k_new, v_new, pool, page_table, kv_positions,
+                      q_positions, window=window, attend_prefix=attend_prefix,
+                      shard=shard) + (("attend_self", attend_self),
+                                      ("pages a shard", page_table.shape[1]))
+
+
+def _combine_key(parts, rows, kvs, splits, rep, dh, dtype):
+    return (("kvs", kvs), ("rep", rep), ("dh", dh),
+            ("out", str(dtype).replace("torch.", "")))
 
 
 def _flash_key(q, k, v, causal=True, window=0):
@@ -2636,13 +3470,19 @@ CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
           ("gather_page_slices", "page_migrate", "gather_page_slices",
            _gather_key),
           ("copy_page_slices", "page_migrate", "copy_page_slices",
-           _copy_key))
+           _copy_key),
+          ("paged_decode_partials", "paged_attention",
+           "paged_decode_partials", _decode_partials_key),
+          ("chunk_prefill_partials", "chunk_prefill",
+           "chunk_prefill_partials", _chunk_partials_key),
+          ("softmax_combine", "paged_attention", "softmax_combine",
+           _combine_key))
 
 #: phases that hold the card's engines against CPU engines (the plain
 #: versions) on the same weights and prompts: the shapes they launch are
 #: checked there, the rest only by the kernels phase
 PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
-                 "spill-parity", "ladder-parity")
+                 "spill-parity", "ladder-parity", "layout-parity")
 
 
 class ShapeCensus:
@@ -2686,6 +3526,7 @@ class ShapeCensus:
                 bad.append(row)
         emit(phase="shape-census", shapes=len(rows), unchecked=bad,
              rows=rows)
+        emit(phase="shape-census-unchecked", unchecked=bad)
         assert not bad, f"{len(bad)} kernel shapes launched unchecked"
 
 
@@ -2709,6 +3550,7 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels import paged_attention as PA
     PA.launches = CP.launches = FA.launches = PF.launches = 0
     PM.copy_launches = PM.gather_launches = 0
+    PA.partial_launches = CP.partial_launches = PA.combine_launches = 0
 
 
 def session_summary(log: dict, reports, W: int) -> dict:
@@ -2998,10 +3840,24 @@ KERNEL_META = {
                          "src/repro/kernels/page_migrate.py:61"),
     "gather_page_slices": ("src/repro_torch/kernels/csrc/page_migrate.cu",
                            "src/repro/kernels/page_migrate.py:107"),
+    # slice 8: kernels 1 and 2 as softmax partials, and their combine
+    "paged_decode_partials": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:90"),
+    "chunk_prefill_partials": (
+        "src/repro_torch/kernels/csrc/chunk_prefill.cu",
+        "src/repro/kernels/chunk_prefill.py:168"),
+    "softmax_combine": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:90"),
 }
+#: slice 8's entries: their launches are counted on cluster-layout's path
+SP_KERNELS = ("paged_decode_partials", "chunk_prefill_partials",
+              "softmax_combine")
 
 
 def main():
+    if os.path.exists(LOG_PATH):
+        os.remove(LOG_PATH)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -3051,26 +3907,35 @@ def main():
     ladder = run("ladder-serve", phase_ladder_serve, smi)
     replicated = run("replicated-serve", phase_replicated_serve, smi)
     partial = run("cluster-partial", phase_cluster_partial, smi)
+    # slice 8: sequence-parallel layouts
+    run("layout-parity", phase_layout_parity)
+    layout = run("layout-serve", phase_layout_serve, smi)
+    clayout = run("cluster-layout", phase_cluster_layout, smi)
+    assert all(clayout[k] > 0 for k in SP_KERNELS), clayout
     census.report()
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
-        r = main_cases[name]
+        sp = name in SP_KERNELS
+        r = main_cases[name + "@sp" if sp else name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": cluster[name],
+            "replaces": replaces,
+            "launches": clayout[name] if sp else cluster[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "case": r["case"], "dtype": r["dtype"],
             "launches_by_path": {
-                "serve / transform-serve": launches[name],
-                "cluster-serve": cluster[name],
+                "serve / transform-serve": launches.get(name, 0),
+                "cluster-serve": cluster.get(name, 0),
                 "serve-shapes": {m: c.get(name, 0)
                                  for m, c in shapes.items()},
-                "cluster-spill": spill[name],
-                "ladder-serve": ladder[name],
-                "replicated-serve": replicated[name],
-                "cluster-partial": partial[name]}})
+                "cluster-spill": spill.get(name, 0),
+                "ladder-serve": ladder.get(name, 0),
+                "replicated-serve": replicated.get(name, 0),
+                "cluster-partial": partial.get(name, 0),
+                "layout-serve": layout[name],
+                "cluster-layout": clayout[name]}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

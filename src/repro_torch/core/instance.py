@@ -3,35 +3,46 @@
 The counterpart of ``repro.core.instance``'s PartitionSpec trees
 (``:57-133``), as explicit functions that split one layer's weights and
 paged cache into per-worker tensors for a layout and join them back.  A
-layout of a W-worker assembly is its TP degree ``t`` (any divisor of W
-that divides the padding plan's ``max_tp``; sequence parallelism is
-ROADMAP queue 1 item 6): ``(rep = W/t) x (tp = t)``, ordered as the
-reference's ``make_instance_mesh`` reshape orders its devices, so worker
-w is in TP group ``g = w // t`` at position ``p = w % t``.  One rule
-holds for every ``(rep, tp)``, as the reference's one PartitionSpec tree
-does:
+layout of a W-worker assembly is a ``launch.mesh.Layout(sp, tp)`` whose
+degree ``sp * tp`` divides W (``Layout(1, t)`` is pure TP; ``tp``
+divides the padding plan's ``max_tp``): ``(rep = W/degree) x
+sp x tp``, ordered as the reference's ``make_instance_mesh`` reshape
+orders its devices, so worker w is in replica ``r = w // degree``, sp
+shard ``s = (w // tp) % sp`` and at tp position ``p = w % tp``
+(``launch.mesh.place``).  One rule holds for every layout, as the
+reference's one PartitionSpec tree does (pages over ``(rep, sp)``, kv
+heads over ``tp``):
 
-* group g owns slots ``[g*B/rep, (g+1)*B/rep)`` and their pages under
-  group-local page ids (the pool's pages over ``rep``);
-* position p holds kv slots ``[p*kvs/t, (p+1)*kvs/t)`` of every page of
-  its group, the q heads ``[p*Hq/t, (p+1)*Hq/t)`` and the ``wo`` rows of
-  those heads, the ``wk``/``wv`` columns of the kv heads its kv slots
-  copy (``kv_heads_of``: with replicated kv heads, a whole head that
-  several positions hold a copy of, never a blind column slice), and
-  MLP shards ``[p*S/t, (p+1)*S/t)`` of the ``S`` Eq. 2 shards;
-* page tables, ``seq_lens`` and ``positions`` rows of the group's slots
-  are on every worker of the group; embedding, head and norms are
-  replicated.
+* replica r owns slots ``[r*B/rep, (r+1)*B/rep)``; its rows, page tables,
+  ``seq_lens`` and ``positions`` are on every worker of the replica;
+* sp shard s holds pages ``[s*ns, (s+1)*ns)`` of every slot of its
+  replica (``ns = mps / sp`` of a slot's ``mps`` pages) under local page
+  ids ``slot_local * ns + j`` (an identity page table of ``ns`` columns),
+  and its ``positions`` row of a slot holds the GLOBAL positions stored in
+  those pages, so the kernels' position masks work unchanged;
+* position p holds kv slots ``[p*kvs/tp, (p+1)*kvs/tp)`` of those pages,
+  the q heads ``[p*Hq/tp, (p+1)*Hq/tp)`` and the ``wo`` rows of those
+  heads, the ``wk``/``wv`` columns of the kv heads its kv slots copy
+  (``kv_heads_of``: with replicated kv heads, a whole head that several
+  positions hold a copy of, never a blind column slice), and MLP shards
+  ``[p*S/tp, (p+1)*S/tp)`` of the ``S`` Eq. 2 shards: the weights of tp
+  position p, copied across the sp shards (SP2xTP2 holds TP2x2's
+  weights);
+* embedding, head and norms are replicated.
 
-TP1 x W is ``t = 1`` (every worker a replica and its own slots), TPW is
-``t = W``.  A layer's attention (weights and cache) and its MLP each sit
-at one degree (``WorkerLayer``); mid-transform the two may differ.
+TP1 x W is ``Layout(1, 1)`` (every worker a replica and its own slots),
+TPW is ``Layout(1, W)``, SP2xTP2 on 4 workers one replica whose pages
+split in halves and whose kv heads split in halves.  A layer's attention
+(weights and cache) and its MLP each sit at one layout
+(``WorkerLayer``); mid-transform the two may differ.  The MLP runs at its
+layout's tp over the replica's rows on every sp shard, as the
+reference's specs give it.
 
 Every layer also names the assembly of workers its tensors live on
 (``WorkerLayer.mesh``).  A cross-instance merge moves a layer from TP1
-over the target's own workers to a degree over those plus the adopted
+over the target's own workers to a layout over those plus the adopted
 ones (and a split moves it back): the re-sharding functions below take a
-source assembly and degree and a destination assembly and degree.  An
+source assembly and layout and a destination assembly and layout.  An
 adopted worker holds nothing of the layer, so it receives its shard
 copied from a worker that holds the source, as the reference's
 ``device_put`` onto the widened mesh does.
@@ -53,6 +64,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.padding import PaddingPlan
+from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import pool as pp
 
 Params = Dict[str, torch.Tensor]
@@ -61,14 +73,15 @@ Params = Dict[str, torch.Tensor]
 @dataclass
 class WorkerLayer:
     """One decoder layer spread over the workers of ``mesh`` (the
-    assembly its tensors live on).  ``attn_layout`` is the TP degree of
+    assembly its tensors live on).  ``attn_layout`` is the ``Layout`` of
     the attention weights AND the layer's paged cache (they move
     together, in the ``kv`` op of a transform); ``mlp_layout`` that of
-    the MLP weights (the ``mlp`` op).  Every list has one entry a worker
-    of ``mesh``."""
+    the MLP weights (the ``mlp`` op); an int TP degree given here is
+    turned into its ``Layout``.  Every list has one entry a worker of
+    ``mesh``."""
     kind: str
-    attn_layout: int
-    mlp_layout: int
+    attn_layout: Layout
+    mlp_layout: Layout
     ln1: List[torch.Tensor]
     ln2: List[torch.Tensor]
     attn: List[Params]
@@ -76,13 +89,24 @@ class WorkerLayer:
     cache: List[pp.PagedState]
     mesh: Any
 
+    def __post_init__(self):
+        self.attn_layout = Layout.of(self.attn_layout)
+        self.mlp_layout = Layout.of(self.mlp_layout)
 
-def rows_of(t: int, batch: int, W: int, w: int) -> Tuple[int, int]:
+
+def rows_of(layout: Layout, batch: int, W: int, w: int) -> Tuple[int, int]:
     """The slot range [lo, hi) worker w of a W-worker assembly holds at
-    TP degree ``t``: its group's."""
-    per = batch // (W // t)
-    g = w // t
-    return g * per, (g + 1) * per
+    ``layout``: its replica's."""
+    d = layout.degree
+    per = batch // (W // d)
+    r = w // d
+    return r * per, (r + 1) * per
+
+
+def shard_of(layout: Layout, w: int) -> Tuple[int, int]:
+    """``(s, sp)``: worker w's sp shard at ``layout`` and the shard
+    count.  Shard s holds pages ``[s*ns, (s+1)*ns)`` of each slot."""
+    return place(layout, w)[1], layout.sp
 
 
 def mlp_shards(t: int, S: int, d_ff: int) -> Tuple[int, int]:
@@ -93,9 +117,11 @@ def mlp_shards(t: int, S: int, d_ff: int) -> Tuple[int, int]:
     return S // t, d_ff // t
 
 
-def check_degree(plan: PaddingPlan, t: int) -> None:
-    """Raise unless every TP-t shard holds whole q heads and kv slots,
-    and its kv slots copy whole kv heads or lie inside one."""
+def check_degree(plan: PaddingPlan, layout) -> None:
+    """Raise unless every tp shard of ``layout`` (a ``Layout`` or a TP
+    degree) holds whole q heads and kv slots, and its kv slots copy whole
+    kv heads or lie inside one."""
+    t = Layout.of(layout).tp
     if plan.max_tp % t or plan.kv_slots % t or plan.q_heads_padded % t:
         raise ValueError(f"TP{t} does not divide the padding plan "
                          f"(max_tp {plan.max_tp}, kv slots "
@@ -164,14 +190,17 @@ def replicas_across(xs: List, src, dst) -> List:
     return out
 
 
-def reshard(ps: List[Params], src, ta: int, dst, tb: int,
+def reshard(ps: List[Params], src, la: Layout, dst, lb: Layout,
             fn: Callable) -> List[Params]:
-    """One layer's weights (one dict a worker of ``src``, at degree
-    ``ta``) at degree ``tb`` on the workers of ``dst``.  ``fn(group, ta,
-    tb, p, device)`` builds position p's shard from one source TP group
-    (``reshard_attn`` or ``reshard_mlp``).  A worker of ``src`` draws on
-    its own group and keeps its tensors when its shard does not change;
-    an adopted worker draws on a group of ``src``."""
+    """One layer's weights (one dict a worker of ``src``, at layout
+    ``la``) at layout ``lb`` on the workers of ``dst``.  Only the tp
+    factors matter: every sp shard holds its tp position's weights.
+    ``fn(group, ta, tb, p, device)`` builds position p's shard from one
+    source TP group (``reshard_attn`` or ``reshard_mlp``).  A worker of
+    ``src`` draws on its own TP group and keeps its tensors when its
+    shard does not change; an adopted worker draws on a group of
+    ``src``."""
+    ta, tb = la.tp, lb.tp
     out = []
     for w, wk in enumerate(dst.workers):
         p = w % tb
@@ -259,28 +288,36 @@ def shard_mlp(p: Params, t: int, pos: int, S: int, device=None) -> Params:
     return reshard_mlp([p], 1, t, pos, S, dev)
 
 
-def move_mlp(layer: WorkerLayer, dst, tb: int, S: int) -> None:
-    """The layer's MLP at degree ``tb`` on the workers of ``dst`` (its
+def move_mlp(layer: WorkerLayer, dst, lb: Layout, S: int) -> None:
+    """The layer's MLP at layout ``lb`` on the workers of ``dst`` (its
     ``mesh`` still names the source assembly)."""
     layer.mlp = reshard(
-        layer.mlp, layer.mesh, layer.mlp_layout, dst, tb,
+        layer.mlp, layer.mesh, layer.mlp_layout, dst, lb,
         lambda g, ta, b, p, dev: reshard_mlp(g, ta, b, p, S, dev))
-    layer.mlp_layout = tb
+    layer.mlp_layout = lb
 
 
-def move_attn(layer: WorkerLayer, dst, tb: int, plan: PaddingPlan) -> int:
+def pages_per_slot(layer: WorkerLayer) -> int:
+    """A slot's pages in all (``mps``): the shard's page-table columns
+    times the layout's sp."""
+    return layer.cache[0].page_table.shape[1] * layer.attn_layout.sp
+
+
+def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
+              ) -> int:
     """The layer's paged cache (``kv_transform.migrate_sharded``) and
-    attention weights at degree ``tb`` on the workers of ``dst``; returns
+    attention weights at layout ``lb`` on the workers of ``dst``; returns
     the bytes the migration's kernels and exchange moved."""
     from repro_torch.core.kv_transform import migrate_sharded
-    src, ta = layer.mesh, layer.attn_layout
-    new, moved = migrate_sharded([c.pool for c in layer.cache], src, ta,
-                                 dst, tb)
-    layer.cache = cache_to(layer.cache, new, src, ta, dst, tb)
+    src, la = layer.mesh, layer.attn_layout
+    mps = pages_per_slot(layer)
+    new, moved = migrate_sharded([c.pool for c in layer.cache], src, la,
+                                 dst, lb, mps)
+    layer.cache = cache_to(layer.cache, new, src, la, dst, lb)
     layer.attn = reshard(
-        layer.attn, src, ta, dst, tb,
+        layer.attn, src, la, dst, lb,
         lambda g, a, b, p, dev: reshard_attn(g, a, b, p, plan, dev))
-    layer.attn_layout = tb
+    layer.attn_layout = lb
     return moved
 
 
@@ -309,7 +346,8 @@ def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
         cols = {k: per_worker(v) for k, v in p.items()}
         return [{k: v[w] for k, v in cols.items()} for w in range(len(devs))]
 
-    layers = [WorkerLayer(kind, 1, 1, per_worker(ln1), per_worker(ln2),
+    tp1 = Layout(1, 1)
+    layers = [WorkerLayer(kind, tp1, tp1, per_worker(ln1), per_worker(ln2),
                           dicts(attn), dicts(mlp),
                           init_worker_caches(kvs, page_tokens, dh, batch,
                                              mps, static["embed"].dtype,
@@ -326,40 +364,57 @@ def identity_page_table(batch: int, mps: int, device) -> torch.Tensor:
             + torch.arange(mps, device=device)[None, :]).to(torch.int32)
 
 
-def join_cache(states: List[pp.PagedState], t: int) -> pp.PagedState:
-    """The global view of one layer's cache at degree ``t`` (on worker
-    0's device): pool (NP, kvs, 2, P, dh) under global page ids, with
-    the global page table, ``seq_lens`` and ``positions`` — what the
-    reference's sharded arrays hold."""
+def join_cache(states: List[pp.PagedState], layout) -> pp.PagedState:
+    """The global view of one layer's cache at ``layout`` (a ``Layout``
+    or a TP degree; on worker 0's device): pool (NP, kvs, 2, P, dh) under
+    global page ids, with the global page table, ``seq_lens`` and
+    ``positions``: what the reference's sharded arrays hold."""
+    lay = Layout.of(layout)
     dev = states[0].pool.device
-    lead = states[::t]
-    pool = torch.cat([torch.cat([s.pool.to(dev) for s in states[g:g + t]],
-                                dim=1) for g in range(0, len(states), t)])
-    B = sum(s.page_table.shape[0] for s in lead)
-    mps = states[0].page_table.shape[1]
-    return pp.PagedState(
-        pool, identity_page_table(B, mps, dev),
-        torch.cat([s.seq_lens.to(dev) for s in lead]),
-        torch.cat([s.positions.to(dev) for s in lead]))
+    d, t = lay.degree, lay.tp
+    pools, seqs, poss = [], [], []
+    for r in range(0, len(states), d):
+        shards = [torch.cat([x.pool.to(dev) for x in states[r + s * t:
+                                                               r + s * t + t]],
+                            dim=1) for s in range(lay.sp)]
+        per, ns = states[r].page_table.shape
+        pools.append(torch.cat([x.view(per, ns, *x.shape[1:])
+                                for x in shards], dim=1))
+        seqs.append(states[r].seq_lens.to(dev))
+        poss.append(torch.cat([states[r + s * t].positions.to(dev)
+                               for s in range(lay.sp)], dim=1))
+    pool = torch.cat(pools)
+    B, mps = pool.shape[:2]
+    return pp.PagedState(pool.reshape(B * mps, *pool.shape[2:]),
+                         identity_page_table(B, mps, dev), torch.cat(seqs),
+                         torch.cat(poss))
 
 
-def split_cache(state: pp.PagedState, t: int, devices: Sequence
+def split_cache(state: pp.PagedState, layout, devices: Sequence
                 ) -> List[pp.PagedState]:
-    """A global cache (``join_cache``'s view) laid out at degree ``t`` on
-    ``devices``, each worker's part a compact copy: the cache an engine
-    at that degree holds for the same bytes."""
+    """A global cache (``join_cache``'s view) laid out at ``layout`` (a
+    ``Layout`` or a TP degree) on ``devices``, each worker's part a
+    compact copy: the cache an engine at that layout holds for the same
+    bytes."""
+    lay = Layout.of(layout)
     W = len(devices)
     B, mps = state.page_table.shape
     kvs = state.pool.shape[1]
+    assert mps % lay.sp == 0, (
+        f"{lay}: {mps} pages a slot do not split over {lay.sp} shards")
+    ns, n, P = mps // lay.sp, kvs // lay.tp, state.pool.shape[3]
+    pool = state.pool.view(B, mps, *state.pool.shape[1:])
     out = []
     for w, dev in enumerate(devices):
-        lo, hi = rows_of(t, B, W, w)
-        p, n = w % t, kvs // t
+        lo, hi = rows_of(lay, B, W, w)
+        _, s, p = place(lay, w)
+        part = pool[lo:hi, s * ns:(s + 1) * ns, p * n:(p + 1) * n]
         out.append(pp.PagedState(
-            _compact(state.pool[lo * mps:hi * mps, p * n:(p + 1) * n], dev),
-            identity_page_table(hi - lo, mps, dev),
+            _compact(part, dev).view((hi - lo) * ns, *part.shape[2:]),
+            identity_page_table(hi - lo, ns, dev),
             _compact(state.seq_lens[lo:hi], dev),
-            _compact(state.positions[lo:hi], dev)))
+            _compact(state.positions[lo:hi, s * ns * P:(s + 1) * ns * P],
+                     dev)))
     return out
 
 
@@ -374,25 +429,31 @@ def init_worker_caches(kvs: int, page_tokens: int, dh: int, batch: int,
 
 
 def cache_to(states: List[pp.PagedState], pools: List[torch.Tensor],
-             src, ta: int, dst, tb: int) -> List[pp.PagedState]:
-    """The cache at degree ``tb`` on the workers of ``dst`` after a
-    migration (``kv_transform.migrate_sharded``) from degree ``ta`` on
-    those of ``src``: the migrated pools, and each worker's group's rows
-    of ``seq_lens`` and ``positions`` as compact tensors of its own."""
-    rep = src.W // ta
-    per, mps = states[0].page_table.shape
-    B = per * rep
+             src, a: Layout, dst, b: Layout) -> List[pp.PagedState]:
+    """The cache at layout ``b`` on the workers of ``dst`` after a
+    migration (``kv_transform.migrate_sharded``) from layout ``a`` on
+    those of ``src``: the migrated pools, and each worker's replica's
+    rows of ``seq_lens`` and of its shard's ``positions`` columns, as
+    compact tensors of its own."""
+    per, ns_a = states[0].page_table.shape
+    P = states[0].positions.shape[1] // ns_a
+    dev = states[0].positions.device
+    # the global metadata, from one tp position of every replica's shards
+    seq = torch.cat([states[r].seq_lens.to(dev)
+                     for r in range(0, src.W, a.degree)])
+    pos = torch.cat([torch.cat([states[r + s * a.tp].positions.to(dev)
+                                for s in range(a.sp)], dim=1)
+                     for r in range(0, src.W, a.degree)])
+    B, mps = seq.shape[0], ns_a * a.sp
+    ns = mps // b.sp
     out = []
     for w, wk in enumerate(dst.workers):
-        lo, hi = rows_of(tb, B, dst.W, w)
-        rows = _runs(lo, hi, per)
-        seq = _join([states[g * ta].seq_lens[a:b] for g, a, b in rows], 0,
-                    wk.device)
-        pos = _join([states[g * ta].positions[a:b] for g, a, b in rows], 0,
-                    wk.device)
-        out.append(pp.PagedState(pools[w],
-                                 identity_page_table(hi - lo, mps,
-                                                     wk.device), seq, pos))
+        lo, hi = rows_of(b, B, dst.W, w)
+        s = place(b, w)[1]
+        out.append(pp.PagedState(
+            pools[w], identity_page_table(hi - lo, ns, wk.device),
+            _compact(seq[lo:hi], wk.device),
+            _compact(pos[lo:hi, s * ns * P:(s + 1) * ns * P], wk.device)))
     return out
 
 

@@ -14,24 +14,27 @@ The counterpart of ``repro.core.kv_transform``.  Two planes:
   in-flight KV: ``export_slot`` packs a slot's pages with the gather
   kernel, ``import_slot`` lands them at the head of a free slot's wider
   page range with the scatter kernel) and the sharded migration over a
-  worker list between any two TP degrees (gather kernel per worker, the
-  exchange, then placement by the scatter kernel): the reference's
-  shard_map pipeline for TP1 x W <-> TPW, and the bytes its GSPMD
-  ``device_put`` moves for partial degrees (``transform_engine.py:
+  worker list between any two ``(rep, sp, tp)`` layouts (gather kernel
+  per worker, the exchange, then placement by the scatter kernel): the
+  reference's shard_map pipeline for TP1 x W <-> TPW, and the bytes its
+  GSPMD ``device_put`` moves for partial degrees and for sequence-
+  parallel layouts, whose pages shard over sp (``transform_engine.py:
   393-416``), moved explicitly.  The sharded migration also runs
   between two assemblies: TP1 over a merge target's own workers to a
-  degree over those plus the adopted ones, a donor's move onto fewer
-  workers, and back.
+  layout over those plus the adopted ones, a donor's move onto fewer
+  workers, and back.  ``layout_migration_stats`` accounts for any such
+  move, page-axis moves included.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import page_migrate as PM
+from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import layout as L
 from repro_torch.paged.pool import PagedState
 
@@ -112,7 +115,8 @@ def sharded_migration_stats(n_workers: int, pages_per_worker: int,
                             dtype_bytes: int = 2) -> MigrationStats:
     """Accounting for ONE TP1 x n <-> TPn ``migrate_sharded`` run: every
     worker ships the (n-1)/n foreign head slices of its pages, one
-    segment per (page, destination) pair."""
+    segment per (page, destination) pair (``layout_migration_stats``
+    accounts for any two layouts, page-axis moves included)."""
     return account_scale_up("header_centric", n_workers, pages_per_worker,
                             kv_slots, page_tokens, head_dim,
                             dtype_bytes=dtype_bytes)
@@ -249,66 +253,129 @@ def import_slot(state: PagedState, sub: PagedState, slot: int) -> None:
 # Data plane: the sharded migration over a worker list (paper §4.1)
 # ---------------------------------------------------------------------------
 
-def _block(W: int, t: int, NP: int, H: int, w: int) -> Tuple[int, ...]:
-    """Worker w's rectangle at degree ``t``: global pages [p0, p1) of its
-    group and kv slots [h0, h1) of its position."""
-    g, p = divmod(w, t)
-    return g * NP, (g + 1) * NP, p * H, (p + 1) * H
+def _block(W: int, lay: Layout, per: int, ns: int, H: int, w: int
+           ) -> Tuple[int, ...]:
+    """Worker w's box at ``lay``: the slots [b0, b1) of its replica
+    (``per`` a replica), pages [j0, j1) of each slot (its sp shard's
+    ``ns``) and kv slots [h0, h1) of its tp position (``H`` of them)."""
+    r, s, p = place(lay, w)
+    return r * per, (r + 1) * per, s * ns, (s + 1) * ns, p * H, (p + 1) * H
 
 
-def _segments(rect, mine, h: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (page, head block) segments of the global rectangle ``rect``
-    in the local ids of a worker whose rectangle is ``mine``, page-major,
-    at ``h`` heads a block."""
-    p0, p1, c0, c1 = rect
+def _meet(a: Tuple[int, ...], b: Tuple[int, ...]) -> Optional[Tuple]:
+    """The intersection of two boxes, or None."""
+    r = tuple(f(x, y) for i, (x, y) in enumerate(zip(a, b))
+              for f in ((max,) if i % 2 == 0 else (min,)))
+    return r if all(r[i] < r[i + 1] for i in (0, 2, 4)) else None
+
+
+def _segments(box, mine, h: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (page, head block) segments of the global box ``box`` in the
+    local ids of a worker whose box is ``mine`` (local page of slot b,
+    page j: ``(b - b0) * ns + j - j0``), slot-major, then page, then head
+    block, at ``h`` heads a block."""
+    b0, b1, j0, j1, c0, c1 = box
+    ns = mine[3] - mine[2]
     nb = (c1 - c0) // h
-    pages = torch.arange(p0 - mine[0], p1 - mine[0],
-                         dtype=torch.int32).repeat_interleave(nb)
-    blocks = torch.arange((c0 - mine[2]) // h, (c1 - mine[2]) // h,
-                          dtype=torch.int32).repeat(p1 - p0)
-    return pages, blocks
+    slots = torch.arange(b0 - mine[0], b1 - mine[0], dtype=torch.int32)
+    js = torch.arange(j0 - mine[2], j1 - mine[2], dtype=torch.int32)
+    pages = (slots[:, None] * ns + js[None, :]).reshape(-1)
+    blocks = torch.arange((c0 - mine[4]) // h, (c1 - mine[4]) // h,
+                          dtype=torch.int32).repeat(pages.numel())
+    return pages.repeat_interleave(nb), blocks
 
 
-def migrate_sharded(pools: List[torch.Tensor], src, ta: int, dst, tb: int
+def layout_boxes(W: int, lay: Layout, batch: int, mps: int, kvs: int
+                 ) -> List[Tuple[int, ...]]:
+    """Every worker's box of a W-worker assembly at ``lay`` for a cache
+    of ``batch`` slots of ``mps`` pages and ``kvs`` kv slots."""
+    assert mps % lay.sp == 0 and kvs % lay.tp == 0, (lay, mps, kvs)
+    per = batch // (W // lay.degree)
+    return [_block(W, lay, per, mps // lay.sp, kvs // lay.tp, w)
+            for w in range(W)]
+
+
+def layout_migration_stats(W_from: int, la, W_to: int, lb, batch: int,
+                           mps: int, kv_slots: int, page_tokens: int,
+                           head_dim: int, dtype_bytes: int = 2,
+                           same: Optional[List[bool]] = None
+                           ) -> MigrationStats:
+    """Accounting for ONE ``migrate_sharded`` run between any two
+    layouts: the bytes of every (source, destination) box intersection
+    that leaves its worker (``same[u * W_to + w]`` says whether source u
+    and destination w are one worker; by default worker index equality,
+    one assembly), and one segment a (page, head block) of it.  Pages
+    move along the page axis (sp) as well as the head axis (tp).
+    ``la``/``lb``: ``Layout`` values or TP degrees."""
+    la, lb = Layout.of(la), Layout.of(lb)
+    src = layout_boxes(W_from, la, batch, mps, kv_slots)
+    dst = layout_boxes(W_to, lb, batch, mps, kv_slots)
+    h = math.gcd(kv_slots // la.tp, kv_slots // lb.tp)
+    head = 2 * page_tokens * head_dim * dtype_bytes
+    out = MigrationStats()
+    for u, a in enumerate(src):
+        for w, b in enumerate(dst):
+            r = _meet(a, b)
+            own = (same[u * W_to + w] if same is not None else u == w)
+            if r is None or own:
+                continue
+            pages = (r[1] - r[0]) * (r[3] - r[2])
+            out.bytes_moved += pages * (r[5] - r[4]) * head
+            out.segments += pages * (r[5] - r[4]) // h
+    return out
+
+
+def migrate_sharded(pools: List[torch.Tensor], src, la, dst, lb,
+                    mps: Optional[int] = None
                     ) -> Tuple[List[torch.Tensor], int]:
-    """Header-centric migration of one layer's pools from degree ``ta``
-    on the workers of ``src`` to degree ``tb`` on those of ``dst``
-    (``core.instance``'s layout: group g of a degree holds its slots'
-    pages, position p its kv slots).  Every (source, destination) pair
-    whose rectangles of (pages x kv slots) meet moves exactly that
-    intersection, in segments of ``h = gcd`` of the two head counts:
+    """Header-centric migration of one layer's pools from layout ``la``
+    on the workers of ``src`` to layout ``lb`` on those of ``dst``
+    (``core.instance``'s placement: replica r holds its slots, sp shard
+    s pages ``[s*ns, (s+1)*ns)`` of each of them, tp position p its kv
+    slots; ``mps`` pages a slot in all).  Every (source, destination)
+    pair whose boxes of (slots x pages of a slot x kv slots) meet moves
+    exactly that intersection, in segments of one page and ``h = gcd``
+    of the two head counts:
 
     * a worker in both assemblies keeps what it holds of its own new
-      rectangle: ONE scatter-kernel launch copies it from its old pool
-      into its new one, and it never enters the exchange;
+      box: ONE scatter-kernel launch copies it from its old pool into
+      its new one, and it never enters the exchange;
     * each source packs its segments for every other destination, in
       destination order, with ONE gather-kernel launch;
     * the exchange copies each destination's chunks into its receive
       buffer, in source order (``InstanceMesh.all_to_all``'s order);
     * each destination places its arrivals with ONE scatter-kernel
-      launch, unless they are whole pages of its heads (any scale-up, as
-      in a full merge): each chunk is then a run of its pool's pages,
-      and the exchange writes it there.
+      launch, unless they are whole pages of its heads covering whole
+      runs of its slots' pages (any scale-up along tp, as in a full
+      merge): each chunk is then a run of its pool's pages, and the
+      exchange writes it there.
 
     A scale-up by k = tb/ta thus has each worker keep the head slice it
     retains and send the others to its k-1 peers of the target group; a
-    scale-down is the mirror image, and TP1 x W <-> TPW, a same-degree
-    move onto other workers and every partial degree are cases of it.
+    scale-down is the mirror image; a change of sp moves page ranges
+    between shards (TP4 <-> SP2xTP2 both); TP1 x W <-> TPW, a same-layout
+    move onto other workers and every partial layout are cases of it.
     Returns the destination pools and the bytes the kernels and the
-    exchange read and wrote."""
+    exchange read and wrote.  Without ``mps`` (pure TP on both sides) a
+    replica's pages are one flat range: every page a "slot"."""
+    a, b = Layout.of(la), Layout.of(lb)
+    if mps is None:
+        assert a.sp == b.sp == 1, "an sp layout needs the slots' pages"
+        mps = 1
     NPa, Ha = pools[0].shape[:2]
-    H, NPt = Ha * ta, NPa * (src.W // ta)
-    assert H % tb == 0 and NPt % (dst.W // tb) == 0, (H, NPt, dst.W, tb)
-    NPb, Hb = NPt // (dst.W // tb), H // tb
+    H = Ha * a.tp
+    B = NPa // (mps // a.sp) * (src.W // a.degree)
+    assert H % b.tp == 0 and mps % b.sp == 0 \
+        and B % (dst.W // b.degree) == 0, (H, mps, B, dst.W, b)
+    src_r = layout_boxes(src.W, a, B, mps, H)
+    dst_r = layout_boxes(dst.W, b, B, mps, H)
+    NPb, Hb = (B // (dst.W // b.degree)) * (mps // b.sp), H // b.tp
     h = math.gcd(Ha, Hb)
-    src_r = [_block(src.W, ta, NPa, Ha, u) for u in range(src.W)]
-    dst_r = [_block(dst.W, tb, NPb, Hb, w) for w in range(dst.W)]
     meet = {}
-    for u, a in enumerate(src_r):
-        for w, b in enumerate(dst_r):
-            r = (max(a[0], b[0]), min(a[1], b[1]),
-                 max(a[2], b[2]), min(a[3], b[3]))
-            if r[0] < r[1] and r[2] < r[3]:
+    for u, ra in enumerate(src_r):
+        for w, rb in enumerate(dst_r):
+            r = _meet(ra, rb)
+            if r is not None:
                 meet[u, w] = r
 
     def own(u: int, w: int) -> bool:
@@ -352,10 +419,13 @@ def migrate_sharded(pools: List[torch.Tensor], src, ta: int, dst, tb: int
         if not foreign:
             out.append(pool)
             continue
-        if h == Hb:                   # whole pages: runs of the pool's
+        if h == Hb and all(meet[u, w][2:4] == dst_r[w][2:4]
+                           for u in foreign):
+            # whole pages of the destination's slots: runs of its pool
+            ns = dst_r[w][3] - dst_r[w][2]
             for u in foreign:
                 lo, hi = chunk[u, w]
-                p0 = meet[u, w][0] - dst_r[w][0]
+                p0 = (meet[u, w][0] - dst_r[w][0]) * ns
                 pool[p0:p0 + hi - lo].copy_(send[u][lo:hi])
             out.append(pool)
             continue

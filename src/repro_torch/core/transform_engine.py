@@ -137,7 +137,12 @@ def scale_down_schedule(n_layers: int, layers_per_step: int = 1,
 
 def _mlp_stats(sched: Schedule, cfg: ModelConfig, plan: PaddingPlan,
                method: str) -> WT.WeightTransformStats:
-    return WT.account_regroup(cfg, plan, sched.tp_from, sched.tp_to, method)
+    """The MLP's cost: a regroup between the layouts' tp factors (none
+    when they agree, as TP2x2 <-> SP2xTP2)."""
+    la, lb = sched.resolved_layouts()
+    if la.tp == lb.tp:
+        return WT.WeightTransformStats()
+    return WT.account_regroup(cfg, plan, la.tp, lb.tp, method)
 
 
 def schedule_cost(sched: Schedule, cfg: ModelConfig, plan: PaddingPlan,
@@ -173,34 +178,42 @@ def seesaw_cost(cfg: ModelConfig, plan: PaddingPlan, n_layers: int,
 
 def open_owner_session(owner, tp_to: int, layers_per_step: int = 1,
                        storage_layout: str = "header_centric",
-                       devices: Optional[List] = None
+                       devices: Optional[List] = None,
+                       layout_to: Optional[Layout] = None
                        ) -> "TransformSession":
     """Open a session on anything owning ``layers/static/cfg/plan/tp/
-    mesh/page_tokens/_session`` (the serving engine, ``InstanceGroup``):
-    a change of TP degree to any ``tp_to`` dividing the target worker
-    count, ``(rep, tp) -> (rep', tp')`` (TP1 x W -> TPW' is a full merge,
-    TPW -> TP1 x W' a decompose, TP1 x 4 -> TP2 x 2 a partial one), onto
+    mesh/page_tokens/_session`` (the serving engine, ``InstanceGroup``;
+    ``par_layout`` when it has one): a change of layout to ``layout_to``
+    (default pure TP at ``tp_to``, its degree) whose degree divides the
+    target worker count, ``(rep, sp, tp) -> (rep', sp', tp')`` (TP1 x W
+    -> TPW' is a full merge, TPW -> TP1 x W' a decompose, TP1 x 4 -> TP2 x
+    2 a partial one, TP4 -> SP2xTP2 a same-degree layout change), onto
     the workers ``devices`` (default: the owner's own).  When those are
     not the owner's current assembly the session is CROSS-assembly (a
-    merge onto adopted workers, or a split back onto the home workers):
-    its schedule is layer-coherent (every step moves whole layers), so
-    each layer sits on exactly one assembly at any time and serving
-    goes on through the session."""
+    merge onto adopted workers, or a split back onto the home workers).
+    A cross-assembly session and a same-degree layout change run the
+    layer-coherent schedule (every step moves whole layers), so each
+    layer sits on exactly one assembly and layout at any time and
+    serving goes on through the session."""
     assert owner._session is None, "transformation already in progress"
     mesh_from = owner.mesh
     workers = mesh_from.workers if devices is None else list(devices)
     tp_from = owner.tp
-    assert tp_to != tp_from and len(workers) % tp_to == 0, (
-        tp_from, tp_to, len(workers))
-    mesh_to = InstanceMesh(workers, tp_to)
+    lay_from = Layout.of(getattr(owner, "par_layout", None) or tp_from)
+    lay_to = Layout.of(layout_to if layout_to is not None else tp_to)
+    assert lay_from.degree == tp_from and lay_to.degree == tp_to, (
+        lay_from, tp_from, lay_to, tp_to)
+    assert lay_to != lay_from and len(workers) % tp_to == 0, (
+        lay_from, lay_to, len(workers))
+    mesh_to = InstanceMesh(workers, lay_to)
     n = len(owner.layers)
     cross = not mesh_from.same_workers(mesh_to)
-    if tp_to > tp_from:
+    if tp_to >= tp_from:
         sched = scale_up_schedule(n, layers_per_step, tp_from, tp_to,
-                                  coherent=cross)
+                                  coherent=cross or tp_to == tp_from)
     else:
         sched = scale_down_schedule(n, layers_per_step, tp_from, tp_to)
-    sched.layout_from, sched.layout_to = Layout.of(tp_from), Layout.of(tp_to)
+    sched.layout_from, sched.layout_to = lay_from, lay_to
     session = TransformSession(
         owner.layers, sched, owner.cfg, owner.plan, mesh_to=mesh_to,
         page_tokens=owner.page_tokens, storage_layout=storage_layout,
@@ -210,13 +223,15 @@ def open_owner_session(owner, tp_to: int, layers_per_step: int = 1,
 
 
 def close_owner_session(owner) -> "TransformSession":
-    """Flip the owner's mesh, static weights and ``tp`` to the drained
-    session's target."""
+    """Flip the owner's mesh, static weights, ``tp`` and (when it keeps
+    one) ``par_layout`` to the drained session's target."""
     session = owner._session
     assert session is not None and session.done, "schedule steps remain"
     owner.mesh = session.mesh_to
     owner.static = session.static
     owner.tp = session.schedule.tp_to
+    if hasattr(owner, "par_layout"):
+        owner.par_layout = session.schedule.resolved_layouts()[1]
     owner._session = None
     return session
 
@@ -287,6 +302,7 @@ class TransformSession:
         self._dispatched = 0         # staged steps (>= completed)
         self._pending: Optional[Dict] = None
         self.target = schedule.tp_to
+        self.target_layout = schedule.resolved_layouts()[1]
 
     # -- progress -------------------------------------------------------
     @property
@@ -303,10 +319,26 @@ class TransformSession:
         if op.component == "mlp":
             return _mlp_stats(sched, self.cfg, self.plan, "padded").time_s(
                 self.link, overlap=op.overlap)
+        pool = layer.cache[0].pool
+        la, lb = sched.resolved_layouts()
+        lay = layer.attn_layout
+        if la.sp > 1 or lb.sp > 1:
+            # page ranges move between sp shards: the bytes each box
+            # intersection sends off its worker
+            src = layer.mesh
+            mps = I.pages_per_slot(layer)
+            batch = (layer.cache[0].page_table.shape[0]
+                     * (src.W // lay.degree))
+            same = [a == b for a in src.workers
+                    for b in self.mesh_to.workers]
+            stats = KT.layout_migration_stats(
+                src.W, lay, self.mesh_to.W, self.target_layout, batch, mps,
+                pool.shape[1] * lay.tp, self.page_tokens, pool.shape[-1],
+                dtype_bytes=pool.element_size(), same=same)
+            return stats.time_s(self.link, overlap=op.overlap)
         # the accounting plane models a TP1 x k -> TPk merge; a partial
         # a -> b re-splits heads among groups of k = max/min workers
-        pool = layer.cache[0].pool
-        t = layer.attn_layout
+        t = lay.degree
         NPt, kvs = pool.shape[0] * (layer.mesh.W // t), pool.shape[1] * t
         k = max(sched.tp_from, sched.tp_to) // max(
             1, min(sched.tp_from, sched.tp_to))
@@ -333,7 +365,7 @@ class TransformSession:
         """Re-split the layer's MLP weights; returns the bytes that
         crossed assemblies."""
         src, old = layer.mesh, layer.mlp
-        I.move_mlp(layer, self.mesh_to, self.target, self.plan.max_tp)
+        I.move_mlp(layer, self.mesh_to, self.target_layout, self.plan.max_tp)
         return self._crossed_bytes(src, old, layer.mlp)
 
     def _run_kv(self, layer: I.WorkerLayer) -> Tuple[int, int, int]:
@@ -344,7 +376,8 @@ class TransformSession:
         src, old = layer.mesh, layer.attn
         pool_bytes = sum(c.pool.numel() * c.pool.element_size()
                          for c in layer.cache)
-        moved = I.move_attn(layer, self.mesh_to, self.target, self.plan)
+        moved = I.move_attn(layer, self.mesh_to, self.target_layout,
+                            self.plan)
         return moved, pool_bytes, self._crossed_bytes(src, old, layer.attn)
 
     def _move_norms(self, layer: I.WorkerLayer) -> int:

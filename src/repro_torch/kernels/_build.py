@@ -35,12 +35,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     "paged_attention": {
         "repro_paged_decode": [_P] * 9 + [_I] * 9 + [_P],
-        "repro_decode_walk": [_P] * 2 + [_I] * 5 + [_P],
+        "repro_paged_decode_partials": [_P] * 8 + [_I] * 11 + [_P],
+        "repro_softmax_combine": [_P] + [_I] * 7 + [_P, _I, _P],
+        "repro_decode_walk": [_P] * 2 + [_I] * 7 + [_P],
     },
     "chunk_prefill": {
-        "repro_chunk_prefill_attention": ([_P] * 4 + [_I] + [_P] * 4
-                                          + [_I] * 10 + [_P]),
-        "repro_chunk_scatter": [_P] * 5 + [_I] * 7 + [_P],
+        "repro_chunk_prefill_attention": ([_P] * 4 + [_I] + [_P] * 5
+                                          + [_I] * 11 + [_P]),
+        "repro_chunk_scatter": [_P] * 5 + [_I] * 9 + [_P],
     },
     "flash_attention": {
         "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_P],

@@ -17,6 +17,12 @@
 // masking constant and the 1e-20 floor of the normaliser are the
 // reference's.
 //
+// With TileArgs::part set the block stores each query row's partial
+// state (m in natural-log units, l, unnormalised acc; fp32, in the
+// layout of paged_attention.cu's combine) instead of the output, and
+// skip_self drops the contiguous segment: the chunk kernel on a
+// sequence-parallel shard.
+//
 // Simple first: CUDA-core FMAs from shared memory (4x4 register tiles
 // for Q.K^T, 4 rows x dh/8 columns for P.V), no tensor cores, no TMA.
 #pragma once
@@ -49,6 +55,10 @@ struct TileArgs {
   int Sk;
   int causal, window;
   float scale;
+  // partials instead of the output (null: the normalised output), and
+  // whether the contiguous segment is skipped (0: attended)
+  float* part;
+  int skip_self;
 };
 
 template <int DH>
@@ -260,10 +270,29 @@ __global__ void __launch_bounds__(TILE_THREADS)
   if (a.n_pages > 0)
     walk_keys<T, DH>(PagedKeys<T, DH>{a, b, g}, sm, acc, qmin, qmax,
                      a.causal, a.window);
-  walk_keys<T, DH>(ContigKeys<T, DH>{a, b, g}, sm, acc, qmin, qmax,
-                   a.causal, a.window);
+  if (!a.skip_self)
+    walk_keys<T, DH>(ContigKeys<T, DH>{a, b, g}, sm, acc, qmin, qmax,
+                     a.causal, a.window);
 
   const int rg = tid / 8, cg = tid % 8;
+  if (a.part != nullptr) {
+    // part index ((b * S + t) * kvs + g) * rep + h
+    const size_t parts = (size_t)gridDim.z * a.S * a.kvs * a.rep;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg * 4 + i, t = t0 + r / a.rep;
+      if (r >= live || t >= a.S) continue;
+      const size_t k = (((size_t)b * a.S + t) * a.kvs + g) * a.rep + r % a.rep;
+      if (cg == 0) {
+        a.part[k] = sm.m[r];
+        a.part[parts + k] = sm.l[r];
+      }
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        a.part[2 * parts + k * DH + cg + 8 * c] = acc[i][c];
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i, t = t0 + r / a.rep;

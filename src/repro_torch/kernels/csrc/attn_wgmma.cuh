@@ -40,6 +40,13 @@
 //     shared memory at dh = 128, so two blocks share an SM and one's
 //     softmax overlaps the other's products.  Blocks start with the
 //     latest query tiles, which see the most keys.
+// Partials (the chunk kernel on a sequence-parallel shard): with
+// Args::part set, the epilogue stores each query row's unnormalised
+// state instead of the bf16 output (m in natural-log units, l, and acc
+// in fp32, in the layout of paged_attention.cu's combine: m and l (B *
+// S, kvs, 1, rep), acc (B * S, kvs, 1, rep, dh)), and Args::skip_self
+// drops the contiguous segment (another shard attends the chunk's own
+// keys).  The normalised bf16 path is the same code with part null.
 // Every head shape of the registered configs: dh in {64, 96, 128, 160,
 // 256} and any rep = Hq / kvs up to 64.
 //   * A block holds tokens = 64 / rep (rounded down) tokens, tokens * rep
@@ -91,6 +98,10 @@ struct Args {
   int Sk;
   int causal, window;
   float scale_log2;       // log2(e) / sqrt(dh)
+  // partials instead of the output (null: the normalised output), and
+  // whether the contiguous segment is skipped (0: attended)
+  float* part;
+  int skip_self;
 };
 
 // ---------------------------------------------------------------- PTX
@@ -382,7 +393,7 @@ __global__ void __launch_bounds__(THREADS, DH <= 128 ? 2 : 1)
              }
            });
     }
-    if (qmin <= qmax) {  // contiguous segment
+    if (qmin <= qmax && !a.skip_self) {  // contiguous segment
       // with positions = indices the causal frontier and the window
       // bound the walk directly
       int lo = 0, hi = a.Sk;
@@ -534,6 +545,29 @@ __global__ void __launch_bounds__(THREADS, DH <= 128 ? 2 : 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
   }
   const int Hq = a.kvs * a.rep;
+  if (a.part != nullptr) {
+    // the rows' partial states: part index ((b * S + t) * kvs + g) * rep
+    // + h, m (log2 units here) as natural log
+    const size_t parts = (size_t)gridDim.z * a.S * a.kvs * a.rep;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0, t = t0 + r / a.rep;
+      if (r >= live || t >= a.S) continue;
+      const size_t i = (((size_t)b * a.S + t) * a.kvs + g) * a.rep + r % a.rep;
+      if (l % 4 == 0) {
+        a.part[i] = (half ? m1 : m0) * 0.6931471805599453f;
+        a.part[parts + i] = half ? l1 : l0;
+      }
+      float* arow = a.part + 2 * parts + i * DH;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {  // columns past dh are not stored
+        const int k = 4 * j + 2 * half;
+        *reinterpret_cast<float2*>(arow + j * 8 + (l % 4) * 2) =
+            make_float2(o[k], o[k + 1]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0, t = t0 + r / a.rep;

@@ -28,6 +28,12 @@
 //   2. scatter: every (b, token, kv head, K|V) row of the chunk is copied
 //      to page_table[b, (q_pos % cap) / P] at in-page offset q_pos % P.
 //      Tokens with a negative position (padding) keep the old bytes.
+// On a sequence-parallel shard (the pool holds pages [page0, page0 + n)
+// of rows of n_total pages), launch 1 writes each query row's partial
+// state instead of the output (Args::part: m, l, unnormalised acc in
+// fp32, merged across shards by paged_attention.cu's combine), only one
+// shard attends the chunk's own keys (skip_self on the others), and
+// launch 2 writes only the tokens whose global page the shard holds.
 // On the TPU the grid runs in order, so one kernel can attend every
 // prefix page and then overwrite it.  Blocks on Hopper run in parallel
 // and in no order; stream order between the two launches is what keeps
@@ -44,8 +50,9 @@ __global__ void chunk_scatter_kernel(const T* __restrict__ k,
                                      const int* __restrict__ q_pos,
                                      const int* __restrict__ page_table,
                                      T* __restrict__ pool, int B, int S,
-                                     int kvs, int dh, int P, int n) {
-  const int cap = n * P;
+                                     int kvs, int dh, int P, int n,
+                                     int page0, int n_total) {
+  const int cap = n_total * P;
   const size_t total = (size_t)B * S * kvs * 2 * dh;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (size_t)gridDim.x * blockDim.x) {
@@ -59,8 +66,9 @@ __global__ void chunk_scatter_kernel(const T* __restrict__ k,
     const int b = r / S;
     const int qp = q_pos[(size_t)b * S + t];
     if (qp < 0) continue;
-    const int slot = qp % cap;
-    const size_t page = page_table[(size_t)b * n + slot / P];
+    const int slot = qp % cap, j = slot / P - page0;
+    if (j < 0 || j >= n) continue;  // a page of another shard
+    const size_t page = page_table[(size_t)b * n + j];
     const T* src = kv ? v : k;
     pool[((page * kvs + g) * 2 + kv) * (size_t)P * dh +
          (size_t)(slot % P) * dh + d] =
@@ -70,10 +78,13 @@ __global__ void chunk_scatter_kernel(const T* __restrict__ k,
 
 int run_attention_f32(const void* q, const void* k_new, const void* v_new,
                       const void* pool, const int* page_table,
-                      const int* kv_pos, const int* q_pos, void* out, int B,
-                      int S, int kvs, int rep, int dh, int P, int n,
-                      int attend_prefix, int window, cudaStream_t stream) {
+                      const int* kv_pos, const int* q_pos, void* out,
+                      float* part, int B, int S, int kvs, int rep, int dh,
+                      int P, int n, int attend_prefix, int attend_self,
+                      int window, cudaStream_t stream) {
   rt::TileArgs<float> a{};
+  a.part = part;
+  a.skip_self = !attend_self;
   a.q = static_cast<const float*>(q);
   a.q_pos = q_pos;
   a.out = static_cast<float*>(out);
@@ -98,10 +109,13 @@ int run_attention_f32(const void* q, const void* k_new, const void* v_new,
 
 int run_attention_bf16(const void* q, const void* k_new, const void* v_new,
                        const void* pool, int NP, const int* page_table,
-                       const int* kv_pos, const int* q_pos, void* out, int B,
-                       int S, int kvs, int rep, int dh, int P, int n,
-                       int attend_prefix, int window, cudaStream_t stream) {
+                       const int* kv_pos, const int* q_pos, void* out,
+                       float* part, int B, int S, int kvs, int rep, int dh,
+                       int P, int n, int attend_prefix, int attend_self,
+                       int window, cudaStream_t stream) {
   rt::wg::Args a{};
+  a.part = part;
+  a.skip_self = !attend_self;
   a.q_pos = q_pos;
   a.out = static_cast<__nv_bfloat16*>(out);
   a.S = S;
@@ -124,7 +138,8 @@ int run_attention_bf16(const void* q, const void* k_new, const void* v_new,
 template <typename T>
 int run_scatter(const void* k_new, const void* v_new, const int* q_pos,
                 const int* page_table, void* pool, int B, int S, int kvs,
-                int dh, int P, int n, cudaStream_t stream) {
+                int dh, int P, int n, int page0, int n_total,
+                cudaStream_t stream) {
   const size_t total = (size_t)B * S * kvs * 2 * dh;
   const int threads = 256;
   const int blocks = (int)((total + threads - 1) / threads < 65535
@@ -132,39 +147,51 @@ int run_scatter(const void* k_new, const void* v_new, const int* q_pos,
                                : 65535);
   chunk_scatter_kernel<T><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(k_new), static_cast<const T*>(v_new), q_pos,
-      page_table, static_cast<T*>(pool), B, S, kvs, dh, P, n);
+      page_table, static_cast<T*>(pool), B, S, kvs, dh, P, n, page0,
+      n_total);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// out (B, S, Hq, dh) the normalised attention, or, with part set (then
+// out is unused), the rows' partial states into part: m, l (B * S, kvs,
+// 1, rep) and acc (B * S, kvs, 1, rep, dh), fp32, consecutive
 extern "C" int repro_chunk_prefill_attention(
     const void* q, const void* k_new, const void* v_new, const void* pool,
     int NP, const int* page_table, const int* kv_pos, const int* q_pos,
-    void* out, int B, int S, int kvs, int rep, int dh, int P, int n,
-    int attend_prefix, int window, int dtype, void* stream) {
+    void* out, void* part, int B, int S, int kvs, int rep, int dh, int P,
+    int n, int attend_prefix, int attend_self, int window, int dtype,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
+  if (pt == nullptr && !attend_self) return (int)cudaErrorInvalidValue;
   if (dtype == rt::DT_F32)
     return run_attention_f32(q, k_new, v_new, pool, page_table, kv_pos,
-                             q_pos, out, B, S, kvs, rep, dh, P, n,
-                             attend_prefix, window, st);
+                             q_pos, out, pt, B, S, kvs, rep, dh, P, n,
+                             attend_prefix, attend_self, window, st);
   if (dtype == rt::DT_BF16)
     return run_attention_bf16(q, k_new, v_new, pool, NP, page_table, kv_pos,
-                              q_pos, out, B, S, kvs, rep, dh, P, n,
-                              attend_prefix, window, st);
+                              q_pos, out, pt, B, S, kvs, rep, dh, P, n,
+                              attend_prefix, attend_self, window, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// the chunk's tokens into the pages [page0, page0 + n) of rows of n_total
+// pages that this pool holds (page0 = 0, n_total = n: every token)
 extern "C" int repro_chunk_scatter(const void* k_new, const void* v_new,
                                    const int* q_pos, const int* page_table,
                                    void* pool, int B, int S, int kvs, int dh,
-                                   int P, int n, int dtype, void* stream) {
+                                   int P, int n, int page0, int n_total,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (page0 < 0 || page0 + n > n_total) return (int)cudaErrorInvalidValue;
   if (dtype == rt::DT_F32)
     return run_scatter<float>(k_new, v_new, q_pos, page_table, pool, B, S,
-                              kvs, dh, P, n, st);
+                              kvs, dh, P, n, page0, n_total, st);
   if (dtype == rt::DT_BF16)
     return run_scatter<__nv_bfloat16>(k_new, v_new, q_pos, page_table, pool,
-                                      B, S, kvs, dh, P, n, st);
+                                      B, S, kvs, dh, P, n, page0, n_total,
+                                      st);
   return (int)cudaErrorInvalidValue;
 }

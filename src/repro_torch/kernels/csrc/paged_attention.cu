@@ -46,6 +46,20 @@
 //   2. combine: one block per (g, b) merges the splits' partial states
 //      - the rescale-and-sum of layers.combine_softmax_partials - and
 //      writes the output.
+// Sequence-parallel shards (a shard holds pages [page0, page0 + n) of a
+// row of n_total pages, with the global positions stored in them) take
+// the split launch alone (repro_paged_decode_partials): it writes each
+// split's partial state (m in natural-log units, l, unnormalised acc;
+// fp32) into a buffer the caller owns, and the bf16 walk cuts the row's
+// live range of GLOBAL pages down to the shard's.  The shards' buffers
+// are exchanged, and one combine launch (repro_softmax_combine) merges
+// any number of part sets a (row, head): the splits of every shard.  The
+// chunk-prefill kernel's partials (one split, B * S query rows) go
+// through the same combine.  A shard does not combine its own splits
+// before the exchange: that would save the exchange NS - 1 of its parts'
+// bytes (0.5 MB a layer at the serve shape, a fraction of a microsecond
+// of copy) for one more launch a layer and worker, and the decode step
+// is bound by launches on the host (PERF.md section 5).
 // Head shapes: dh in {64, 96, 128, 160, 256} and rep = Hq / kvs up to 16
 // (recurrentgemma-9b's 16 query heads over one kv head).  The bf16
 // tensor-core tile holds the rep heads as the rows of its 16-row A
@@ -197,26 +211,31 @@ __global__ void __launch_bounds__(DH)
   }
 }
 
+// the merge of `sets` sets of NS partial states a (row b, kv head g,
+// head h): set z's parts start `set_stride` floats after set z - 1's
 template <typename T, int DH>
 __global__ void __launch_bounds__(DH)
     paged_decode_combine_kernel(const float* __restrict__ part_m,
                                 const float* __restrict__ part_l,
                                 const float* __restrict__ part_acc,
                                 T* __restrict__ out, int kvs, int rep,
-                                int NS) {
+                                int NS, int sets, size_t set_stride) {
   const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int Hq = kvs * rep;
   const size_t base = ((size_t)b * kvs + g) * NS;
   for (int h = 0; h < rep; ++h) {
     float m = rt::NEG_INF;
-    for (int s = 0; s < NS; ++s) m = fmaxf(m, part_m[(base + s) * rep + h]);
+    for (int z = 0; z < sets; ++z)
+      for (int s = 0; s < NS; ++s)
+        m = fmaxf(m, part_m[z * set_stride + (base + s) * rep + h]);
     float l = 0.f, a = 0.f;
-    for (int s = 0; s < NS; ++s) {
-      const size_t i = (base + s) * rep + h;
-      const float corr = expf(part_m[i] - m);
-      l += part_l[i] * corr;
-      a += part_acc[i * DH + tid] * corr;
-    }
+    for (int z = 0; z < sets; ++z)
+      for (int s = 0; s < NS; ++s) {
+        const size_t i = (base + s) * rep + h, o = z * set_stride;
+        const float corr = expf(part_m[o + i] - m);
+        l += part_l[o + i] * corr;
+        a += part_acc[o + i * DH + tid] * corr;
+      }
     out[((size_t)b * Hq + g * rep + h) * DH + tid] =
         rt::from_f<T>(a / fmaxf(l, 1e-20f));
   }
@@ -232,11 +251,15 @@ inline int sub_tile(size_t elem, int dh, int rep, int P) {
   return 0;
 }
 
+// the split launch (and, with out, the combine of its NS splits); the
+// fp32 walk splits the shard's capacity and masks by position, so it
+// needs no page offset
 template <typename T, int DH>
 int launch(const void* q, const void* pool, const int* page_table,
            const int* kv_pos, const int* q_pos, float* part_m,
            float* part_l, float* part_acc, void* out, int B, int kvs,
-           int rep, int P, int n, int NS, int window, cudaStream_t stream) {
+           int rep, int P, int n, int NS, int window, int page0,
+           int n_total, cudaStream_t stream) {
   const int sub = sub_tile(sizeof(T), DH, rep, P);
   const size_t smem = decode_smem_bytes(sizeof(T), DH, rep, sub);
   cudaError_t e = cudaFuncSetAttribute(
@@ -249,9 +272,9 @@ int launch(const void* q, const void* pool, const int* page_table,
       kv_pos, q_pos, part_m, part_l, part_acc, kvs, rep, P, n, pps, window,
       1.0f / sqrtf((float)DH), sub);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || out == nullptr) return (int)e;
   paged_decode_combine_kernel<T, DH><<<dim3(kvs, B), DH, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), kvs, rep, NS);
+      part_m, part_l, part_acc, static_cast<T*>(out), kvs, rep, NS, 1, 0);
   return (int)cudaGetLastError();
 }
 
@@ -313,30 +336,36 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
-// The row's live pages [lo, hi): the pools put position p in slot
-// p % capacity (capacity = n * P), so with no wrap (q_pos < capacity) a
-// key visible at q_pos sits in a slot <= q_pos, and with a window in a
-// slot > q_pos - window; a wrapped row keeps every page.  A bound on
-// the walk, not a mask: the masks stay those of the positions.
+// The row's live pages [lo, hi) among the shard's n, pages [page0,
+// page0 + n) of the row's n_total: the pools put position p in slot
+// p % capacity (capacity = n_total * P), so with no wrap (q_pos <
+// capacity) a key visible at q_pos sits in a slot <= q_pos, and with a
+// window in a slot > q_pos - window; a wrapped row keeps every page.  A
+// bound on the walk, not a mask: the masks stay those of the positions.
 __device__ __forceinline__ void live_pages(int qp, int n, int P, int window,
-                                           int& lo, int& hi) {
+                                           int page0, int n_total, int& lo,
+                                           int& hi) {
+  int glo, ghi;
   if (qp < 0) {
-    lo = hi = 0;
-  } else if (qp >= n * P) {
-    lo = 0;
-    hi = n;
+    glo = ghi = 0;
+  } else if (qp >= n_total * P) {
+    glo = 0;
+    ghi = n_total;
   } else {
-    hi = qp / P + 1;
-    lo = window > 0 ? max(0, qp - window + 1) / P : 0;
+    ghi = qp / P + 1;
+    glo = window > 0 ? max(0, qp - window + 1) / P : 0;
   }
+  lo = min(max(glo - page0, 0), n);
+  hi = max(min(ghi - page0, n), lo);
 }
 
 // split `split` of NS's even share [j0, j1) of the row's live pages
 __device__ __forceinline__ void split_range(int qp, int n, int P, int window,
+                                            int page0, int n_total,
                                             int split, int NS, int& j0,
                                             int& j1) {
   int lo, hi;
-  live_pages(qp, n, P, window, lo, hi);
+  live_pages(qp, n, P, window, page0, n_total, lo, hi);
   j0 = lo + (int)((long long)split * (hi - lo) / NS);
   j1 = lo + (int)((long long)(split + 1) * (hi - lo) / NS);
 }
@@ -344,11 +373,11 @@ __device__ __forceinline__ void split_range(int qp, int n, int P, int window,
 // the walk alone: each (row, split)'s page range, as the kernel cuts it
 __global__ void walk_kernel(const int* __restrict__ q_pos,
                             int* __restrict__ ranges, int B, int n, int P,
-                            int window, int NS) {
+                            int window, int page0, int n_total, int NS) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * NS) return;
-  split_range(q_pos[i / NS], n, P, window, i % NS, NS, ranges[2 * i],
-              ranges[2 * i + 1]);
+  split_range(q_pos[i / NS], n, P, window, page0, n_total, i % NS, NS,
+              ranges[2 * i], ranges[2 * i + 1]);
 }
 
 // bytes of one page in the ring: K and V of one kv head, then the P
@@ -380,8 +409,8 @@ __global__ void __launch_bounds__(THREADS,
                              float* __restrict__ part_m,
                              float* __restrict__ part_l,
                              float* __restrict__ part_acc, int kvs, int P,
-                             int n, int stages, int window,
-                             float scale_log2, int rep_rt) {
+                             int n, int stages, int window, int page0,
+                             int n_total, float scale_log2, int rep_rt) {
   // TWO: heads 8-15 in rows 8-15 of the A operand, a second softmax state
   constexpr bool TWO = REP == ANY_16;
   const int rep = REP > 0 ? REP : rep_rt;
@@ -402,7 +431,7 @@ __global__ void __launch_bounds__(THREADS,
   const int qp = q_pos[b];
   // this split's even share of the live range, in stages of pps pages
   int j0, j1;
-  split_range(qp, n, P, window, split, NS, j0, j1);
+  split_range(qp, n, P, window, page0, n_total, split, NS, j0, j1);
   const int n_stages = (j1 - j0 + pps - 1) / pps;
 
   if (tid == 0) {
@@ -717,29 +746,34 @@ __host__ __device__ constexpr int combine_threads(int dh, int rep) {
   return rep > 0 ? rep * dh : 512;
 }
 
-// the splits' merge for bf16: one block per (kv head, row), a thread per
-// (head, dh element), every head at once
+// the merge for bf16 of `sets` sets of NS partial states (set z's parts
+// `set_stride` floats after set z - 1's): one block per (kv head, row),
+// a thread per (head, dh element), every head at once
 template <int DH, int REP>
 __global__ void __launch_bounds__(combine_threads(DH, REP))
     combine_kernel(const float* __restrict__ part_m,
                    const float* __restrict__ part_l,
                    const float* __restrict__ part_acc, bf16* __restrict__ out,
-                   int kvs, int NS, int rep_rt) {
+                   int kvs, int NS, int rep_rt, int sets,
+                   size_t set_stride) {
   const int rep = REP > 0 ? REP : rep_rt;
   const int g = blockIdx.x, b = blockIdx.y;
   const size_t base = ((size_t)b * kvs + g) * NS;
   for (int e = threadIdx.x; e < rep * DH; e += combine_threads(DH, REP)) {
     const int h = e / DH, c = e % DH;
     float m = rt::NEG_INF;
-    for (int s = 0; s < NS; ++s) m = fmaxf(m, part_m[(base + s) * rep + h]);
+    for (int z = 0; z < sets; ++z)
+      for (int s = 0; s < NS; ++s)
+        m = fmaxf(m, part_m[z * set_stride + (base + s) * rep + h]);
     float l = 0.f, a = 0.f;
+    for (int z = 0; z < sets; ++z)
 #pragma unroll 4
-    for (int s = 0; s < NS; ++s) {
-      const size_t i = (base + s) * rep + h;
-      const float corr = expf(part_m[i] - m);
-      l += part_l[i] * corr;
-      a += part_acc[i * DH + c] * corr;
-    }
+      for (int s = 0; s < NS; ++s) {
+        const size_t i = (base + s) * rep + h, o = z * set_stride;
+        const float corr = expf(part_m[o + i] - m);
+        l += part_l[o + i] * corr;
+        a += part_acc[o + i * DH + c] * corr;
+      }
     out[((size_t)b * kvs * rep + g * rep + h) * DH + c] =
         __float2bfloat16(a / fmaxf(l, 1e-20f));
   }
@@ -759,7 +793,7 @@ template <int DH, int REP>
 int launch(const void* q, const void* pool, const int* pt, const int* kv_pos,
            const int* q_pos, float* pm, float* pl, float* pa, void* out,
            int B, int kvs, int rep, int P, int n, int NS, int window,
-           cudaStream_t stream) {
+           int page0, int n_total, cudaStream_t stream) {
   const int stages = ring_stages(DH, rep, P);
   const size_t smem = std::max(stages * pages_per_stage(P) *
                                    page_bytes(DH, P),
@@ -771,13 +805,38 @@ int launch(const void* q, const void* pool, const int* pt, const int* kv_pos,
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(kvs, B, NS), THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(pool), pt,
-      kv_pos, q_pos, pm, pl, pa, kvs, P, n, stages, window,
+      kv_pos, q_pos, pm, pl, pa, kvs, P, n, stages, window, page0, n_total,
       1.4426950408889634f / sqrtf((float)DH), rep);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || out == nullptr) return (int)e;
   combine_kernel<DH, REP>
       <<<dim3(kvs, B), combine_threads(DH, REP), 0, stream>>>(
-          pm, pl, pa, static_cast<bf16*>(out), kvs, NS, rep);
+          pm, pl, pa, static_cast<bf16*>(out), kvs, NS, rep, 1, 0);
+  return (int)cudaGetLastError();
+}
+
+// the combine alone, over `sets` part sets: its own instance for rep 1-8
+// at dh 64 and 128, else the run-time rep (any rep)
+template <int DH>
+int combine(const float* pm, const float* pl, const float* pa, void* out,
+            int rows, int kvs, int rep, int NS, int sets, size_t stride,
+            cudaStream_t st) {
+  if constexpr (DH == 64 || DH == 128) {
+    switch (rep) {
+#define REPRO_REP(R)                                                       \
+  case R:                                                                  \
+    combine_kernel<DH, R><<<dim3(kvs, rows), combine_threads(DH, R), 0,    \
+                            st>>>(pm, pl, pa, static_cast<bf16*>(out), kvs, \
+                                  NS, R, sets, stride);                    \
+    return (int)cudaGetLastError();
+      REPRO_REP(1) REPRO_REP(2) REPRO_REP(3) REPRO_REP(4)
+      REPRO_REP(5) REPRO_REP(6) REPRO_REP(7) REPRO_REP(8)
+#undef REPRO_REP
+    }
+  }
+  combine_kernel<DH, ANY_8><<<dim3(kvs, rows), combine_threads(DH, ANY_8),
+                              0, st>>>(pm, pl, pa, static_cast<bf16*>(out),
+                                       kvs, NS, rep, sets, stride);
   return (int)cudaGetLastError();
 }
 
@@ -785,19 +844,21 @@ template <int DH>
 int launch_rep(int rep, const void* q, const void* pool, const int* pt,
                const int* kv_pos, const int* q_pos, float* pm, float* pl,
                float* pa, void* out, int B, int kvs, int P, int n, int NS,
-               int window, cudaStream_t st) {
+               int window, int page0, int n_total, cudaStream_t st) {
   if (rep > 8)
     return launch<DH, ANY_16>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out,
-                              B, kvs, rep, P, n, NS, window, st);
+                              B, kvs, rep, P, n, NS, window, page0, n_total,
+                              st);
   if constexpr (DH != 64 && DH != 128) {
     return launch<DH, ANY_8>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out,
-                             B, kvs, rep, P, n, NS, window, st);
+                             B, kvs, rep, P, n, NS, window, page0, n_total,
+                             st);
   } else {
     switch (rep) {
 #define REPRO_REP(R)                                                       \
   case R:                                                                  \
     return launch<DH, R>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,   \
-                         kvs, R, P, n, NS, window, st);
+                         kvs, R, P, n, NS, window, page0, n_total, st);
       REPRO_REP(1) REPRO_REP(2) REPRO_REP(3) REPRO_REP(4)
       REPRO_REP(5) REPRO_REP(6) REPRO_REP(7) REPRO_REP(8)
 #undef REPRO_REP
@@ -809,41 +870,63 @@ int launch_rep(int rep, const void* q, const void* pool, const int* pt,
 
 // fp32: the CUDA-core split kernel; bf16: the bulk-copied ring
 template <int DH>
-int launch_bf16(const void* q, const void* pool, const int* pt,
-                const int* kv_pos, const int* q_pos, float* pm, float* pl,
-                float* pa, void* out, int B, int kvs, int rep, int P, int n,
-                int NS, int window, cudaStream_t stream) {
-  return bulk::launch_rep<DH>(rep, q, pool, pt, kv_pos, q_pos, pm, pl, pa,
-                              out, B, kvs, P, n, NS, window, stream);
-}
-
-template <int DH>
 int launch_dtype(int dtype, const void* q, const void* pool, const int* pt,
                  const int* kv_pos, const int* q_pos, float* pm, float* pl,
                  float* pa, void* out, int B, int kvs, int rep, int P, int n,
-                 int NS, int window, cudaStream_t stream) {
+                 int NS, int window, int page0, int n_total,
+                 cudaStream_t stream) {
   if (dtype == rt::DT_F32)
     return launch<float, DH>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                             kvs, rep, P, n, NS, window, stream);
+                             kvs, rep, P, n, NS, window, page0, n_total,
+                             stream);
   if (dtype == rt::DT_BF16)
-    return launch_bf16<DH>(q, pool, pt, kv_pos, q_pos, pm, pl, pa, out, B,
-                           kvs, rep, P, n, NS, window, stream);
+    return bulk::launch_rep<DH>(rep, q, pool, pt, kv_pos, q_pos, pm, pl, pa,
+                                out, B, kvs, P, n, NS, window, page0,
+                                n_total, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 int launch_dh(int dtype, int dh, const void* q, const void* pool,
               const int* pt, const int* kv_pos, const int* q_pos, float* pm,
               float* pl, float* pa, void* out, int B, int kvs, int rep,
-              int P, int n, int NS, int window, cudaStream_t stream) {
+              int P, int n, int NS, int window, int page0, int n_total,
+              cudaStream_t stream) {
   switch (dh) {
 #define REPRO_DH(D)                                                         \
   case D:                                                                   \
     return launch_dtype<D>(dtype, q, pool, pt, kv_pos, q_pos, pm, pl, pa,   \
-                           out, B, kvs, rep, P, n, NS, window, stream);
+                           out, B, kvs, rep, P, n, NS, window, page0,       \
+                           n_total, stream);
     REPRO_DH(64) REPRO_DH(96) REPRO_DH(128) REPRO_DH(160) REPRO_DH(256)
 #undef REPRO_DH
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+int combine_dtype(int dtype, const float* pm, const float* pl,
+                  const float* pa, void* out, int rows, int kvs, int rep,
+                  int NS, int sets, size_t stride, cudaStream_t st) {
+  if (dtype == rt::DT_F32) {
+    paged_decode_combine_kernel<float, DH><<<dim3(kvs, rows), DH, 0, st>>>(
+        pm, pl, pa, static_cast<float*>(out), kvs, rep, NS, sets, stride);
+    return (int)cudaGetLastError();
+  }
+  if (dtype == rt::DT_BF16)
+    return bulk::combine<DH>(pm, pl, pa, out, rows, kvs, rep, NS, sets,
+                             stride, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int check_args(int rep, int dh, int P, int n, int NS, int dtype) {
+  if (rep < 1 || rep > MAX_REP || NS < 1 || NS > n)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == rt::DT_F32 && sub_tile(4, dh, rep, P) == 0)
+    return (int)cudaErrorInvalidValue;
+  // the tensor-core walk takes 16-key groups inside a page
+  if (dtype == rt::DT_BF16 && (P % 16 || bulk::ring_stages(dh, rep, P) == 0))
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -857,26 +940,63 @@ extern "C" int repro_paged_decode(const void* q, const void* pool,
                                   int B, int kvs, int rep, int dh, int P,
                                   int n, int NS, int window, int dtype,
                                   void* stream) {
-  if (rep < 1 || rep > MAX_REP || NS < 1 || NS > n)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == rt::DT_F32 && sub_tile(4, dh, rep, P) == 0)
-    return (int)cudaErrorInvalidValue;
-  // the tensor-core walk takes 16-key groups inside a page
-  if (dtype == rt::DT_BF16 && (P % 16 || bulk::ring_stages(dh, rep, P) == 0))
-    return (int)cudaErrorInvalidValue;
+  if (int e = check_args(rep, dh, P, n, NS, dtype)) return e;
   return launch_dh(dtype, dh, q, pool, page_table, kv_pos, q_pos,
                    static_cast<float*>(part_m), static_cast<float*>(part_l),
                    static_cast<float*>(part_acc), out, B, kvs, rep, P, n, NS,
-                   window, static_cast<cudaStream_t>(stream));
+                   window, 0, n, static_cast<cudaStream_t>(stream));
+}
+
+// The split launch alone, on a shard holding pages [page0, page0 + n) of
+// rows of n_total pages: part_m, part_l (B, kvs, NS, rep) and part_acc
+// (B, kvs, NS, rep, dh), fp32, m in natural-log units, acc unnormalised
+extern "C" int repro_paged_decode_partials(
+    const void* q, const void* pool, const int* page_table,
+    const int* kv_pos, const int* q_pos, void* part_m, void* part_l,
+    void* part_acc, int B, int kvs, int rep, int dh, int P, int n, int NS,
+    int window, int page0, int n_total, int dtype, void* stream) {
+  if (int e = check_args(rep, dh, P, n, NS, dtype)) return e;
+  if (page0 < 0 || page0 + n > n_total) return (int)cudaErrorInvalidValue;
+  return launch_dh(dtype, dh, q, pool, page_table, kv_pos, q_pos,
+                   static_cast<float*>(part_m), static_cast<float*>(part_l),
+                   static_cast<float*>(part_acc), nullptr, B, kvs, rep, P, n,
+                   NS, window, page0, n_total,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// The merge of `sets` part sets into out (rows, kvs * rep, dh) of the
+// dtype: set z is m (rows, kvs, NS, rep), then l, then acc (rows, kvs,
+// NS, rep, dh), all fp32, starting set_stride floats after set z - 1
+extern "C" int repro_softmax_combine(const void* parts, int sets,
+                                     int set_stride, int rows,
+                                     int kvs, int rep, int dh, int NS,
+                                     void* out, int dtype, void* stream) {
+  if (rows < 1 || rows > 65535 || kvs < 1 || rep < 1 || NS < 1 ||
+      sets < 1 || set_stride < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* pm = static_cast<const float*>(parts);
+  const size_t n = (size_t)rows * kvs * NS * rep;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+#define REPRO_DH(D)                                                          \
+  case D:                                                                    \
+    return combine_dtype<D>(dtype, pm, pm + n, pm + 2 * n, out, rows, kvs,  \
+                            rep, NS, sets, (size_t)set_stride, st);
+    REPRO_DH(64) REPRO_DH(96) REPRO_DH(128) REPRO_DH(160) REPRO_DH(256)
+#undef REPRO_DH
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ranges: (B, NS, 2) int32, each (row, split)'s pages [j0, j1) as the
-// bf16 kernel walks them for the rows' query positions q_pos (B,)
+// bf16 kernel walks them for the rows' query positions q_pos (B,), on a
+// shard holding pages [page0, page0 + n) of rows of n_total pages
 extern "C" int repro_decode_walk(const int* q_pos, int* ranges, int B, int n,
-                                 int P, int window, int NS, void* stream) {
+                                 int P, int window, int page0, int n_total,
+                                 int NS, void* stream) {
   if (B < 1 || n < 1 || P < 1 || NS < 1) return (int)cudaErrorInvalidValue;
   bulk::walk_kernel<<<(B * NS + 127) / 128, 128, 0,
-                      static_cast<cudaStream_t>(stream)>>>(q_pos, ranges, B,
-                                                           n, P, window, NS);
+                      static_cast<cudaStream_t>(stream)>>>(
+      q_pos, ranges, B, n, P, window, page0, n_total, NS);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,7 @@ engine's decode masks idle slots that way, and its outputs are dropped.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -60,9 +61,122 @@ def paged_decode_ref(q: torch.Tensor, pool: torch.Tensor,
                                       window=window)
 
 
+# ---------------------------------------------------------------------------
+# Softmax partial states (sequence-parallel shards)
+# ---------------------------------------------------------------------------
+#
+# A partial state is (m, l, acc) of ``parts = rows * kvs * splits * rep``
+# (row, kv head, split, head) entries: m (natural-log units) and l, then
+# the unnormalised acc of dh each, fp32, one flat buffer of
+# ``partials_numel`` floats in that order.  The kernels write it, the
+# shards exchange it, and ``softmax_combine`` merges sets of it.
+
+def partials_numel(rows: int, kvs: int, splits: int, rep: int, dh: int
+                   ) -> int:
+    return rows * kvs * splits * rep * (2 + dh)
+
+
+def pack_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    """(m, l, acc) in the buffer layout, into ``out`` (1-D fp32)."""
+    n = m.numel()
+    out[:n].copy_(m.reshape(-1))
+    out[n:2 * n].copy_(l.reshape(-1))
+    out[2 * n:].copy_(acc.reshape(-1))
+
+
+def unpack_partials(buf: torch.Tensor, rows: int, kvs: int, splits: int,
+                    rep: int, dh: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Views of a buffer's m, l: (rows, kvs, splits, rep) and acc: (rows,
+    kvs, splits, rep, dh)."""
+    n = rows * kvs * splits * rep
+    shape = (rows, kvs, splits, rep)
+    return (buf[:n].view(shape), buf[n:2 * n].view(shape),
+            buf[2 * n:(2 + dh) * n].view(*shape, dh))
+
+
+def softmax_combine_ref(parts: torch.Tensor, rows: int, kvs: int,
+                        splits: int, rep: int, dh: int, dtype
+                        ) -> torch.Tensor:
+    """Merge ``parts`` (sets, numel): every set's splits of each (row,
+    head), the rescale-and-sum of ``layers.combine_softmax_partials``,
+    then the normalised output (rows, kvs * rep, dh) in ``dtype``."""
+    sets = parts.shape[0]
+    ms, ls, accs = zip(*(unpack_partials(p, rows, kvs, splits, rep, dh)
+                         for p in parts))
+    # (rows, kvs, rep, sets * splits[, dh])
+    m = torch.cat(ms, dim=2).transpose(2, 3)
+    l = torch.cat(ls, dim=2).transpose(2, 3)
+    acc = torch.cat(accs, dim=2).transpose(2, 3)
+    assert m.shape[-1] == sets * splits
+    m, l, acc = Lyr.combine_softmax_partials(m, l, acc, axis=3)
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(rows, kvs * rep, dh).to(dtype)
+
+
+def paged_decode_partials_ref(q: torch.Tensor, pool: torch.Tensor,
+                              page_table: torch.Tensor,
+                              kv_positions: torch.Tensor,
+                              q_positions: torch.Tensor, window: int = 0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """One shard's walk of its pages, as its partial state: m, l (B, kvs,
+    rep), acc (B, kvs, rep, dh) (the reference's ``_paged_partials``).
+    Arguments as ``paged_decode_ref``'s."""
+    B, Hq, dh = q.shape
+    kvs = pool.shape[1]
+    qg = q.reshape(B, kvs, Hq // kvs, dh).float() * (1.0 / math.sqrt(dh))
+    return Lyr.paged_partials(qg, pool[page_table.long()], kv_positions,
+                              q_positions, window)
+
+
+def chunk_prefill_partials_ref(q, k_new, v_new, pool, page_table,
+                               kv_positions, q_positions, *,
+                               window: int = 0, attend_prefix: bool = True,
+                               attend_self: bool = True,
+                               shard: Tuple[int, int] = (0, 1)
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """One shard's chunk attention as its partial state: the queries
+    over the shard's prefix pages and, with ``attend_self``, the chunk's
+    own keys (the reference's ``_chunked_partials``); then the chunk's
+    K/V scattered into the pages the shard holds.  Returns m, l (B, S,
+    kvs, rep) and acc (B, S, kvs, rep, dh).  Arguments as
+    ``chunk_prefill_ref``'s."""
+    B, S, Hq, dh = q.shape
+    kvs = pool.shape[1]
+    rep = Hq // kvs
+    state = pp.PagedState(pool, page_table,
+                          torch.zeros((B,), dtype=torch.int32,
+                                      device=q.device), kv_positions)
+    ks, vs, kp, valid = [], [], [], []
+    if attend_prefix:
+        pk, pv, ppos, pvalid = pp.gather_kv(state)
+        ks, vs, kp, valid = [pk], [pv], [ppos], [pvalid]
+    if attend_self:
+        ks, vs = ks + [k_new], vs + [v_new]
+        kp, valid = kp + [q_positions], valid + [q_positions >= 0]
+    qg = (q.reshape(B, S, kvs, rep, dh).float() * (1.0 / math.sqrt(dh))
+          ).permute(0, 2, 3, 1, 4)
+    if ks:
+        m, l, acc = Lyr.chunked_partials(
+            qg, torch.cat(ks, dim=1), torch.cat(vs, dim=1), q_positions,
+            torch.cat(kp, dim=1), torch.cat(valid, dim=1), True, window,
+            1024)
+    else:
+        m = torch.full((B, kvs, rep, S), Lyr.NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, kvs, rep, S, dh), device=q.device)
+    pp.scatter_chunk(state, k_new, v_new, q_positions, shard=shard)
+    return (m.permute(0, 3, 1, 2), l.permute(0, 3, 1, 2),
+            acc.permute(0, 3, 1, 2, 4))
+
+
 def chunk_prefill_ref(q, k_new, v_new, pool, page_table, kv_positions,
                       q_positions, *, window: int = 0,
-                      attend_prefix: bool = True) -> torch.Tensor:
+                      attend_prefix: bool = True,
+                      shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """A chunk's attention over its paged prefix and then itself, then
     the chunk's K/V written into ``pool`` IN PLACE at the bytes
     ``pool.write_chunk`` writes.  Returns the attention (B, S, Hq, dh).
@@ -72,7 +186,9 @@ def chunk_prefill_ref(q, k_new, v_new, pool, page_table, kv_positions,
 
     q: (B, S, Hq, dh); k_new/v_new: (B, S, kvs, dh); pool: (NP, kvs, 2,
     P, dh) canonical; page_table: (B, n); kv_positions: (B, cap);
-    q_positions: (B, S), -1 for a padding token (no key, not written)."""
+    q_positions: (B, S), -1 for a padding token (no key, not written).
+    On an sp shard (``shard``) only the tokens whose page it holds are
+    written."""
     B, S = q_positions.shape
     state = pp.PagedState(pool, page_table,
                           torch.zeros((B,), dtype=torch.int32,
@@ -87,7 +203,7 @@ def chunk_prefill_ref(q, k_new, v_new, pool, page_table, kv_positions,
     out = Lyr.chunked_attention(q, kk, vv, q_positions, kpos,
                                 kv_valid=valid, causal=True, window=window)
     # the pool half of write_chunk (metadata stays the caller's)
-    pp.scatter_chunk(state, k_new, v_new, q_positions)
+    pp.scatter_chunk(state, k_new, v_new, q_positions, shard=shard)
     return out
 
 

@@ -19,7 +19,8 @@ assemblies") compares workers, never devices: two workers on one card
 are two entries.
 
 The exchanges between workers (``all_to_all``, ``all_reduce_sum``,
-``all_gather``, ``replicate``) copy between worker tensors with
+``all_gather``, ``sp_all_gather``, ``replicate``) copy between worker
+tensors with
 ``Tensor.copy_``: plain data movement, as ``lax.all_to_all`` is in the
 reference.  ``all_to_all``, ``all_gather`` and ``replicate`` also run
 between two assemblies (a layer's old workers and its new ones, in a
@@ -31,7 +32,7 @@ NCCL exchange is later work.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,7 +75,10 @@ def workers_of(devices: Sequence) -> List[Worker]:
 class Layout:
     """A parallelism layout for one serving instance: ``sp`` sequence-
     parallel shards x ``tp`` tensor-parallel shards, ``degree = sp * tp``
-    devices per replica."""
+    devices per replica.  A bare TP degree ``t`` is the layout
+    ``Layout(1, t)``: the entry points that take a degree turn it into
+    a ``Layout`` once (``Layout.of``), and everything inside holds
+    ``Layout`` values."""
     sp: int = 1
     tp: int = 1
 
@@ -98,20 +102,26 @@ class Layout:
                 else f"TP{self.tp}")
 
 
+def place(lay: Layout, w: int) -> Tuple[int, int, int]:
+    """Worker w's ``(replica, sp shard, tp position)`` at ``lay``: the
+    order of the reference's ``(rep, sp, tp)`` reshape of the device
+    list."""
+    return w // lay.degree, (w // lay.tp) % lay.sp, w % lay.tp
+
+
 class InstanceMesh:
-    """W workers arranged as ``(rep, tp)`` for one layout (sp = 1;
-    sequence-parallel layouts are ROADMAP queue 1 item 6), ordered as
-    the reference's reshape ``(rep, sp, tp)`` orders its devices: worker
-    w is in TP group ``w // tp`` at position ``w % tp``.  ``devices`` may
-    be workers or devices (``workers_of``)."""
+    """W workers arranged as ``(rep, sp, tp)`` for one layout, ordered as
+    the reference's reshape orders its devices (``place``): worker w is
+    in replica ``w // (sp*tp)``, sp shard ``(w // tp) % sp`` and at tp
+    position ``w % tp``.  A TP group is a run of ``tp`` consecutive
+    workers (one shard of one replica); an sp group is the ``sp``
+    workers of one replica at one tp position (``sp_groups``).
+    ``devices`` may be workers or devices (``workers_of``); ``layout``
+    a ``Layout`` or a TP degree."""
 
     def __init__(self, devices: Sequence, layout):
         lay = Layout.of(layout)
         W = len(devices)
-        if lay.sp != 1:
-            raise NotImplementedError(
-                f"layout {lay}: sequence-parallel layouts are not ported "
-                "yet (ROADMAP queue 1 item 6)")
         if W % lay.degree:
             raise ValueError(f"layout {lay} (degree {lay.degree}) does not "
                              f"divide {W} devices")
@@ -125,7 +135,15 @@ class InstanceMesh:
 
     @property
     def rep(self) -> int:
-        return self.W // self.layout.tp
+        return self.W // self.layout.degree
+
+    def sp_groups(self, lay: Optional[Layout] = None) -> List[List[int]]:
+        """The worker indices of each sp group at ``lay`` (default the
+        mesh's own): the ``sp`` workers of one replica at one tp
+        position, in shard order."""
+        lay = lay or self.layout
+        return [[r * lay.degree + s * lay.tp + p for s in range(lay.sp)]
+                for r in range(self.W // lay.degree) for p in range(lay.tp)]
 
     def groups(self, t: int) -> List[range]:
         """The worker indices of each TP group at degree ``t``: ``W/t``
@@ -177,6 +195,22 @@ class InstanceMesh:
             for w in grp:
                 out[w] = total.to(self.devices[w], copy=True)
         return out
+
+    def sp_all_gather(self, bufs: List[Optional[torch.Tensor]],
+                      lay: Layout) -> None:
+        """The all-gather inside each sp group at ``lay``, in place:
+        member i of a group holds a buffer of ``sp`` rows whose row i it
+        has written itself; its row i is copied into row i of every other
+        member's buffer, so each member ends with every member's row (in
+        shard order) in a tensor of its own.  A group whose entries are
+        None (it holds none of the rows) is skipped."""
+        for grp in self.sp_groups(lay):
+            if bufs[grp[0]] is None:
+                continue
+            for i, u in enumerate(grp):
+                for w in grp:
+                    if w != u:
+                        bufs[w][i].copy_(bufs[u][i])
 
     def all_gather(self, xs: List[torch.Tensor], dim: int,
                    dst: Optional["InstanceMesh"] = None

@@ -13,21 +13,32 @@ pool in place (no gather).  The query/key/value/output projections are
 plain ``torch.matmul``; so is the single-device engine's MLP
 (``apply_mlp``), while an engine with workers runs the padded FFN kernel
 (``apply_padded_mlp``).
+
+Sequence-parallel layouts (``attention_decode_sp``, ``attention_chunk_sp``:
+the counterparts of the reference's ``attention_decode`` /
+``attention_chunk`` with ``sp > 1``) run over every worker of a layer's
+assembly at once: each sp shard walks its own pages with the partial
+entry of the decode or chunk kernel, the shards of each sp group
+exchange their partial states (``InstanceMesh.sp_all_gather``), and one
+combine launch a worker merges them before ``wo``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import (ATTN, MLSTM, MOE, RGLRU, SLIDING,
                                       SLSTM, ModelConfig)
+from repro_torch.core.instance import shard_of
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.kernels import chunk_prefill as CP
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import padded_ffn as PF
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import ref as KR
+from repro_torch.launch.mesh import Layout
 from repro_torch.models import layers as Lyr
 from repro_torch.paged import pool as pp
 
@@ -125,19 +136,22 @@ def attention_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def attention_chunk(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     plan: PaddingPlan, positions: torch.Tensor,
                     cache: pp.PagedState, window: int = 0,
-                    first_chunk: bool = False
+                    first_chunk: bool = False,
+                    shard: Tuple[int, int] = (0, 1)
                     ) -> Tuple[torch.Tensor, pp.PagedState]:
     """Chunk-continuation prefill: the chunk's queries (x: (B,S,d),
     positions: (B,S) global) attend over the cached prefix and then the
     chunk, and the chunk's K/V are written into the cache — both by the
     chunk-prefill kernel, which updates the pool in place.
-    ``first_chunk=True`` skips the (known-empty) prefix walk."""
+    ``first_chunk=True`` skips the (known-empty) prefix walk; on an sp
+    shard (``shard``) it is the whole attention of a first chunk, and
+    only the tokens whose page the shard holds are written."""
     B, S, d = x.shape
     q, k, v = _project_qkv(p, x, cfg, plan, positions)
     attn = CP.chunk_prefill_attention(
         q, k, v, cache.pool, cache.page_table, cache.positions, positions,
-        window=window, attend_prefix=not first_chunk)
-    cache = pp.adopt_chunk_pool(cache, positions)
+        window=window, attend_prefix=not first_chunk, shard=shard)
+    cache = pp.adopt_chunk_pool(cache, positions, shard)
     out = attn.reshape(B, S, -1) @ p["wo"]
     return out, cache
 
@@ -158,6 +172,103 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                            positions[:, 0].contiguous(), window=window)
     out = attn.reshape(B, 1, -1) @ p["wo"]
     return out, cache
+
+
+def _combine_sp(bufs: List[Optional[torch.Tensor]], geo: Dict,
+                ps: List[Params], xs: List[torch.Tensor], mesh,
+                layout: Layout) -> List[Optional[torch.Tensor]]:
+    """Exchange the shards' partial states inside each sp group, then
+    each worker's combine launch and ``wo``: the attention sub-layer's
+    partial output (before the TP all-reduce), one a worker."""
+    mesh.sp_all_gather(bufs, layout)
+    outs: List[Optional[torch.Tensor]] = []
+    for w, buf in enumerate(bufs):
+        if buf is None:
+            outs.append(None)
+            continue
+        g = geo[w]
+        attn = PA.softmax_combine(buf, g["rows"], g["kvs"], g["splits"],
+                                  g["rep"], g["dh"], xs[w].dtype)
+        B, S = xs[w].shape[:2]
+        outs.append(attn.reshape(B, S, -1) @ ps[w]["wo"])
+    return outs
+
+
+def attention_decode_sp(ps: List[Params], xs: List[Optional[torch.Tensor]],
+                        cfg: ModelConfig, plan: PaddingPlan,
+                        positions: List[torch.Tensor],
+                        caches: List[Optional[pp.PagedState]], lay: Layout,
+                        mesh, window: int = 0
+                        ) -> List[Optional[torch.Tensor]]:
+    """One-token decode of every worker of ``mesh`` at the sp layout
+    ``lay`` (lists: one entry a worker; a worker whose cache is None
+    holds none of the rows).  Each worker projects q/k/v for its heads
+    over its replica's rows; the shard holding a row's position appends
+    its K/V; every shard runs the decode kernel's split launch over its
+    own pages into row s of a buffer of ``sp`` partial states; the sp
+    group's exchange fills the other rows, and one combine launch merges
+    them (``_combine_sp``)."""
+    bufs: List[Optional[torch.Tensor]] = [None] * len(caches)
+    geo: Dict[int, Dict] = {}
+    for w, cache in enumerate(caches):
+        if cache is None:
+            continue
+        s, sp = shard_of(lay, w)
+        q, k, v = _project_qkv(ps[w], xs[w], cfg, plan, positions[w])
+        pp.append_token(cache, k[:, 0], v[:, 0], shard=(s, sp))
+        B, _, Hq, dh = q.shape
+        kvs, n = cache.pool.shape[1], cache.page_table.shape[1]
+        g = {"rows": B, "kvs": kvs, "rep": Hq // kvs, "dh": dh,
+             "splits": PA.partial_splits(B, kvs, n, q.device)}
+        buf = torch.empty((sp, KR.partials_numel(**g)),
+                          dtype=torch.float32, device=q.device)
+        PA.paged_decode_partials(q[:, 0].contiguous(), cache.pool,
+                                 cache.page_table, cache.positions,
+                                 positions[w][:, 0].contiguous(), buf[s],
+                                 window=window, shard=(s, sp))
+        bufs[w], geo[w] = buf, g
+    return _combine_sp(bufs, geo, ps, xs, mesh, lay)
+
+
+def attention_chunk_sp(ps: List[Params], xs: List[Optional[torch.Tensor]],
+                       cfg: ModelConfig, plan: PaddingPlan,
+                       positions: List[torch.Tensor],
+                       caches: List[Optional[pp.PagedState]], lay: Layout,
+                       mesh, window: int = 0, first_chunk: bool = False
+                       ) -> List[Optional[torch.Tensor]]:
+    """A prefill chunk of every worker of ``mesh`` at the sp layout
+    ``lay`` (lists as ``attention_decode_sp``'s).  A first chunk has
+    no prefix: every shard computes the chunk's whole attention for its
+    heads and writes only its own pages (``attention_chunk`` on a
+    shard).  A later chunk: each shard runs the chunk kernel's partial
+    entry over its own prefix pages, shard 0 also over the chunk's own
+    keys, and scatters the tokens whose pages it holds; the partial
+    states are exchanged and combined as in decode."""
+    if first_chunk:
+        return [None if c is None else attention_chunk(
+            ps[w], xs[w], cfg, plan, positions[w], c, window=window,
+            first_chunk=True, shard=shard_of(lay, w))[0]
+            for w, c in enumerate(caches)]
+    bufs: List[Optional[torch.Tensor]] = [None] * len(caches)
+    geo: Dict[int, Dict] = {}
+    for w, cache in enumerate(caches):
+        if cache is None:
+            continue
+        s, sp = shard_of(lay, w)
+        q, k, v = _project_qkv(ps[w], xs[w], cfg, plan, positions[w])
+        B, S, Hq, dh = q.shape
+        kvs = cache.pool.shape[1]
+        g = {"rows": B * S, "kvs": kvs, "rep": Hq // kvs, "dh": dh,
+             "splits": 1}
+        buf = torch.empty((sp, KR.partials_numel(**g)),
+                          dtype=torch.float32, device=q.device)
+        CP.chunk_prefill_partials(
+            q, k, v, cache.pool, cache.page_table, cache.positions,
+            positions[w], buf[s], window=window, attend_self=s == 0,
+            shard=(s, sp))
+        pp.adopt_chunk_pool(cache, positions[w], (s, sp))
+        bufs[w], geo[w] = buf, g
+    return _combine_sp(bufs, geo, ps, xs, mesh, lay)
 
 
 # ===========================================================================

@@ -1,10 +1,14 @@
 """Core layer math of the dense decoder, in PyTorch.
 
 The counterpart of ``repro.models.layers`` for the ATTN / SLIDING block
-kinds at sequence-parallel degree 1.  Attention here is the plain
-online-softmax version (chunked over keys, never forming a full score
-matrix for long keys); on the card the CUDA kernels in
-``repro_torch.kernels`` compute the same functions.
+kinds.  Attention here is the plain online-softmax version (chunked over
+keys, never forming a full score matrix for long keys); on the card the
+CUDA kernels in ``repro_torch.kernels`` compute the same functions.  The
+walks also return their unnormalised partial state (``chunked_partials``,
+``paged_partials``: the reference's ``_chunked_partials`` /
+``_paged_partials``), which ``combine_softmax_partials`` merges across
+sequence-parallel shards; ``sp > 1`` computes the sharded forms as the
+reference does, each shard a contiguous slice of the keys.
 
 Numerical contract kept from the reference: ``NEG_INF`` is the FINITE
 -1e30 and normalisers are floored at 1e-20, so a row whose keys are all
@@ -89,34 +93,34 @@ def _online_update(m, l, acc, s, v):
     return m_new, l, acc
 
 
-def chunked_attention(
-    q: torch.Tensor,               # (B, Sq, Hq, dh)
-    k: torch.Tensor,               # (B, Sk, Hkv, dh)
-    v: torch.Tensor,               # (B, Sk, Hkv, dh)
-    q_positions: torch.Tensor,     # (B, Sq) global positions of queries
-    kv_positions: torch.Tensor,    # (B, Sk) global positions of keys
-    kv_valid: Optional[torch.Tensor] = None,  # (B, Sk) bool validity
-    causal: bool = True,
-    window: int = 0,               # 0 -> unlimited; >0 -> sliding window
-    kv_chunk: int = 1024,
-) -> torch.Tensor:
-    """Online-softmax attention over key chunks; never forms (Sq, Sk).
-    The plain version of the flash and chunk-prefill kernels."""
-    B, Sq, Hq, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    assert Hq % Hkv == 0, (Hq, Hkv)
-    rep = Hq // Hkv
-    scale = 1.0 / math.sqrt(dh)
-    # (B, G, rep, Sq, dh) queries; (B, G, Sk, dh) keys and values
-    qg = (q.reshape(B, Sq, Hkv, rep, dh).float() * scale).permute(0, 2, 3, 1, 4)
+def chunked_partials(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                     valid: torch.Tensor, causal: bool, window: int,
+                     kv_chunk: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Online-softmax partial state (m, l, acc) of one key walk, m in
+    natural-log units: the reference's ``_chunked_partials``.  qg: (B,
+    G, rep, Sq, dh) scaled fp32 queries; k, v: (B, Sk, G, dh);
+    positions: (B, Sq) / (B, Sk); valid: (B, Sk).  Returns m, l: (B, G,
+    rep, Sq), acc: (B, G, rep, Sq, dh)."""
+    B, Hkv, rep, Sq, dh = qg.shape
+    Sk = k.shape[1]
+    # the last chunk padded with invalid keys, as the reference's scan
+    # walks whole chunks (a row whose keys are all masked counts them)
+    kv_chunk = min(kv_chunk, Sk)
+    pad = (-Sk) % kv_chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+        valid = F.pad(valid, (0, pad), value=False)
+        Sk += pad
     kg = k.float().permute(0, 2, 1, 3)
     vg = v.float().permute(0, 2, 1, 3)
-    valid = (kv_valid if kv_valid is not None
-             else torch.ones((B, Sk), dtype=torch.bool, device=q.device))
     qp = q_positions[:, None, None, :, None]
-    m = torch.full((B, Hkv, rep, Sq), NEG_INF, device=q.device)
-    l = torch.zeros((B, Hkv, rep, Sq), device=q.device)
-    acc = torch.zeros((B, Hkv, rep, Sq, dh), device=q.device)
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, device=qg.device)
+    l = torch.zeros((B, Hkv, rep, Sq), device=qg.device)
+    acc = torch.zeros((B, Hkv, rep, Sq, dh), device=qg.device)
     for c0 in range(0, Sk, kv_chunk):
         c1 = min(c0 + kv_chunk, Sk)
         s = qg @ kg[:, :, None, c0:c1].transpose(-1, -2)   # (B,G,rep,Sq,ck)
@@ -128,6 +132,61 @@ def chunked_attention(
             mask = mask & (pj > qp - window)
         s = torch.where(mask, s, NEG_INF)
         m, l, acc = _online_update(m, l, acc, s, vg[:, :, None, c0:c1])
+    return m, l, acc
+
+
+def chunked_attention(
+    q: torch.Tensor,               # (B, Sq, Hq, dh)
+    k: torch.Tensor,               # (B, Sk, Hkv, dh)
+    v: torch.Tensor,               # (B, Sk, Hkv, dh)
+    q_positions: torch.Tensor,     # (B, Sq) global positions of queries
+    kv_positions: torch.Tensor,    # (B, Sk) global positions of keys
+    kv_valid: Optional[torch.Tensor] = None,  # (B, Sk) bool validity
+    causal: bool = True,
+    window: int = 0,               # 0 -> unlimited; >0 -> sliding window
+    kv_chunk: int = 1024,
+    sp: int = 1,
+) -> torch.Tensor:
+    """Online-softmax attention over key chunks; never forms (Sq, Sk).
+    The plain version of the flash and chunk-prefill kernels.  ``sp >
+    1``: the keys split into ``sp`` contiguous slices (padded with
+    invalid keys to equal length), each walked alone, and the partial
+    states combined once, as the reference's sequence-parallel form.
+    No engine path sets ``sp``: a sharded engine runs
+    ``chunked_partials`` and ``combine_softmax_partials`` itself; the
+    option mirrors the reference's signature for the parity tests."""
+    B, Sq, Hq, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    # (B, G, rep, Sq, dh) queries
+    qg = (q.reshape(B, Sq, Hkv, rep, dh).float() * scale
+          ).permute(0, 2, 3, 1, 4)
+    valid = (kv_valid if kv_valid is not None
+             else torch.ones((B, Sk), dtype=torch.bool, device=q.device))
+    if sp > 1 and Sk > sp:
+        pad = (-Sk) % sp
+        if pad:
+            k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, 0, 0, pad))
+            kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+            valid = F.pad(valid, (0, pad), value=False)
+        Sks = (Sk + pad) // sp
+
+        def fold(x):
+            return x.reshape(B * sp, Sks, *x.shape[2:])
+
+        m, l, acc = chunked_partials(
+            qg.repeat_interleave(sp, dim=0), fold(k), fold(v),
+            q_positions.repeat_interleave(sp, dim=0), fold(kv_positions),
+            fold(valid), causal, window, kv_chunk)
+        m, l, acc = combine_softmax_partials(
+            m.reshape(B, sp, *m.shape[1:]), l.reshape(B, sp, *l.shape[1:]),
+            acc.reshape(B, sp, *acc.shape[1:]), axis=1)
+    else:
+        m, l, acc = chunked_partials(qg, k, v, q_positions, kv_positions,
+                                     valid, causal, window, kv_chunk)
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dh)
     return out.to(q.dtype)
@@ -148,26 +207,22 @@ def combine_softmax_partials(m: torch.Tensor, l: torch.Tensor,
     return m_new, l_new, acc_new
 
 
-def paged_decode_attention(
-    q: torch.Tensor,               # (B, Hq, dh) one query token per row
-    pages: torch.Tensor,           # (B, n, kvs, 2, P, dh) the rows' pages
-    kv_positions: torch.Tensor,    # (B, n*P) global positions (-1 = empty)
-    q_positions: torch.Tensor,     # (B,)
-    window: int = 0,
-) -> torch.Tensor:
-    """Decode attention walking each row's pages with an online softmax,
-    masked by stored POSITIONS (``pos >= 0``, ``pos <= q_pos``, window) —
-    the plain version of the paged-decode kernel."""
+def paged_partials(qg: torch.Tensor, pages: torch.Tensor,
+                   kv_positions: torch.Tensor, q_positions: torch.Tensor,
+                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Online-softmax partial state (m, l, acc) of one page walk, m in
+    natural-log units: the reference's ``_paged_partials``.  qg: (B, kvs,
+    rep, dh) scaled fp32 queries; pages: (B, n, kvs, 2, P, dh);
+    kv_positions: (B, n*P); q_positions: (B,).  Returns m, l: (B, kvs,
+    rep), acc: (B, kvs, rep, dh)."""
     B, n, kvs, _, P, dh = pages.shape
-    Hq = q.shape[1]
-    rep = Hq // kvs
-    scale = 1.0 / math.sqrt(dh)
-    qg = (q.reshape(B, kvs, rep, dh).float() * scale)
+    rep = qg.shape[2]
     pos = kv_positions.reshape(B, n, P)
     qp = q_positions[:, None]
-    m = torch.full((B, kvs, rep), NEG_INF, device=q.device)
-    l = torch.zeros((B, kvs, rep), device=q.device)
-    acc = torch.zeros((B, kvs, rep, dh), device=q.device)
+    m = torch.full((B, kvs, rep), NEG_INF, device=qg.device)
+    l = torch.zeros((B, kvs, rep), device=qg.device)
+    acc = torch.zeros((B, kvs, rep, dh), device=qg.device)
     for j in range(n):
         kj = pages[:, j, :, 0].float()                # (B, kvs, P, dh)
         vj = pages[:, j, :, 1].float()
@@ -178,5 +233,42 @@ def paged_decode_attention(
         s = qg @ kj.transpose(-1, -2)                 # (B, kvs, rep, P)
         s = torch.where(mask[:, None, None, :], s, NEG_INF)
         m, l, acc = _online_update(m, l, acc, s, vj)
+    return m, l, acc
+
+
+def paged_decode_attention(
+    q: torch.Tensor,               # (B, Hq, dh) one query token per row
+    pages: torch.Tensor,           # (B, n, kvs, 2, P, dh) the rows' pages
+    kv_positions: torch.Tensor,    # (B, n*P) global positions (-1 = empty)
+    q_positions: torch.Tensor,     # (B,)
+    window: int = 0,
+    sp: int = 1,
+) -> torch.Tensor:
+    """Decode attention walking each row's pages with an online softmax,
+    masked by stored POSITIONS (``pos >= 0``, ``pos <= q_pos``, window) —
+    the plain version of the paged-decode kernel.  ``sp > 1`` (with
+    ``n % sp == 0`` and ``n > sp``): each of ``sp`` contiguous page
+    slices walked alone and the partial states combined once, as the
+    reference's sequence-parallel form.  No engine path sets ``sp`` (a
+    sharded engine runs ``paged_partials`` and the combine itself); the
+    option mirrors the reference's signature for the parity tests."""
+    B, n, kvs, _, P, dh = pages.shape
+    Hq = q.shape[1]
+    rep = Hq // kvs
+    scale = 1.0 / math.sqrt(dh)
+    qg = (q.reshape(B, kvs, rep, dh).float() * scale)
+    if sp > 1 and n % sp == 0 and n > sp:
+        ns = n // sp
+        m, l, acc = paged_partials(
+            qg.repeat_interleave(sp, dim=0),
+            pages.reshape(B * sp, ns, *pages.shape[2:]),
+            kv_positions.reshape(B * sp, ns * P),
+            q_positions.repeat_interleave(sp, dim=0), window)
+        m, l, acc = combine_softmax_partials(
+            m.reshape(B, sp, kvs, rep), l.reshape(B, sp, kvs, rep),
+            acc.reshape(B, sp, kvs, rep, dh), axis=1)
+    else:
+        m, l, acc = paged_partials(qg, pages, kv_positions, q_positions,
+                                   window)
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     return out.reshape(B, Hq, dh).to(q.dtype)

@@ -23,6 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core.padding import PaddingPlan
+from repro_torch.launch.mesh import Layout
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as Lyr
 from repro_torch.paged import pool as pp
@@ -216,32 +217,38 @@ def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, *, device
 #
 # The counterpart of the reference's per-layer paths
 # (``repro.models.model.decode_step_layers`` / ``prefill_chunk_layers``).
-# Each layer's attention and MLP sit at a TP degree t of
-# ``core.instance`` on the layer's assembly of workers
-# (``WorkerLayer.mesh``) and, mid-transform, layers (and the two halves
-# of a layer) may sit at different degrees, and layers on different
-# assemblies (a merge or a split).  Activations of a row set (the decode
-# batch, or one prefilling slot) follow the placement of the sub-layer
-# about to run: every worker of TP group g holds the rows of the group's
-# slots.  At a degree or assembly boundary a worker whose own rows cover
-# its new ones keeps a slice of them; the others receive the rows
-# joined once from one worker of each source group.  This is the
-# counterpart of ``_boundary_put``.  A sub-layer at t > 1 ends in an
-# all-reduce-sum of the partial outputs inside each TP group, after the
-# attention ``wo`` and after the MLP ``wo``: groups hold different
-# slots, so their partial products never mix.
+# Each layer's attention and MLP sit at a layout ``(sp, tp)`` of
+# ``core.instance`` (an int is a TP degree) on the layer's assembly of
+# workers (``WorkerLayer.mesh``) and, mid-transform, layers (and the two
+# halves of a layer) may sit at different layouts, and layers on
+# different assemblies (a merge or a split).  Activations of a row set
+# (the decode batch, or one prefilling slot) follow the placement of the
+# sub-layer about to run: every worker of replica r holds the rows of
+# the replica's slots (the degree ``sp * tp`` sets the replicas).  At a
+# degree or assembly boundary a worker whose own rows cover its new ones
+# keeps a slice of them; the others receive the rows joined once from
+# one worker of each source replica.  This is the counterpart of
+# ``_boundary_put``.  A sub-layer at tp > 1 ends in an all-reduce-sum of
+# the partial outputs inside each TP group, after the attention ``wo``
+# and after the MLP ``wo``: groups hold different slots, or are other
+# sp shards of the same slots, so their partial products never mix.
+# Attention at sp > 1 runs over the whole assembly at once
+# (``blocks.attention_decode_sp`` / ``attention_chunk_sp``: partial
+# states exchanged and combined inside each sp group); a whole prompt
+# runs the flash kernel on every shard, which writes its own pages.
 
 
 class RowSet:
     """Global slots ``rows`` (sorted) of a ``batch``-slot engine;
-    ``span(t, W, w)`` is the index range into ``rows`` that worker w of
-    a W-worker assembly holds at TP degree t (its group's slots)."""
+    ``span(layout, W, w)`` is the index range into ``rows`` that worker
+    w of a W-worker assembly holds at ``layout`` (its replica's
+    slots)."""
 
     def __init__(self, rows: Sequence[int], batch: int):
         self.rows, self.batch = list(rows), batch
 
-    def span(self, t: int, W: int, w: int) -> Tuple[int, int]:
-        lo, hi = I.rows_of(t, self.batch, W, w)
+    def span(self, lay: Layout, W: int, w: int) -> Tuple[int, int]:
+        lo, hi = I.rows_of(lay, self.batch, W, w)
         idx = [i for i, r in enumerate(self.rows) if lo <= r < hi]
         return (idx[0], idx[-1] + 1) if idx else (0, 0)
 
@@ -250,27 +257,29 @@ class RowSet:
         """Worker w's cache for these rows: the whole cache for the full
         batch, else a batch-1 in-place view of the one slot (None when
         worker w holds none of the rows)."""
-        W, t = layer.mesh.W, layer.attn_layout
-        lo, hi = self.span(t, W, w)
+        W, lay = layer.mesh.W, layer.attn_layout
+        lo, hi = self.span(lay, W, w)
         if hi == lo:
             return None
         cache = layer.cache[w]
         if len(self.rows) == self.batch:
             return cache
         assert len(self.rows) == 1, "row sets are one slot or the batch"
-        base = I.rows_of(t, self.batch, W, w)[0]
+        base = I.rows_of(lay, self.batch, W, w)[0]
         return pp.slot_view(cache, self.rows[0] - base)
 
 
 def relayout(xs: List[torch.Tensor], src: Tuple, dst: Tuple,
              rows: RowSet) -> List[torch.Tensor]:
     """Move a row set's activations from placement ``src`` to ``dst``, a
-    placement being ``(degree, mesh)``: a worker of both whose rows
+    placement being ``(layout, mesh)``: a worker of both whose rows
     cover its new ones slices its own tensor; every other worker
     receives its rows from the rows joined once (one worker of each
-    source group, in slot order)."""
+    source replica, in slot order).  Two layouts of one degree on the
+    same workers place the rows alike."""
     (ts, ms), (td, md) = src, dst
-    if ts == td and ms.same_workers(md):
+    ds = ts.degree
+    if ds == td.degree and ms.same_workers(md):
         return xs
     out, full = [], None
     for w, wk in enumerate(md.workers):
@@ -283,7 +292,7 @@ def relayout(xs: List[torch.Tensor], src: Tuple, dst: Tuple,
                 continue
         if full is None:
             dev = ms.devices[0]
-            full = torch.cat([xs[g].to(dev) for g in range(0, ms.W, ts)])
+            full = torch.cat([xs[g].to(dev) for g in range(0, ms.W, ds)])
         out.append(full[lo:hi].to(wk.device, copy=True))
     return out
 
@@ -302,8 +311,9 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
     tensors).  ``mode``: ``decode`` (S = 1: append at the cursor, paged
     decode kernel), ``seq`` (a whole prompt from position 0: flash
     kernel, then the cache fill) or ``chunk`` (the chunk-prefill kernel
-    with its scatter).  ``on_layer(i)`` runs after layer i has been
-    issued (the transform session's hook).  ``caches``: one batch-1
+    with its scatter); at sp > 1 each through its sharded form.
+    ``on_layer(i)`` runs after layer i has been issued (the transform
+    session's hook).  ``caches``: one batch-1
     state a layer that replaces the worker's view of a one-row set (a
     spilled slot's extended view, the layers at TP1).  The MLP replicas
     are in the Eq. 2 layout of ``plan.max_tp`` shards.  Returns the last token's
@@ -311,15 +321,16 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
     eps = cfg.norm_eps
     S = plan.max_tp
 
-    def part(x: torch.Tensor, t: int, mesh, w: int) -> torch.Tensor:
-        return x[slice(*rows.span(t, mesh.W, w))].to(mesh.devices[w])
+    def part(x: torch.Tensor, lay: Layout, mesh, w: int) -> torch.Tensor:
+        return x[slice(*rows.span(lay, mesh.W, w))].to(mesh.devices[w])
 
     # the embedding runs where the first layer's attention does, or on
     # every static worker (one group) when that is another assembly
+    static_tp = Layout(1, static_mesh.W)
     first = (layers[0].attn_layout, layers[0].mesh) if layers else (
-        static_mesh.W, static_mesh)
+        static_tp, static_mesh)
     here = (first[0] if static_mesh.same_workers(first[1])
-            else static_mesh.W, static_mesh)
+            else static_tp, static_mesh)
     xs = [static[w]["embed"][part(tokens, here[0], static_mesh, w)]
           for w in range(static_mesh.W)]
     for i, layer in enumerate(layers):
@@ -327,33 +338,45 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
         mesh = layer.mesh
         xs = relayout(xs, here, (layer.attn_layout, mesh), rows)
         here = (layer.attn_layout, mesh)
-        outs: List[Optional[torch.Tensor]] = []
-        for w in range(mesh.W):
-            x, cache = xs[w], rows.views(layer, w)
-            if cache is None:
-                outs.append(None)
-                continue
-            if caches is not None:
-                cache = caches[i]
-            h = Lyr.rmsnorm(x, layer.ln1[w], eps)
-            pos = part(positions, here[0], mesh, w)
-            p = layer.attn[w]
-            if mode == "decode":
-                o, _ = B.attention_decode(p, h, cfg, plan, pos, cache,
-                                          window=window)
-            elif mode == "seq":
-                o, (k, v) = B.attention_seq(p, h, cfg, plan, pos,
-                                            window=window)
-                pp.write_prefill(cache, k, v)
-            else:
-                o, _ = B.attention_chunk(p, h, cfg, plan, pos, cache,
-                                         window=window,
-                                         first_chunk=first_chunk)
-            outs.append(o)
-        xs = _residual(xs, outs, here[0], mesh)
+        lay = layer.attn_layout
+        views = [rows.views(layer, w) for w in range(mesh.W)]
+        if caches is not None:
+            views = [None if v is None else caches[i] for v in views]
+        hs = [None if v is None else Lyr.rmsnorm(xs[w], layer.ln1[w], eps)
+              for w, v in enumerate(views)]
+        poss = [None if v is None else part(positions, lay, mesh, w)
+                for w, v in enumerate(views)]
+        if lay.sp > 1 and mode == "decode":
+            outs = B.attention_decode_sp(layer.attn, hs, cfg, plan, poss,
+                                         views, lay, mesh, window=window)
+        elif lay.sp > 1 and mode == "chunk":
+            outs = B.attention_chunk_sp(layer.attn, hs, cfg, plan, poss,
+                                        views, lay, mesh, window=window,
+                                        first_chunk=first_chunk)
+        else:
+            outs = []
+            for w, cache in enumerate(views):
+                if cache is None:
+                    outs.append(None)
+                    continue
+                h, pos, p = hs[w], poss[w], layer.attn[w]
+                if mode == "decode":
+                    o, _ = B.attention_decode(p, h, cfg, plan, pos, cache,
+                                              window=window)
+                elif mode == "seq":
+                    o, (k, v) = B.attention_seq(p, h, cfg, plan, pos,
+                                                window=window)
+                    pp.write_prefill(cache, k, v,
+                                     shard=I.shard_of(lay, w))
+                else:
+                    o, _ = B.attention_chunk(p, h, cfg, plan, pos, cache,
+                                             window=window,
+                                             first_chunk=first_chunk)
+                outs.append(o)
+        xs = _residual(xs, outs, lay.tp, mesh)
         xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
         here = (layer.mlp_layout, mesh)
-        tp, ff = I.mlp_shards(here[0], S, cfg.d_ff)
+        tp, ff = I.mlp_shards(layer.mlp_layout.tp, S, cfg.d_ff)
         outs = []
         for w in range(mesh.W):
             if xs[w].shape[0] == 0:
@@ -361,22 +384,23 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                 continue
             h = Lyr.rmsnorm(xs[w], layer.ln2[w], eps)
             outs.append(B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff))
-        xs = _residual(xs, outs, here[0], mesh)
+        xs = _residual(xs, outs, layer.mlp_layout.tp, mesh)
         if on_layer is not None:
             on_layer(i)
     if not here[1].same_workers(static_mesh):
-        xs = relayout(xs, here, (static_mesh.W, static_mesh), rows)
-        here = (static_mesh.W, static_mesh)
-    # the head runs on one worker of each group, over the group's rows
+        xs = relayout(xs, here, (static_tp, static_mesh), rows)
+        here = (static_tp, static_mesh)
+    # the head runs on one worker of each replica, over its rows
     dev0 = static_mesh.devices[0]
     parts = [lm_logits(static[w], plan, cfg, xs[w][:, -1:])[:, 0].to(dev0)
-             for w in range(0, static_mesh.W, here[0]) if xs[w].shape[0]]
+             for w in range(0, static_mesh.W, here[0].degree)
+             if xs[w].shape[0]]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _residual(xs, outs, t: int, mesh) -> List[torch.Tensor]:
-    """x + sub-layer output; at t > 1 the partial outputs are summed
+def _residual(xs, outs, tp: int, mesh) -> List[torch.Tensor]:
+    """x + sub-layer output; at tp > 1 the partial outputs are summed
     inside each TP group first."""
-    if t > 1:
-        outs = mesh.all_reduce_sum(outs, t)
+    if tp > 1:
+        outs = mesh.all_reduce_sum(outs, tp)
     return [x if o is None else x + o for x, o in zip(xs, outs)]

@@ -18,6 +18,14 @@ page_tokens`` token slots: full-attention caches never wrap (capacity >=
 max seq len); sliding-window caches set capacity = window.
 ``positions`` records each slot's global position for masking (-1 =
 empty).
+
+Sequence-parallel shards (``shard=(s, sp)``): a state may hold only
+shard s of sp of each row's pages, pages ``[s*ns, (s+1)*ns)`` of the
+row's ``sp * ns`` (``ns`` = its page-table columns), with the GLOBAL
+positions of those slots in ``positions``.  The ring is then the row's
+global one, ``sp * capacity`` slots, and each write lands only the
+positions whose page the shard holds, at its local page; the cursor
+(``seq_lens``) is the row's global one on every shard.
 """
 from __future__ import annotations
 
@@ -92,16 +100,20 @@ def slot_view(state: PagedState, slot: int,
 
 
 def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
-                  storage_layout: str = L.CANONICAL) -> PagedState:
+                  storage_layout: str = L.CANONICAL,
+                  shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Write a full prompt's K/V. k, v: (B, S, kv_slots, head_dim).
 
     Every page of each row's capacity is written (zeros past the
     prompt).  For ring caches (capacity < S) only the trailing
-    ``capacity`` tokens are kept."""
+    ``capacity`` tokens are kept.  On an sp shard, the shard's slots of
+    the row's global ring."""
     pool_c = canonical(state.pool, storage_layout)
     NP, kvs, _, P, dh = pool_c.shape
     B, S = k.shape[:2]
-    cap = state.capacity
+    s, sp = shard
+    local = state.capacity
+    cap = local * sp
     dev = k.device
     if S > cap:
         k, v = k[:, S - cap:], v[:, S - cap:]
@@ -117,6 +129,10 @@ def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
             torch.full((cap - S,), -1, dtype=torch.int32, device=dev)])
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, cap - S))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, cap - S))
+    if sp > 1:
+        keep = slice(s * local, (s + 1) * local)
+        k, v, pos_vals = k[:, keep], v[:, keep], pos_vals[keep]
+        cap = local
     n = cap // P
     kv = torch.stack([k, v], dim=2)                   # (B, cap, 2, kvs, dh)
     kv = kv.reshape(B, n, P, 2, kvs, dh).permute(0, 1, 4, 3, 2, 5)
@@ -130,20 +146,24 @@ def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
 def write_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
                 positions: torch.Tensor,
                 storage_layout: str = L.CANONICAL,
-                identity_pages: bool = False) -> PagedState:
+                identity_pages: bool = False,
+                shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Write one prefill CHUNK — a contiguous run of prompt tokens
     starting mid-sequence.  k, v: (B, S, kv_slots, head_dim);
     ``positions``: (B, S) the tokens' global positions.  The token with
     global position p lands in ring slot ``p % capacity``."""
-    scatter_chunk(state, k, v, positions, storage_layout, identity_pages)
-    return adopt_chunk_pool(state, positions)
+    scatter_chunk(state, k, v, positions, storage_layout, identity_pages,
+                  shard)
+    return adopt_chunk_pool(state, positions, shard)
 
 
 def scatter_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor,
                   storage_layout: str = L.CANONICAL,
-                  identity_pages: bool = False) -> None:
-    """Pool half of ``write_chunk``: the chunk's K/V bytes only.
+                  identity_pages: bool = False,
+                  shard: Tuple[int, int] = (0, 1)) -> None:
+    """Pool half of ``write_chunk``: the chunk's K/V bytes only (on an
+    sp shard, the tokens whose page it holds).
 
     A padding token (position < 0) keeps the old bytes, as the CUDA
     chunk scatter does; the reference would write it into ring slot
@@ -151,7 +171,10 @@ def scatter_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
     pool_c = canonical(state.pool, storage_layout)
     P = pool_c.shape[3]
     B, S = positions.shape
-    slot = positions.long() % state.capacity                 # (B, S)
+    s, sp = shard
+    slot = positions.long() % (state.capacity * sp) - s * state.capacity
+    keep = (positions >= 0) & (slot >= 0) & (slot < state.capacity)
+    slot = slot.clamp(0, state.capacity - 1)                 # (B, S)
     kv = torch.stack([k, v], dim=3)                          # (B,S,kvs,2,dh)
     if identity_pages:
         # slot-partitioned pools: row b owns pages [b*mps, (b+1)*mps)
@@ -160,17 +183,28 @@ def scatter_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
         page_idx = rows * mps + slot // P
     else:
         page_idx = state.page_table.long().gather(1, slot // P)
-    keep = positions >= 0
     pool_c[page_idx[keep], :, :, (slot % P)[keep], :] = kv[keep].to(
         pool_c.dtype)
 
 
-def adopt_chunk_pool(state: PagedState, positions: torch.Tensor
-                     ) -> PagedState:
+def adopt_chunk_pool(state: PagedState, positions: torch.Tensor,
+                     shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Metadata half of ``write_chunk``: the chunk-prefill kernel already
     scattered the chunk's K/V into the pool; apply the same
-    positions/seq_lens update so the state is indistinguishable."""
+    positions/seq_lens update so the state is indistinguishable.  On an
+    sp shard of a chunk of contiguous positions, the shard's slots the
+    chunk covers, from the chunk's first position (no host sync)."""
     B, S = positions.shape
+    s, sp = shard
+    if sp > 1:
+        cap, local = state.capacity * sp, state.capacity
+        slots = s * local + torch.arange(local, device=positions.device)
+        off = (slots[None, :] - positions[:, :1].long()) % cap  # (B, local)
+        state.positions.copy_(torch.where(
+            off < S, positions[:, :1].long() + off,
+            state.positions.long()).to(state.positions.dtype))
+        state.seq_lens.copy_(positions[:, -1] + 1)
+        return state
     slot = positions.long() % state.capacity
     rows = torch.arange(B, device=positions.device)[:, None]
     state.positions[rows, slot] = positions.to(state.positions.dtype)
@@ -181,19 +215,37 @@ def adopt_chunk_pool(state: PagedState, positions: torch.Tensor
 
 
 def append_token(state: PagedState, k: torch.Tensor, v: torch.Tensor,
-                 storage_layout: str = L.CANONICAL) -> PagedState:
+                 storage_layout: str = L.CANONICAL,
+                 shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Append one token per sequence at its ``seq_lens`` cursor.
-    k, v: (B, kv_slots, head_dim)."""
+    k, v: (B, kv_slots, head_dim).  On an sp shard only the rows whose
+    cursor lies in the shard's pages write (the others rewrite a slot of
+    their own row with the bytes it holds: no host sync), and every
+    row's cursor advances."""
     pool_c = canonical(state.pool, storage_layout)
     P = pool_c.shape[3]
     B = k.shape[0]
     pos = state.seq_lens.long()                       # (B,) global position
-    slot = pos % state.capacity
     kv = torch.stack([k, v], dim=1).transpose(1, 2)   # (B, kvs, 2, dh)
-    page_idx = state.page_table.long().gather(1, (slot // P)[:, None])[:, 0]
-    pool_c[page_idx, :, :, slot % P, :] = kv.to(pool_c.dtype)
     rows = torch.arange(B, device=k.device)
-    state.positions[rows, slot] = state.seq_lens
+    s, sp = shard
+    if sp == 1:
+        slot = pos % state.capacity
+        page_idx = state.page_table.long().gather(
+            1, (slot // P)[:, None])[:, 0]
+        pool_c[page_idx, :, :, slot % P, :] = kv.to(pool_c.dtype)
+        state.positions[rows, slot] = state.seq_lens
+    else:
+        slot = pos % (state.capacity * sp) - s * state.capacity
+        own = (slot >= 0) & (slot < state.capacity)
+        slot = slot.clamp(0, state.capacity - 1)
+        page_idx = state.page_table.long().gather(
+            1, (slot // P)[:, None])[:, 0]
+        old = pool_c[page_idx, :, :, slot % P, :]
+        pool_c[page_idx, :, :, slot % P, :] = torch.where(
+            own[:, None, None, None], kv.to(pool_c.dtype), old)
+        state.positions[rows, slot] = torch.where(
+            own, state.seq_lens, state.positions[rows, slot])
     state.seq_lens.add_(1)
     return state
 

@@ -42,10 +42,17 @@ drives them with one ``core.scheduler`` policy:
   the action's degree (``_advance_partials``).  The split returns the
   loans and the donors widen back onto them.
 
-Elastic SP layouts are decided by the ported scheduler but have no data
-plane here: a ``SchedulerConfig`` that enables them is refused at
-construction (ROADMAP queue 1 item 6).  ``metrics()`` is key-for-key
-``serving.metrics.METRIC_KEYS``.
+* **elastic SP layouts** (opt-in with ``SchedulerConfig(layouts=True)``):
+  each cluster step, ``scheduler.decide_layout`` scans the wide engines
+  outside a transform and re-factorizes an engine's degree to the
+  ``(sp, tp)`` layout that wins its workload mix (long context in
+  service: sequence parallel, e.g. a merged TP2 -> SP2xTP1; shorts only:
+  pure TP), a same-degree ``ScaleUp`` carrying ``layout``, run as
+  ``Engine.transform(tp_to, layout=...)``: a §4.3 session that serves
+  throughout.  A merged engine's split (``ScaleDown``) leaves from
+  whichever layout it holds.
+
+``metrics()`` is key-for-key ``serving.metrics.METRIC_KEYS``.
 """
 from __future__ import annotations
 
@@ -67,9 +74,6 @@ from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.metrics import summarize
 from repro_torch.serving.request import ServeRequest, State
-
-#: the reference's opt-in rungs whose data plane is not ported
-UNPORTED = {"layouts": "SP layouts are ROADMAP queue 1 item 6"}
 
 
 class ClusterEngine:
@@ -104,11 +108,6 @@ class ClusterEngine:
         if n_instances < 1 or len(devices) < n_instances:
             raise ValueError(f"{n_instances} instances need at least "
                              f"{n_instances} of {len(devices)} devices")
-        sc = getattr(scheduler, "cfg", None)
-        for flag, why in UNPORTED.items():
-            if getattr(sc, flag, False):
-                raise NotImplementedError(
-                    f"SchedulerConfig({flag}=True): {why}")
         workers = workers_of(devices)
         W = len(workers) // n_instances
         self.cfg = cfg
@@ -287,7 +286,11 @@ class ClusterEngine:
         elif isinstance(act, ScaleDown) and self.partition.loans_to(act.iid):
             n_steps = self._split(act, eng)
         else:
-            n_steps = eng.transform(act.tp_to)
+            # a ScaleUp may carry the target layout (the elastic-SP rung:
+            # a same-degree re-factorization such as TP4 -> SP2xTP2); a
+            # ScaleDown has none, and a bare degree is pure TP
+            n_steps = eng.transform(act.tp_to,
+                                    layout=getattr(act, "layout", None))
         self.actions.append(act)
         self.n_transforms += 1
         self._last_transform_step[eng.iid] = self.steps
@@ -495,6 +498,16 @@ class ClusterEngine:
             >= self.dwell_steps]
         for act in self.scheduler.schedule_parallelism(
                 eligible, self._any_long_waiting()):
+            self._execute(act)
+        # the elastic-SP layout scan (opt-in: SchedulerConfig.layouts):
+        # a wide engine outside a transform may re-factorize its degree
+        # to the layout that wins its current workload mix
+        lay_eligible = [
+            e for e in self._active_engines()
+            if e.tp > 1 and not e.transforming
+            and not e._spills and not e._hosted
+            and not e.awaiting_devices]
+        for act in self.scheduler.decide_layout(lay_eligible):
             self._execute(act)
         emitted = active = queued = 0
         for e in self._active_engines():

@@ -36,8 +36,12 @@ Two placements, as in the reference:
     with serving; ``transform(tp, devices=...)`` at the same degree
     moves the engine onto other workers in one synchronous re-shard.
     Replicated kv heads (fewer kv heads than workers) are laid out as
-    the reference's GQA rule gives them.  SP layouts are ROADMAP queue
-    1 item 6.
+    the reference's GQA rule gives them.  ``transform(tp_to,
+    layout=Layout(sp, tp))`` reaches the sequence-parallel layouts
+    (``par_layout``; TP4 <-> SP2xTP2 is a same-degree session that
+    serves throughout): each sp shard holds a slice of every slot's
+    pages, and decode and chunk attention run on the kernels' partial
+    entries, exchanged and combined inside each sp group.
 
 The capacity contract is the reference's (``max_seq_at``): ``seq_quantum``
 is the per-worker admission share, ``max_seq_at(tp) = seq_quantum * tp``
@@ -76,8 +80,8 @@ from repro_torch.core import transform_engine as TE
 from repro_torch.core import weight_transform as WT
 from repro_torch.core.padding import PaddingPlan, make_plan
 from repro_torch.core.scheduler import PrefillPolicy
-from repro_torch.launch.mesh import (InstanceMesh, Worker, resolve_device,
-                                     workers_of)
+from repro_torch.launch.mesh import (InstanceMesh, Layout, Worker,
+                                     resolve_device, workers_of)
 from repro_torch.models import model as M
 from repro_torch.models.blocks import _window_of
 from repro_torch.paged import pool as pp
@@ -128,6 +132,8 @@ class Engine:
         self.max_seq_alloc = max_seq
         self.page_tokens = page_tokens
         self.tp = 1
+        # the full (sp, tp) factorization of the degree ``tp``
+        self.par_layout = Layout(1, 1)
         self.tp_pending: Optional[int] = None
         self.mesh = None
         self._session: Optional[TE.TransformSession] = None
@@ -572,13 +578,18 @@ class Engine:
 
     # -- §4.3 live transformation -------------------------------------------
     def transform(self, tp_to: int, layers_per_step: int = 1,
-                  devices: Optional[List[Worker]] = None) -> int:
+                  devices: Optional[List[Worker]] = None,
+                  layout=None) -> int:
         """Begin a live transformation to degree ``tp_to``, any divisor of
-        the target worker count: the layout ``(rep = W/tp_to) x (tp =
-        tp_to)`` (a full merge TP1 x W -> TPW', a decompose TPW -> TP1 x
-        W', or a partial change such as TP1 x 4 -> TP2 x 2).  Returns the
-        number of schedule steps; each later ``step()`` executes one of
-        them around its decode iteration, while requests keep decoding.
+        the target worker count, at the layout ``layout`` (a
+        ``launch.mesh.Layout(sp, tp)`` of degree ``tp_to``; default pure
+        TP): ``(rep = W/tp_to) x sp x tp`` (a full merge TP1 x W -> TPW', a
+        decompose TPW -> TP1 x W', a partial change such as TP1 x 4 -> TP2
+        x 2, or a same-degree LAYOUT change such as TP4 -> SP2xTP2, which
+        re-partitions weights and pages and leaves the capacity alone).
+        Returns the number of schedule steps; each later ``step()``
+        executes one of them around its decode iteration, while requests
+        keep decoding.
 
         The target workers are the engine's own (``devices``, after
         ``adopt_devices`` the home ones plus the adopted) or the given
@@ -586,9 +597,11 @@ class Engine:
         ones are shed).  When they differ from the workers the layers
         sit on, the session crosses assemblies, layer by layer.  The pool
         grows to the target ceiling before the session (memory follows
-        the TP degree); the shrink half runs when it lands.
+        the TP degree); the shrink half runs when it lands.  An sp layout
+        needs each slot's pages to split evenly over its shards, and
+        raises otherwise.
 
-        At the same degree on other workers (a partial-merge donor
+        At the same layout on other workers (a partial-merge donor
         shedding workers, or widening back onto returned ones) there is
         no session: the whole state moves in one synchronous re-shard
         between steps (``_move_workers``), and this returns 0."""
@@ -598,22 +611,31 @@ class Engine:
             "no transforms while KV spill regions are open: a pool resize "
             "would move hosted or overflow pages out from under their "
             "extended views")
+        lay = Layout.of(layout if layout is not None else tp_to)
+        assert lay.degree == tp_to, (
+            f"layout {lay} (degree {lay.degree}) disagrees with "
+            f"tp_to={tp_to}")
         target = list(self.devices if devices is None else devices)
-        if tp_to == self.tp and target == self.mesh.workers:
+        if lay == self.par_layout and target == self.mesh.workers:
             return 0
         assert len(target) % tp_to == 0, (
             f"TP{tp_to} does not divide {len(target)} workers")
         assert self.max_batch % (len(target) // tp_to) == 0, (
             f"max_batch={self.max_batch} must split over the "
-            f"{len(target) // tp_to} TP groups of TP{tp_to}")
-        I.check_degree(self.plan, tp_to)
-        if tp_to == self.tp:
+            f"{len(target) // tp_to} replicas of {lay}")
+        I.check_degree(self.plan, lay)
+        alloc = max(self.max_seq_alloc, self.seq_quantum * tp_to)
+        if -(-alloc // self.page_tokens) % lay.sp:
+            raise ValueError(
+                f"{lay}: {-(-alloc // self.page_tokens)} pages a slot do "
+                f"not split over {lay.sp} sp shards")
+        if lay == self.par_layout:
             self._move_workers(target)
             return 0
         if self.max_seq_alloc < self.seq_quantum * tp_to:
             self._resize_pool(self.seq_quantum * tp_to)
         session = TE.open_owner_session(self, tp_to, layers_per_step,
-                                        devices=target)
+                                        devices=target, layout_to=lay)
         self.tp_pending = tp_to
         self._pending_devices = (target if target != self.devices
                                  else None)
@@ -637,11 +659,12 @@ class Engine:
         t0 = time.monotonic()
         if alloc < self.max_seq_alloc:
             self._resize_pool(alloc)
-        src, dst, t = self.mesh, InstanceMesh(target, self.tp), self.tp
+        lay = self.par_layout
+        src, dst = self.mesh, InstanceMesh(target, lay)
         moved = 0
         for layer in self.layers:
-            moved += I.move_attn(layer, dst, t, self.plan)
-            I.move_mlp(layer, dst, t, self.plan.max_tp)
+            moved += I.move_attn(layer, dst, lay, self.plan)
+            I.move_mlp(layer, dst, lay, self.plan.max_tp)
             layer.ln1 = I.replicas_across(layer.ln1, src, dst)
             layer.ln2 = I.replicas_across(layer.ln2, src, dst)
             layer.mesh = dst
@@ -650,9 +673,9 @@ class Engine:
         self._resize_pool(alloc)
         TE._sync(src.devices + dst.devices)
         self.move_log.append({
-            "kind": "move", "tp_from": t, "tp_to": t,
-            "layout_from": f"{src.W // t}xTP{t}",
-            "layout_to": f"{dst.W // t}xTP{t}",
+            "kind": "move", "tp_from": self.tp, "tp_to": self.tp,
+            "layout_from": f"{src.W // lay.degree}x{lay}",
+            "layout_to": f"{dst.W // lay.degree}x{lay}",
             "bytes": sum(c.pool.numel() * c.pool.element_size()
                          for layer in self.layers for c in layer.cache),
             "wall_s": time.monotonic() - t0, "kv_bytes": moved})
@@ -696,8 +719,11 @@ class Engine:
             self.adopted_devices = []
             self._pending_devices = None
         # memory follows the TP degree: trim the pool to the landed
-        # degree's allocation, never below a live context's footprint
-        target = max(self.seq_quantum * self.tp, self._live_need())
+        # degree's allocation, never below a live context's footprint,
+        # in whole pages of every sp shard
+        unit = self.page_tokens * self.par_layout.sp
+        target = -(-max(self.seq_quantum * self.tp, self._live_need())
+                   // unit) * unit
         if target < self.max_seq_alloc:
             self._resize_pool(target)
         self.check_capacity_invariant()
@@ -718,12 +744,19 @@ class Engine:
             * self.page_tokens
         new_mps = -(-new_max_seq // self.page_tokens)
         for layer in self.layers:
-            lo, hi = I.rows_of(layer.attn_layout, self.max_batch,
-                               layer.mesh.W, 0)       # a group's slots
-            layer.cache = [
-                c if c.capacity != old_cap
-                else KT.resize_slot_capacity(c, new_mps, hi - lo)
-                for c in layer.cache]
+            lay = layer.attn_layout
+            lo, hi = I.rows_of(lay, self.max_batch, layer.mesh.W, 0)
+            if layer.cache[0].capacity * lay.sp != old_cap:
+                continue                # a window's ring keeps its size
+            if lay.sp == 1:
+                layer.cache = [KT.resize_slot_capacity(c, new_mps, hi - lo)
+                               for c in layer.cache]
+                continue
+            # an sp shard's page range moves with the slot's page count:
+            # the global cache is resized and laid out again
+            g = KT.resize_slot_capacity(I.join_cache(layer.cache, lay),
+                                        new_mps, self.max_batch)
+            layer.cache = I.split_cache(g, lay, layer.mesh.devices)
         self.max_seq_alloc = new_max_seq
 
     # -- cross-instance merge lifecycle (paper Fig. 3, §3.4) ----------------
@@ -778,6 +811,7 @@ class Engine:
         self.W = len(workers)
         self.parked = False
         self.tp, self.tp_pending = 1, None
+        self.par_layout = Layout(1, 1)
         self.max_seq_alloc = self.seq_quantum * self.W
         self.mesh = InstanceMesh(self.devices, 1)
         self._place(params)
@@ -788,7 +822,7 @@ class Engine:
 
     def _holder(self, layer: I.WorkerLayer, slot: int) -> Tuple[int, int]:
         """(worker, local slot) holding ``slot`` of a layer at TP1."""
-        assert layer.attn_layout == 1, "slots move at TP1 only"
+        assert layer.attn_layout == Layout(1, 1), "slots move at TP1 only"
         per = self.max_batch // layer.mesh.W
         return slot // per, slot % per
 
@@ -833,8 +867,8 @@ class Engine:
 
     def global_caches(self) -> List[pp.PagedState]:
         """Every layer's cache as the reference's global arrays hold it
-        (``core.instance.join_cache``): equal bytes before and after a
-        migration."""
+        (``core.instance.join_cache``, sp shards' page ranges joined):
+        equal bytes before and after a migration."""
         if self.mesh is None:
             return self.caches
         return [I.join_cache(l.cache, l.attn_layout) for l in self.layers]

@@ -119,7 +119,9 @@ JAX_SCRIPT = """
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax")
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"trace": _trace(), "kw": KW,
                                           "post": POST}
@@ -372,9 +374,15 @@ def test_mlp_layout_of_a_pool_of_4_at_every_degree(t):
 
 @pytest.mark.parametrize("flag", ["layouts"])
 def test_unported_rungs_are_refused(flag):
+    """Once refused, now ported: a cluster under the layout rung builds,
+    its engines start at pure TP1 (``par_layout``), and the scheduler's
+    layout scan proposes nothing for them (layout changes are for wide
+    engines; ``tests/test_torch_sp.py`` runs the rung against the JAX
+    cluster)."""
     sched = GygesScheduler(SchedulerConfig(**{flag: True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        ClusterEngine(_cfg(), ["cpu"] * 2, scheduler=sched, **KW)
+    cl = ClusterEngine(_cfg(), ["cpu"] * 2, scheduler=sched, **KW)
+    assert all(str(e.par_layout) == "TP1" for e in cl.engines)
+    assert sched.decide_layout(cl.engines) == []
 
 
 def test_engine_refuses_partial_and_same_degree_moves():

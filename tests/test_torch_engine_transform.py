@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.padding import make_plan
+from repro_torch.launch.mesh import Layout
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
@@ -84,7 +85,9 @@ JAX_SCRIPT = """
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax") / "streams.pkl"
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600",
                PYTHONPATH=os.path.join(REPO, "src"))
     body = textwrap.dedent(JAX_SCRIPT) % {"d_ffs": D_FFS, "kw": KW}
     out = subprocess.run([sys.executable, "-c", body, str(path)],
@@ -179,7 +182,7 @@ def test_cache_bytes_identical_across_migration(reference, d_ff):
     while not c._session.done:
         c._session.step()
     c._finish_transform()
-    assert c.layers[0].attn_layout == 2
+    assert c.layers[0].attn_layout == Layout(1, 2)
     _cache_equal(before, c.global_caches())
     c.transform(1)
     while not c._session.done:
@@ -237,7 +240,7 @@ def test_only_full_merges_and_decompositions():
     assert eng.tp == 2 and eng.mesh.rep == 2
     assert eng.max_seq_alloc == 2 * eng.seq_quantum
     for layer in eng.layers:
-        assert layer.attn_layout == layer.mlp_layout == 2
+        assert layer.attn_layout == layer.mlp_layout == Layout(1, 2)
         assert [c.page_table.shape[0] for c in layer.cache] == [2] * 4
         assert layer.cache[0].pool.shape[1] == cfg.num_kv_heads // 2
     with pytest.raises(AssertionError):

@@ -22,7 +22,7 @@ from repro_torch.core import kv_transform as TKT
 from repro_torch.core import transform_engine as TTE
 from repro_torch.core import weight_transform as TWT
 from repro_torch.core.padding import make_plan as tplan
-from repro_torch.launch.mesh import InstanceMesh, Layout
+from repro_torch.launch.mesh import InstanceMesh, Layout, place
 from repro_torch.paged import pool as tpool
 
 LAYOUTS = ["header_centric", "page_friendly", "raw"]
@@ -223,8 +223,19 @@ def test_mesh_exchanges():
     assert len({r.data_ptr() for r in red}) == W
     gat = mesh.all_gather(xs, 1)
     assert all(tuple(g.shape) == (W * 2, 9) for g in gat)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        InstanceMesh(["cpu"] * 4, Layout(2, 2))
+    # worker w of (rep, sp, tp): replica w // (sp*tp), shard (w // tp) %
+    # sp, position w % tp; sp groups are one replica at one position
+    sp = InstanceMesh(["cpu"] * 8, Layout(2, 2))
+    assert sp.rep == 2 and sp.sp_groups() == [[0, 2], [1, 3], [4, 6],
+                                               [5, 7]]
+    assert [place(Layout(2, 2), w) for w in range(4)] == [
+        (0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1)]
+    bufs = [torch.full((2, 3), -1.0) for _ in range(8)]
+    for w, b in enumerate(bufs):
+        b[place(Layout(2, 2), w)[1]] = float(w)
+    sp.sp_all_gather(bufs, Layout(2, 2))
+    assert torch.equal(bufs[2][:, 0], torch.tensor([0.0, 2.0]))
+    assert torch.equal(bufs[7][:, 0], torch.tensor([5.0, 7.0]))
     with pytest.raises(ValueError):
         InstanceMesh(["cpu"] * 3, 2)
     assert str(Layout(1, 4)) == "TP4" and str(Layout(2, 2)) == "SP2xTP2"

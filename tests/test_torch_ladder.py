@@ -33,6 +33,7 @@ from repro_torch.core import instance as I
 from repro_torch.core import kv_transform as KT
 from repro_torch.core.padding import make_plan
 from repro_torch.core.scheduler import PrefillPolicy
+from repro_torch.launch.mesh import Layout
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
@@ -98,7 +99,9 @@ def reference(tmp_path_factory):
     port-only tests run while it works) and waited for on first use."""
     path = tmp_path_factory.mktemp("jax") / "ladder.pkl"
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600",
                PYTHONPATH=os.path.join(REPO, "src"))
     body = textwrap.dedent(JAX_SCRIPT) % {"kw": KW, "lens": LENS,
                                           "cycle": CYCLE}
@@ -161,7 +164,7 @@ def test_landed_pools_equal_an_engine_started_at_the_degree(model):
         _land(eng, tp)
         mps = eng.layers[0].cache[0].page_table.shape[1]
         for layer, glob in zip(eng.layers, before):
-            assert layer.attn_layout == layer.mlp_layout == tp
+            assert layer.attn_layout == layer.mlp_layout == Layout(1, tp)
             want = I.split_cache(KT.resize_slot_capacity(glob, mps, B), tp,
                                  workers)
             for got, exp in zip(layer.cache, want):
@@ -282,6 +285,6 @@ def test_instance_group_decodes_through_every_degree(model):
             pos += 1
         reports = groups[1].transform_scheduled(tp, between_steps=between)
         assert groups[1].tp == tp and reports
-        assert all(l.attn_layout == l.mlp_layout == tp
+        assert all(l.attn_layout == l.mlp_layout == Layout(1, tp)
                    for l in groups[1].layers)
     assert groups[1].transform_count == 3

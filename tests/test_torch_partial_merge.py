@@ -108,7 +108,9 @@ def reference(tmp_path_factory):
     starts; ``reference(case)`` waits for one."""
     tmp = tmp_path_factory.mktemp("jax")
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"Q": Q, "kw": KW, "lens": LENS}
     procs = {c: subprocess.Popen(

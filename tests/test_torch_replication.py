@@ -74,8 +74,14 @@ JAX_SCRIPT = """
 def reference(tmp_path_factory):
     """Both JAX runs, started together when the module's first test
     starts; ``reference(name)`` waits for one."""
+    # XLA's CPU collectives abort the process (SIGABRT) when one of the 8
+    # device threads reaches an all-reduce more than 40 s (its default)
+    # after the others, which a machine loaded by the rest of the suite
+    # can cause; the rendezvous waits as long as ``communicate`` does
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600",
                PYTHONPATH=os.path.join(REPO, "src"))
     body = textwrap.dedent(JAX_SCRIPT)
     procs = {}

@@ -24,7 +24,9 @@ SCHEDULERS = ("gyges",)
 def outputs():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600")
     procs = {}
     for s in SCHEDULERS:
         args = ARGS + ["--scheduler", s]

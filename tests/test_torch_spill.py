@@ -221,7 +221,9 @@ JAX_SCRIPT = """
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax_spill") / "out.pkl"
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2 "
+                         "--xla_cpu_collective_call_terminate_"
+                         "timeout_seconds=600",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"trace": _trace(), "kw": KW,
                                           "sched": SCHED}
