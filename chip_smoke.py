@@ -54,6 +54,22 @@ exits non-zero:
               step of a full batch and the 6000-token request's prefill,
               and the host time a prefill wrapper call takes (its bf16
               tensor-map encoding included) and a decode wrapper call.
+              It also measures the decode rate of a batch of 4 rows at
+              2048-token prompts (``calibrate.measure_decode_tps``) for
+              phase 4a.
+4a. calibrate — ``core.calibrate.calibrate`` on 2 and 4 workers of the
+              card at llama3-8b's KV geometry in bf16 (``cal_sizes``):
+              the sharded migration TP1 x W <-> TPW at 32, 128 and 512
+              pages a worker (kernels 5-6), weight copies of half and a
+              whole llama3-8b layer, spill copies of 16 and 64 pages
+              (kernel 5), overlap pairs at 16 and 128 MiB against a
+              4096-wide bf16 chain.  One line a measurement (the
+              reference's accounted bytes, the bytes really copied, the
+              span, the HBM bound), the fitted ``LinkModel`` beside
+              ``LinkModel()``, the drift fractions and ``fit_hardware``
+              (the serve engine's decode rate, the prefill rate of the
+              6000-token request alone, the card's memory beside the
+              H20 prior's).
 4b. serve-shapes — qwen2.5-32b (64 layers, 62.3 GB), stablelm-12b and
               gemma-2b at full width and depth in bf16 with random
               weights, each through ``Engine``: prompts of 100, 1000 and
@@ -152,20 +168,34 @@ exits non-zero:
               loans and the donors widen back.  Prints the actions, the
               donors' moves and bytes, the target's sessions, TTFT,
               memory before, during and after, and the launches.
+14b. cluster-calibrated — cluster-partial's configuration under the
+              capacity ladder (``spill=True, partial_merge=True,
+              spill_slack=2.0``) with phase 4a's fitted
+              ``CalibratedCostModel`` attached: the reference's ladder
+              trace at quantum 2048 (``CAL_TRACE``: a spill, a partial
+              merge, its split), drained between submissions, then the
+              port's ``Cluster`` replays it at the same geometry with the
+              same fit.  Actions and placements must be equal, stalls 0,
+              every kernel must launch.  Prints each action's cost under
+              the prior, under the fit and the EWMA's estimate beside its
+              measured wall and exposed time, each long request's rung
+              costs, and memory.
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
 shape phases 12-14 give the kernels (``slice7_cases``: each engine's
 FFN, decode, chunk and flash shapes at each of its degrees, and each
-KV migration).  A shape census (``ShapeCensus``) records the shape
-key of every kernel launch, phase by phase; its ``shape-census`` line
+KV migration, phase 4a's included).  A shape census (``ShapeCensus``)
+records the shape key of every kernel launch, phase by phase; its
+``shape-census`` line
 fails the run if a phase launched a shape that neither the kernels
 phase nor a parity phase (card against CPU engines) held against the
 plain version.  Then the
 card's name and power limit, one ``kernels`` line (launches counted
 on phase 9's path, and by path: serve / transform-serve, cluster-serve,
-serve-shapes, cluster-spill, ladder-serve, replicated-serve and
-cluster-partial), and the last line
+serve-shapes, cluster-spill, ladder-serve, replicated-serve,
+cluster-partial, calibrate, cluster-calibrated, layout-serve and
+cluster-layout), and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
@@ -1100,8 +1130,17 @@ def phase_serve(smi: str):
     assert all(n > 0 for n in launches.values()), launches
     ttft = [r.ttft for r in reqs]
     tpot = [r.tpot for r in reqs]
+    decode_tps = serve_decode_tps(eng, cfg, gen)
     profiles = (decode_profile(eng, cfg, gen),
                 prefill_profile(eng, cfg, gen))
+    # the calibrate phase's throughput constants: the decode rate of a
+    # batch of its own, and the prefill rate of the 6000-token request
+    # alone on the engine (in the timed run above its TTFT also holds
+    # the other prompts' prefill and decode steps)
+    rates = {"decode_tps": decode_tps,
+             "prefill_tps": lens[-1] / profiles[1]["ttft_s"],
+             "long_ttft_s": profiles[1]["ttft_s"],
+             "long_ttft_with_others_s": reqs[-1].ttft}
     host_us = wrapper_host_us()
     # host time of this run's prefill wrapper calls, at the measured cost
     # of one call (the tensor-map encoding is the bf16 - fp32 part)
@@ -1112,13 +1151,14 @@ def phase_serve(smi: str):
          weights_init_s=t_init, wall_s=wall,
          ttft_s=ttft, tpot_s=tpot,
          tokens_per_s=sum(len(r.generated) for r in reqs) / wall,
+         decode_tps_4x2048=rates["decode_tps"],
          launches=launches, prefill_wrapper_host_us=host_us,
          prefill_wrapper_host_ms=prefill_host_ms,
          decode_wrapper_host_us=decode_wrapper_host_us(),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
     for p in profiles:
         emit(phase="profile", gpu=smi, **p)
-    return launches
+    return launches, rates
 
 
 def bare(fn):
@@ -2042,7 +2082,11 @@ SLICE7_MOVES = (
     ("gemma-2b", 4, (1, 4), (2, 4)), ("gemma-2b", 4, (2, 4), (4, 4)),
     ("gemma-2b", 4, (4, 4), (1, 4)),
     ("gemma-2b", 8, (1, 2), (1, 1)), ("gemma-2b", 8, (1, 1), (1, 2)),
-    ("gemma-2b", 8, (1, 2), (4, 4)), ("gemma-2b", 8, (4, 4), (1, 2)))
+    ("gemma-2b", 8, (1, 2), (4, 4)), ("gemma-2b", 8, (4, 4), (1, 2)),
+    # slice 9's calibrate phase: TP1 x W <-> TPW at llama3-8b's KV (its
+    # TP1 x 4 -> TP4 is SLICE8_MOVES' first)
+    ("llama3-8b", 4, (1, 2), (2, 2)), ("llama3-8b", 4, (2, 2), (1, 2)),
+    ("llama3-8b", 4, (4, 4), (1, 4)))
 
 
 def slice7_cases():
@@ -3396,6 +3440,387 @@ def phase_cluster_layout(smi: str, dev: str = "cuda", cfg=None,
 
 
 # ---------------------------------------------------------------------------
+# Slice 9: the cost model, the simulator and calibration on the card
+# ---------------------------------------------------------------------------
+
+def layer_weight_bytes(cfg, dtype_bytes: int = 2) -> int:
+    """One decoder layer's weights (q, k, v, o, the gated FFN's three
+    matrices and two norms) in bytes: what a transform session moves a
+    layer at most."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    n = (2 * d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh
+         + 3 * d * cfg.d_ff + 2 * d)
+    return n * dtype_bytes
+
+
+def cal_sizes(cfg, dtype=torch.bfloat16, pages=(32, 128, 512),
+              spill=(16, 64), page_tokens=64, mib=(16, 128),
+              compute_dim=4096):
+    """``calibrate``'s micro geometry at ``cfg``'s KV (its kv heads,
+    ``page_tokens``-token pages, its head dimension) in ``dtype``: pools
+    of ``pages`` pages a worker (512 x 64 tokens is one layer of
+    cluster-serve's 4 x 8192-token pool, 128 MiB in bf16), weight puts
+    of half a layer and a whole one, spill copies of ``spill`` pages,
+    overlap pairs at ``mib`` MiB against a ``compute_dim``-wide chain."""
+    from repro_torch.core.calibrate import MicroSizes
+    layer = layer_weight_bytes(cfg)
+    return MicroSizes(pages_per_worker=tuple(pages),
+                      kv_slots=cfg.num_kv_heads, page_tokens=page_tokens,
+                      head_dim=cfg.resolved_head_dim, dtype=dtype,
+                      layer_bytes=(layer // 2, layer),
+                      spill_pages=tuple(spill),
+                      transfer_bytes=tuple(m << 20 for m in mib),
+                      compute_dim=compute_dim, compute_iters=8)
+
+
+def serve_decode_tps(eng, cfg, gen, steps: int = 16) -> float:
+    """``calibrate.measure_decode_tps`` on the serve engine with a batch
+    of its own: 4 rows of 2048-token prompts, every row decoding through
+    the ``steps`` measured steps."""
+    from repro_torch.core.calibrate import measure_decode_tps
+    from repro_torch.serving import ServeRequest
+    reqs = [ServeRequest(p, max_new_tokens=steps + 4)
+            for p in _prompts(gen, (2048,) * 4, cfg.vocab_size)]
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) == 0 for r in reqs):
+        eng.step()
+    tps = measure_decode_tps(eng, steps)
+    eng.run_until_done()
+    return tps
+
+
+def phase_calibrate(smi: str, rates: dict, dev: str = "cuda", cfg=None,
+                    widths=(2, 4), sizes=None, repeats: int = 5) -> dict:
+    """``core.calibrate.calibrate`` on W = 2 and W = 4 workers of the
+    card at llama3-8b's KV geometry in bf16 (``cal_sizes``).  One line a
+    measurement: the reference's accounted bytes, the bytes the port
+    really read and wrote, the span, and the least time the card could
+    take (the accounted bytes read and written once over HBM rate; the
+    copied bytes over it).  Then the fitted ``LinkModel`` beside
+    ``LinkModel()``, the drift fractions, the overlap pairs and
+    ``fit_hardware``'s result: the decode rate is the serve engine's
+    (``rates``: 4 rows at 2048), the prefill rate the serve phase's
+    6000-token TTFT (the request alone on the engine), ``mem_bytes`` the
+    card's memory (the H20 prior's
+    beside it); alpha, beta and ``kv_effectiveness`` keep the paper's
+    Table-1 fit.  Returns the W = 4 fit's link, the fitted hardware and
+    the launches of kernels 5-6 on this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibrate as K
+    from repro_torch.core.costmodel import H20
+    from repro_torch.core.kv_transform import (LinkModel,
+                                               layout_migration_stats)
+
+    cfg = cfg or get_config("llama3-8b")
+    sizes = sizes or cal_sizes(cfg)
+    mem = (torch.cuda.get_device_properties(0).total_memory
+           if dev == "cuda" else H20.mem_bytes)
+    hw = K.fit_hardware(dataclasses.replace(H20, mem_bytes=float(mem)),
+                        decode_tps=rates["decode_tps"],
+                        prefill_tps=rates["prefill_tps"])
+    esize = torch.empty((), dtype=sizes.dtype).element_size()
+    prior = LinkModel()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    out = {}
+    for W in widths:
+        rep = K.calibrate(cfg, hw=hw, devices=[dev] * W, n_workers=W,
+                          repeats=repeats, sizes=sizes)
+        n_kv = 0
+        for m, drift in zip(rep.measurements, rep.drift_fracs):
+            extra = {}
+            if m.kind.startswith("kv_migrate"):
+                npw = sizes.pages_per_worker[n_kv // 2]
+                n_kv += 1
+                extra = {"pages_per_worker": npw,
+                         "pool_bytes": W * npw * sizes.kv_slots * 2
+                         * sizes.page_tokens * sizes.head_dim * esize,
+                         "layout_bytes": layout_migration_stats(
+                             W, m.tp_from, W, m.tp_to, W * npw, 1,
+                             sizes.kv_slots, sizes.page_tokens,
+                             sizes.head_dim, esize).bytes_moved}
+            emit(phase="calibrate", workers=W, kind=m.kind,
+                 tp_from=m.tp_from, tp_to=m.tp_to,
+                 bytes_accounted=m.bytes_moved, segments=m.segments,
+                 bytes_copied=m.copied_bytes, wall_s=m.wall_s,
+                 bound_s=2 * m.bytes_moved / HBM_BPS,
+                 copied_bound_s=m.copied_bytes / HBM_BPS,
+                 prior_s=K.predicted_time(m, prior),
+                 fitted_s=K.predicted_time(m, rep.link), drift_frac=drift,
+                 gpu=smi, **extra)
+        emit(phase="calibrate", workers=W, what="fit",
+             link_fitted=dataclasses.asdict(rep.link),
+             link_prior=dataclasses.asdict(prior),
+             kv_migration_drift_frac=rep.kv_migration_drift_frac,
+             drift_frac=rep.drift_frac, drift_fracs=rep.drift_fracs,
+             overlap_pairs=[dict(dataclasses.asdict(p),
+                                 overlap_frac=p.overlap_frac)
+                            for p in rep.overlap_pairs],
+             overlap_fitted=rep.overlap_frac,
+             overlap_prior=rep.overlap_prior,
+             overlap_drift_frac=rep.overlap_drift_frac, gpu=smi)
+        assert all(m.wall_s > 0 for m in rep.measurements)
+        assert rep.link.bandwidth > 0 and rep.link.segment_overhead >= 0
+        out[W] = rep
+    launches = launch_counts()
+    if dev == "cuda":
+        assert launches["copy_page_slices"] > 0 \
+            and launches["gather_page_slices"] > 0, launches
+    fit = {k: getattr(hw, k) for k in ("mem_bytes", "base_tps",
+                                       "prefill_tps", "alpha", "beta",
+                                       "kv_effectiveness")}
+    emit(phase="calibrate", what="hardware", fitted=fit,
+         h20=dataclasses.asdict(H20), decode_tps_source=(
+             "serve engine, 4 rows at 2048-token prompts, "
+             "measure_decode_tps"),
+         prefill_tps_source=("serve phase: 6000 / the TTFT of the "
+                             "6000-token request alone (its prefill "
+                             "profile line)"),
+         serve_rates=rates, seconds=time.monotonic() - t0,
+         launches=launches, gpu=smi)
+    return {"link": out[max(widths)].link, "hw": hw, "launches": launches}
+
+
+#: the reference's ``LADDER_TRACE`` (``tests/test_sim_live_parity.py``)
+#: at a 2048-token quantum on width-2 engines: two shorts, one request
+#: on the spill rung (total 4097-6144) and one on the partial-merge rung
+#: (6145-8192); (rid, prompt, new tokens)
+CAL_TRACE = ((0, 1100, 32), (1, 4400, 48), (2, 6500, 48), (3, 900, 32))
+
+
+def _cal_act_key(a):
+    """The reference ladder harness's ``act_key``."""
+    return (type(a).__name__, a.iid, getattr(a, "tp_to", None),
+            tuple(sorted(getattr(a, "donor_iids", ()) or ())),
+            tuple(getattr(a, "donor_devices", ()) or ()),
+            getattr(a, "host_iid", None))
+
+
+def _action_cost(cm, a, tp_from: int, page_tokens: int) -> float:
+    """What ``cm`` prices action ``a`` at: ``_rung_cost``'s shapes (a
+    spill's overflow pages; a transform at its real degree pair, a
+    partial merge at the loaned fraction)."""
+    from repro_torch.core.scheduler import Spill
+    if isinstance(a, Spill):
+        return cm.spill_time(a.tokens, page_tokens=page_tokens)
+    t = cm.transform_time("gyges", tp_from=tp_from, tp_to=a.tp_to)
+    if getattr(a, "donor_devices", ()) and sum(a.donor_devices) < a.tp_to:
+        t *= sum(a.donor_devices) / a.tp_to
+    return t
+
+
+def _ewma_of(cm, a, tp_from: int, cfg):
+    from repro_torch.core.costmodel import kv_bytes_per_token
+    from repro_torch.core.scheduler import Spill
+    if isinstance(a, Spill):
+        est = cm.measured.estimate("spill", 0, 0,
+                                   kv_bytes_per_token(cfg) * a.tokens)
+    else:
+        est = cm.measured.estimate("transform", tp_from, a.tp_to)
+    return "cold" if est is None else est
+
+
+def phase_cluster_calibrated(smi: str, cal: dict, dev: str = "cuda",
+                             cfg=None, quantum: int = 2048,
+                             page_tokens: int = 64, trace=CAL_TRACE):
+    """cluster-partial's configuration (gemma-2b at full width and depth,
+    bf16, 4 instances x 2 workers, quantum ``quantum``) under the
+    capacity ladder (``SchedulerConfig(long_threshold=quantum,
+    target_tp=4, spill=True, partial_merge=True, spill_slack=2.0)``)
+    with a ``CalibratedCostModel`` of ``cal``'s fitted link and hardware
+    attached.  ``trace`` runs as the reference harness runs it: submit,
+    drain the cluster and its Alg-2 quiet window, next.  Then the port's
+    ``Cluster`` replays it at the same geometry with its own
+    ``CalibratedCostModel`` over the same fit; actions and placements
+    must be equal (the harness's ``act_key``), stalls 0.  Prints each
+    executed action's cost under the prior, under the fit and the
+    EWMA's estimate at the decision, beside the measured ``wall_s`` and
+    ``exposed_s``; each long request's three rung costs under the prior
+    and the fit; memory; the launches, all six of which must rise.
+    Returns them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibrate import CalibratedCostModel
+    from repro_torch.core.cluster_sim import Cluster
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.scheduler import (GygesScheduler, PrefillPolicy,
+                                            ScaleDown, ScaleUp,
+                                            SchedulerConfig, Spill)
+    from repro_torch.serving import ServeRequest
+    from repro_torch.serving.cluster import ClusterEngine
+    from repro_torch.serving.request import Request
+
+    cfg = cfg or get_config("gemma-2b")
+    link, hw = cal["link"], cal["hw"]
+
+    def scheduler():
+        s = GygesScheduler(SchedulerConfig(
+            long_threshold=quantum, target_tp=4, spill=True,
+            partial_merge=True, spill_slack=2.0))
+        s.attach_cost(CalibratedCostModel(cfg, hw, link=link))
+        return s
+
+    def policy():
+        return PrefillPolicy(token_budget=quantum, mode="mixed",
+                             long_threshold=quantum, order="sjf")
+
+    t0 = time.monotonic()
+    cl = ClusterEngine(cfg, [dev] * 8, n_instances=4, max_batch=2,
+                       max_seq=2 * quantum, page_tokens=page_tokens,
+                       scheduler=scheduler(), dwell_steps=4, seed=0,
+                       prefill_policy=policy())
+    sync(dev)
+    t_init = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(43)
+    for e in cl.engines:
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        e.submit(warm)
+        e.run_until_done()
+    reset_launch_counts()
+    mem = {"before": mem_gb(dev)}
+    live_cm = cl.scheduler.cost_model
+    prior = CostModel(cfg)
+    fitted = CostModel(cfg, hw, link=link)
+    rows, rungs, reqs = [], [], []
+
+    def note(tp_of):
+        for a in cl.actions[len(rows):]:
+            tpf = tp_of.get(a.iid, 1) if isinstance(a, ScaleDown) else (
+                0 if isinstance(a, Spill) else 1)
+            rows.append({
+                "action": cluster_actions(cl)[len(rows)],
+                "prior_s": _action_cost(prior, a, tpf, page_tokens),
+                "fitted_s": _action_cost(fitted, a, tpf, page_tokens),
+                "ewma_s": _ewma_of(live_cm, a, tpf, cfg)})
+
+    t_run = time.monotonic()
+    drain = cl.dwell_steps + 2
+    for rid, n, new in trace:
+        total = n + new
+        if total > 2 * quantum:
+            # the three rungs as the scheduler sees them at this submit
+            insts, s = cl._transformable(), cl.scheduler
+            cands = [(name, act) for name, act in (
+                ("spill", s.decide_spill(insts, total)),
+                ("partial", s.decide_partial_merge(insts, total)),
+                ("full", s.decide_merge(insts, total))) if act is not None]
+            by = {name: {"prior_s": _action_cost(prior, act, 1,
+                                                 page_tokens),
+                         "fitted_s": _action_cost(fitted, act, 1,
+                                                  page_tokens),
+                         "live_s": s._rung_cost(act, i)[0]}
+                  for i, (name, act) in enumerate(cands)}
+            order = {k: sorted(by, key=lambda nm: by[nm][k])
+                     for k in ("prior_s", "fitted_s", "live_s")}
+            rungs.append({"rid": rid, "total": total, "rungs": by,
+                          "order_prior": order["prior_s"],
+                          "order_fitted": order["fitted_s"],
+                          "order_live": order["live_s"],
+                          "order_differs": order["prior_s"]
+                          != order["fitted_s"]})
+        r = ServeRequest(rid=rid, prompt=_prompts(gen, (n,),
+                                                  cfg.vocab_size)[0],
+                         max_new_tokens=new)
+        reqs.append(r)
+        tp_of = {e.iid: e.tp for e in cl.engines}
+        cl.submit(r)
+        note(tp_of)
+        quiet = 0
+        for _ in range(20000):
+            if cl.idle:
+                if quiet >= drain:
+                    break
+                quiet += 1
+            else:
+                quiet = 0
+            tp_of = {e.iid: e.tp for e in cl.engines}
+            cl.step()
+            note(tp_of)
+            if any(e.tp == 4 for e in cl.engines) and "during" not in mem:
+                mem["during"] = mem_gb(dev)
+            if cl.partition.spills() and "spilled" not in mem:
+                mem["spilled"] = mem_gb(dev)
+        else:
+            raise RuntimeError(f"cluster-calibrated did not drain {rid}")
+        assert all(e.tp == 1 and not e.parked for e in cl.engines), rid
+        assert not cl.partition.spills(), rid
+    wall = time.monotonic() - t_run
+    mem["after"] = mem_gb(dev)
+    launches = launch_counts()
+    cl.partition.check_invariants()
+    assert cl.stall_steps == 0, cl.stall_steps
+    for r in reqs:
+        assert r.done and all(0 <= t < cfg.vocab_size for t in r.generated)
+    if dev == "cuda":
+        assert all(launches[k] > 0 for k in launches), launches
+    # the measured side of each executed action, in order per engine
+    seen = {}
+    for row, a in zip(rows, cl.actions):
+        e = cl._engine(a.iid)
+        if isinstance(a, Spill):
+            log = e.spill_log
+            row.update(measured="spill_log of the guest", records=len(log),
+                       wall_s=sum(x["wall_s"] for x in log),
+                       exposed_s=sum(x["wall_s"] for x in log),
+                       pages=sum(x["pages"] for x in log))
+            continue
+        k = seen.get(a.iid, 0)
+        seen[a.iid] = k + 1
+        rec = e.transform_log[k]
+        row.update({f: rec[f] for f in ("tp_from", "tp_to", "layout_from",
+                                        "layout_to", "steps", "wall_s",
+                                        "exposed_s", "modeled_s",
+                                        "kv_bytes", "weight_bytes")})
+    # the simulator: the same trace, geometry, policy and fit
+    sim = Cluster(cfg, n_hosts=1, gpus_per_host=8, scheduler=scheduler(),
+                  target_tp=4, prefill_policy=policy(), seq_quantum=quantum,
+                  max_batch=2, widths=[2, 2, 2, 2], page_tokens=page_tokens,
+                  cost_model=CalibratedCostModel(cfg, hw, link=link))
+    sim.scale_down_dwell = 5.0
+    now, dt = 0.0, 0.25
+    for rid, n, new in trace:
+        sim.submit(Request(rid, now, n, new), now)
+        for _ in range(20000):
+            sim.advance(now, dt)
+            now += dt
+            if (all(q.tokens_done >= q.out_len
+                    for q in sim._req_by_rid.values())
+                    and all(i.tp == 1 for i in sim.instances)
+                    and not sim.waiting and not sim.partition.spills()):
+                break
+        else:
+            raise RuntimeError(f"sim did not drain request {rid}")
+    live_keys = [_cal_act_key(a) for a in cl.actions]
+    sim_keys = [_cal_act_key(a) for a in sim.actions]
+    live_pl = {r.rid: cl.placements[r.rid] for r in reqs}
+    assert live_keys == sim_keys, (live_keys, sim_keys)
+    assert live_pl == sim.placements, (live_pl, sim.placements)
+    assert any(isinstance(a, Spill) for a in cl.actions), live_keys
+    assert any(isinstance(a, ScaleUp) and a.donor_devices
+               for a in cl.actions), live_keys
+    emit(phase="cluster-calibrated", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=8, instances=4, quantum=quantum,
+         trace=[list(t) for t in trace], weights_init_s=t_init, wall_s=wall,
+         link=dataclasses.asdict(link),
+         hardware={k: getattr(hw, k) for k in ("mem_bytes", "base_tps",
+                                               "prefill_tps")},
+         actions=rows, rungs=rungs, live_actions=live_keys,
+         sim_actions=sim_keys, placements=live_pl,
+         sim_placements=sim.placements, actions_equal=True,
+         stall_steps=cl.stall_steps,
+         ewma={"|".join(map(str, k)): [v, live_cm.measured._count[k]]
+               for k, v in live_cm.measured._ewma.items()},
+         ttft_s=[r.ttft for r in reqs], tpot_s=[r.tpot for r in reqs],
+         sim_transform_log=sim.transform_log, mem_gb=mem,
+         launches=launches, gpu=smi)
+    del cl
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Shape census: every kernel shape the phases launch was held against its
 # plain version
 # ---------------------------------------------------------------------------
@@ -3882,8 +4307,10 @@ def main():
 
     main_cases = run("kernels", phase_kernels)
     run("parity", phase_parity)
-    launches = run("serve", phase_serve, smi)
+    launches, rates = run("serve", phase_serve, smi)
     free_card()
+    # slice 9: the cost model fitted to the card's own spans
+    cal = run("calibrate", phase_calibrate, smi, rates)
     # every registered head shape the port builds, end to end
     shapes = run("serve-shapes", phase_serve_shapes, smi)
     # a subprocess: its launches are not in the census (serve-shapes
@@ -3907,6 +4334,8 @@ def main():
     ladder = run("ladder-serve", phase_ladder_serve, smi)
     replicated = run("replicated-serve", phase_replicated_serve, smi)
     partial = run("cluster-partial", phase_cluster_partial, smi)
+    calibrated = run("cluster-calibrated", phase_cluster_calibrated, smi,
+                     cal)
     # slice 8: sequence-parallel layouts
     run("layout-parity", phase_layout_parity)
     layout = run("layout-serve", phase_layout_serve, smi)
@@ -3934,6 +4363,8 @@ def main():
                 "ladder-serve": ladder.get(name, 0),
                 "replicated-serve": replicated.get(name, 0),
                 "cluster-partial": partial.get(name, 0),
+                "calibrate": cal["launches"].get(name, 0),
+                "cluster-calibrated": calibrated.get(name, 0),
                 "layout-serve": layout[name],
                 "cluster-layout": clayout[name]}})
     print(smi)

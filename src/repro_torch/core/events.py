@@ -17,8 +17,7 @@ package).  Everything here is the time layer:
 * ``replay()`` — THE serving loop, shared verbatim by both planes.  A
   plane is anything with ``submit(req, now)`` / ``advance(now, dt)`` /
   ``idle``: ``serving.cluster.LiveReplayPlane`` adapts a live
-  ``ClusterEngine`` (the reference's simulator implements it too; the
-  simulator is not ported yet).
+  ``ClusterEngine``, and ``core.cluster_sim.Cluster`` implements it.
 """
 from __future__ import annotations
 

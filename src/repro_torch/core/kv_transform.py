@@ -5,10 +5,10 @@ The counterpart of ``repro.core.kv_transform``.  Two planes:
 * **Accounting plane** (host, ported as is): segment, byte and peak-page
   accounting of the paper's Fig. 9 layouts, with an explicit link model
   (bytes over bandwidth plus a per-segment overhead).  ``LinkModel()``'s
-  defaults are NVLink-class constants, not an H100 measurement: the
-  ``modeled_s`` a transform session reports is a model until a fit on
-  the card (ROADMAP queue 1 item 9) replaces them.  The reference's TPU
-  link constants have no counterpart here.
+  defaults are the paper's NVLink-class constants, the prior that
+  ``core.calibrate.fit_link_model`` replaces with constants fitted to
+  isolated spans of this module's migrations on the card; a session's
+  ``modeled_s`` is priced against ``LinkModel()``.
 * **Data plane** (torch): pool merge/split references, the slot-capacity
   resize, the cross-engine slot export and import (a merge donor's
   in-flight KV: ``export_slot`` packs a slot's pages with the gather

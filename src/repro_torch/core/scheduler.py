@@ -5,42 +5,29 @@ imports nothing of the JAX package and its decisions can be held
 against the reference's field by field.
 
 The scheduler sees a narrow ``InstanceView`` protocol (load, tp,
-max_seq, has_long_request, reserved, width), which the port's live
-``serving.engine.Engine`` implements; ``serving.cluster.ClusterEngine``
-is the control plane that executes its declarative ``ScaleUp`` /
-``ScaleDown`` actions.  A ``ScaleUp`` with ``donor_iids`` is a
-cross-instance merge (paper Fig. 3).  The opt-in rungs (``Spill``,
-partial merges, SP layouts) are decided here as in the reference; their
-data plane is not ported, and the port's ``ClusterEngine`` refuses a
-``SchedulerConfig`` that enables them.
+max_seq, has_long_request, reserved, width), which both the port's
+live ``serving.engine.Engine`` and the simulator's
+``core.cluster_sim.SimInstance`` implement; ``serving.cluster.
+ClusterEngine`` and ``core.cluster_sim.Cluster`` are the control planes
+that execute its declarative actions.  A ``ScaleUp`` with
+``donor_iids`` is a cross-instance merge (paper Fig. 3); the opt-in
+rungs (``Spill``, partial merges with ``donor_devices``, SP layouts)
+run on both planes.
 
-``layout_decode_tps`` is the reference's Table-1 throughput model
-(``repro.core.costmodel``, H20 constants from the paper), copied for
-the layout rung's scoring; the rest of the cost model is not ported."""
+``attach_cost`` takes a ``core.costmodel.CostModel`` (or a fitted
+``core.calibrate.CalibratedCostModel``): the capacity ladder is then
+ordered by its costs, and the layout rung scores layouts by its
+hardware constants; without one, by the Table-1 prior
+(``costmodel.layout_decode_tps``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Optional, Protocol, Sequence, Tuple, Union
 
+from repro_torch.core.costmodel import layout_decode_tps
 from repro_torch.launch.mesh import Layout
 
 MAX = float("inf")
-
-# the paper's Table-1 fit (4x H20, Qwen2.5-32B): single-GPU decode tps,
-# the TP all-reduce penalty 1/(1 + a(tp-1) + b(tp-1)^2) and the SP
-# combine penalty 1/(1 + g(sp-1)) (``repro.core.costmodel.H20``)
-BASE_TPS, ALPHA, BETA, SP_GAMMA = 448.0, 0.283, 0.054, 0.06
-
-
-def layout_decode_tps(layout, long_context: bool = False) -> float:
-    """Modeled decode tokens/s of one instance at ``layout`` (the
-    reference's ``costmodel.layout_decode_tps`` at its H20 default)."""
-    lay = Layout.of(layout)
-    eff = 1.0 / (1.0 + ALPHA * (lay.tp - 1) + BETA * (lay.tp - 1) ** 2)
-    tps = BASE_TPS * lay.tp * eff
-    if lay.sp > 1 and long_context:
-        tps *= lay.sp / (1.0 + SP_GAMMA * (lay.sp - 1))
-    return tps
 
 
 # --------------------------------------------------------------------------

@@ -542,8 +542,8 @@ class ClusterEngine:
 
     def _feed_measured_costs(self) -> None:
         """Stream every new transform and spill record into an attached
-        cost model's ``observe_transform`` (none is ported yet: a no-op
-        unless the caller attaches one)."""
+        cost model's ``observe_transform`` (``core.calibrate.
+        CalibratedCostModel``'s measured EWMA; a no-op without one)."""
         cm = getattr(self.scheduler, "cost_model", None)
         if cm is None or not hasattr(cm, "observe_transform"):
             return

@@ -73,11 +73,12 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, MOE, SLIDING, ModelConfig
+from repro_torch.configs.base import ATTN, SLIDING, ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core import kv_transform as KT
 from repro_torch.core import transform_engine as TE
 from repro_torch.core import weight_transform as WT
+from repro_torch.core.costmodel import kv_bytes_per_token
 from repro_torch.core.padding import PaddingPlan, make_plan
 from repro_torch.core.scheduler import PrefillPolicy
 from repro_torch.launch.mesh import (InstanceMesh, Layout, Worker,
@@ -86,15 +87,6 @@ from repro_torch.models import model as M
 from repro_torch.models.blocks import _window_of
 from repro_torch.paged import pool as pp
 from repro_torch.serving.request import ServeRequest, State
-
-
-def kv_bytes_per_token(cfg: ModelConfig) -> float:
-    """KV bytes a token of context takes (attention layers only; the
-    reference's ``core.costmodel.kv_bytes_per_token``, which the spill
-    log's byte count uses)."""
-    dh = cfg.resolved_head_dim
-    n_attn = sum(1 for k in cfg.pattern if k in (ATTN, SLIDING, MOE))
-    return n_attn * cfg.num_kv_heads * dh * 2 * 2
 
 
 class Engine:

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro`` (an AST scan, so imports inside functions and under
+"""The port stands alone: no module of ``src/repro_torch``, neither
+``chip_smoke.py`` nor ``examples/torch_scheduler_sim.py``, imports
+``jax`` or anything of the JAX package ``repro`` (an AST scan, so
+imports inside functions and under
 ``TYPE_CHECKING`` count too).  Every module also imports without a GPU,
 and the entry points that default to the card (``ClusterEngine`` on
 CUDA workers, the ``serve`` CLI without ``--device cpu``) raise there
@@ -15,7 +16,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-FILES = PORT + [ROOT / "chip_smoke.py"]
+FILES = PORT + [ROOT / "chip_smoke.py",
+                ROOT / "examples" / "torch_scheduler_sim.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -43,7 +45,8 @@ def test_every_port_module_imports_without_gpu():
             "core/weight_transform.py", "core/transform_engine.py",
             "kernels/page_migrate.py", "kernels/padded_ffn.py",
             "core/partition.py", "core/events.py", "core/scheduler.py",
-            "serving/cluster.py", "launch/serve.py"} <= names
+            "serving/cluster.py", "launch/serve.py", "core/costmodel.py",
+            "core/cluster_sim.py", "core/calibrate.py"} <= names
     for p in PORT:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(rel.parts)

@@ -5,7 +5,10 @@ Seeded random ``InstanceView`` stubs and request lengths go to both
 packages' ``gyges``, ``rr`` and ``llf`` schedulers (the same stub
 objects: the protocol is duck-typed), with the capacity-ladder rungs
 (spill, partial merge) off and on, SP layouts off and on, with and
-without an arrival-pressure estimator and a stub cost model.  Every
+without an arrival-pressure estimator, with a stub cost model and with
+both packages' real ``CostModel`` (the Table-1 prior, and a
+``CalibratedCostModel`` over a fitted-looking link with a warm EWMA).
+Every
 decision (``pick``, ``decide_scale_up``, ``decide_seed_scale_up``,
 ``decide_merge``, ``decide_capacity``, ``decide_partial_merge``,
 ``decide_spill``, ``decide_layout``, ``schedule_parallelism``) must be
@@ -86,12 +89,14 @@ def _fields(x):
     return (type(x).__name__, d)
 
 
-def _pair(name, rng_cfg, pressure, cost):
+def _pair(name, rng_cfg, pressure, costs):
+    """The reference's and the port's scheduler; ``costs`` is None or
+    the (reference, port) cost models to attach."""
     out = []
-    for S, E in ((RS, RE), (TS, TE)):
+    for k, (S, E) in enumerate(((RS, RE), (TS, TE))):
         sched = S.SCHEDULERS[name](S.SchedulerConfig(**rng_cfg))
-        if cost:
-            sched.attach_cost(StubCost())
+        if costs is not None:
+            sched.attach_cost(costs[k])
         if pressure:
             est = E.ArrivalPressure(tau_s=5.0)
             for t, long_ in pressure:
@@ -104,10 +109,42 @@ def _pair(name, rng_cfg, pressure, cost):
     return out
 
 
-@pytest.mark.parametrize("name", ["gyges", "rr", "llf"])
-@pytest.mark.parametrize("ladder", [False, True])
-def test_decisions_equal_reference(name, ladder):
-    rng = np.random.default_rng(7 if ladder else 3)
+def _real_costs(kind):
+    """Both packages' cost models for reduced llama3-8b: the Table-1
+    prior, or a ``CalibratedCostModel`` over one fitted-looking link
+    whose EWMA is warm for TP1 -> 2 and for spills."""
+    from repro.configs import get_config as ref_config
+    from repro.core import calibrate as RK
+    from repro.core import costmodel as RC
+    from repro.core import kv_transform as RKT
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibrate as TK
+    from repro_torch.core import costmodel as TC
+    from repro_torch.core import kv_transform as TKT
+    out = []
+    for cfg, C, K, KT in ((ref_config, RC, RK, RKT),
+                          (get_config, TC, TK, TKT)):
+        cfg = cfg("llama3-8b").reduced()
+        if kind == "prior":
+            out.append(C.CostModel(cfg))
+            continue
+        cm = K.CalibratedCostModel(cfg, link=KT.LinkModel(
+            bandwidth=1.7e11, segment_overhead=2.5e-6,
+            overlap_fraction=0.0))
+        for w in (0.8, 1.1, 0.9):
+            cm.observe_transform({"kind": "transform", "tp_from": 1,
+                                  "tp_to": 2, "wall_s": w, "bytes": 1e8})
+            cm.observe_transform({"kind": "spill", "tp_from": 0,
+                                  "tp_to": 0, "wall_s": w / 50,
+                                  "bytes": 1e6})
+        out.append(cm)
+    return tuple(out)
+
+
+def _trials(name, ladder, seed, costs=None):
+    """N_TRIALS random clusters and requests through both schedulers;
+    without ``costs`` half the ladder trials attach ``StubCost``."""
+    rng = np.random.default_rng(seed)
     for trial in range(N_TRIALS):
         insts = [Stub(rng, i) for i in range(int(rng.integers(1, 6)))]
         cfg = dict(long_threshold=int(rng.choice([32, 64, 4096])),
@@ -119,8 +156,10 @@ def test_decisions_equal_reference(name, ladder):
         pressure = ([(float(t), bool(rng.random() < 0.5))
                      for t in np.sort(rng.random(6) * 4)]
                     if rng.random() < 0.3 else None)
+        stub = ladder and bool(rng.random() < 0.5)
         ref, port = _pair(name, cfg, pressure,
-                          cost=ladder and bool(rng.random() < 0.5))
+                          costs if costs is not None else
+                          (StubCost(), StubCost()) if stub else None)
         for _ in range(3):
             inp = int(rng.integers(1, 300))
             out = int(rng.integers(1, 64))
@@ -142,6 +181,26 @@ def test_decisions_equal_reference(name, ladder):
                 assert _fields(got) == _fields(want), (trial, method)
             assert port.pressure_high() == ref.pressure_high()
             assert port.transform_horizon_s() == ref.transform_horizon_s()
+
+
+@pytest.mark.parametrize("name", ["gyges", "rr", "llf"])
+@pytest.mark.parametrize("ladder", [False, True])
+def test_decisions_equal_reference(name, ladder):
+    _trials(name, ladder, 7 if ladder else 3)
+
+
+@pytest.mark.parametrize("kind", ["prior", "calibrated"])
+@pytest.mark.parametrize("name", ["gyges", "rr", "llf"])
+@pytest.mark.parametrize("ladder", [False, True])
+def test_decisions_equal_reference_with_cost_model(name, ladder, kind):
+    """Both packages' real cost models attached (one pair, every trial):
+    the ladder is ordered by their costs, the layout rung scored by
+    their hardware constants, the pressure horizon derived from them."""
+    from repro_torch.core.scheduler import Layout
+    costs = _real_costs(kind)
+    assert costs[1].layout_tps(Layout(2, 2), True) == \
+        costs[0].layout_tps(RS.Layout(2, 2), True)
+    _trials(name, ladder, 11 if ladder else 5, costs=costs)
 
 
 def test_min_tp_for_and_layout_model_equal_reference():
