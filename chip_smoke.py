@@ -180,12 +180,39 @@ exits non-zero:
               the prior, under the fit and the EWMA's estimate beside its
               measured wall and exposed time, each long request's rung
               costs, and memory.
+15. moe-parity — reduced granite-moe-3b-a800m and llama4-maverick
+              (``(ATTN, MOE)``, a shared expert) in fp32, the same
+              weights and requests on the card and on the CPU: one
+              device with budgeted chunked prefill, and two workers at
+              TP1x2 whose decode overflows capacity across the replicas
+              (capacity factor 0.5) through TP1x2 -> TP2 -> TP1x2
+              mid-decode (maverick's shared expert on the padded FFN):
+              equal streams, first-token logits within ``MOE_TOL``.
+16. moe-serve — full-size granite-moe-3b-a800m (32 layers, 40 experts,
+              top-8) in bf16 on one device: prompts of 300-5000 tokens
+              (the last chunks); TTFT, TPOT, tokens/s, memory; a
+              profiled decode step of 4 rows and the MoE MLP's split a
+              layer and a step (routing, the expert ``bmm`` against its
+              bound, dispatch and combine), at 4 tokens and at a
+              4096-token chunk.  Kernels 1-3 must launch.
+17. moe-transform — granite on two workers: fp32 at 4 layers, TP1x2 ->
+              TP2 mid-decode equals an engine started at TP2 and a round
+              trip an untransformed engine; bf16 at full depth, TP1x2 ->
+              TP2 mid-decode, a 6000-token request only TP2 holds, back
+              to TP1x2, every decode row held against an engine started
+              at TP2 (teacher forced; ``MOE_BF16_AGREE``); sessions' walls,
+              KV bytes and MLP bytes.  Kernels 1-3 and 5-6 must launch.
+18. moe-cluster — phase 9 on granite (``phase_moe_cluster``): a merge of
+              2 x 1 workers to TP2 for a 6000-token request, the split,
+              the revived donor; then the serve CLI on granite at full
+              width (``MOE_CLI``).
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
 shape phases 12-14 give the kernels (``slice7_cases``: each engine's
 FFN, decode, chunk and flash shapes at each of its degrees, and each
-KV migration, phase 4a's included).  A shape census (``ShapeCensus``)
+KV migration, phase 4a's included), and granite's shapes on phases
+16-18 (``moe_cases``).  A shape census (``ShapeCensus``)
 records the shape key of every kernel launch, phase by phase; its
 ``shape-census`` line
 fails the run if a phase launched a shape that neither the kernels
@@ -194,8 +221,9 @@ plain version.  Then the
 card's name and power limit, one ``kernels`` line (launches counted
 on phase 9's path, and by path: serve / transform-serve, cluster-serve,
 serve-shapes, cluster-spill, ladder-serve, replicated-serve,
-cluster-partial, calibrate, cluster-calibrated, layout-serve and
-cluster-layout), and the last line
+cluster-partial, calibrate, cluster-calibrated, layout-serve,
+cluster-layout, moe-serve, moe-transform and moe-cluster), and the
+last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
@@ -281,14 +309,15 @@ def hold_card(iters: int) -> None:
     torch.cuda._sleep(int(2e5 * iters + 2e6))
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, hold: int = 1) -> float:
     """Mean milliseconds of ``fn`` on the card (CUDA events, calls back
-    to back; device time only, see ``hold_card``)."""
+    to back; device time only, see ``hold_card``; ``hold`` times longer
+    for a ``fn`` of many launches)."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    hold_card(iters)
+    hold_card(iters * hold)
     t0.record()
     for _ in range(iters):
         fn()
@@ -1009,7 +1038,7 @@ def phase_kernels():
         cases = [("llama3-8b", fn, kw) for fn, kw in cases]
         # slice 7's shapes: its engines' degrees and KV migrations; slice
         # 8's: the partial entries and the combine at its shard shapes
-        cases += slice7_cases() + slice8_cases()
+        cases += slice7_cases() + slice8_cases() + moe_cases()
         for model, fn, kw in cases + head_shape_cases():
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
@@ -1533,12 +1562,15 @@ def phase_cluster_serve(smi: str, dev: str = "cuda", cfg=None,
                         max_seq: int = 4096, lens=(300, 1200, 3500),
                         long_len: int = 6000, new: int = 128,
                         long_new: int = 32, page_tokens: int = 64,
-                        post_len: int = 500):
+                        post_len: int = 500, label: str = "cluster-serve",
+                        kernels=None):
     """Full-size llama3-8b in bf16, 2 instances x 1 worker of the card:
     a live merge for a 6000-token request while both decode, its chunked
     prefill on the merged TP2 engine, the Alg-2 split after the dwell
     and the donor's revive, then a request for each engine through the
-    router.  Returns the six kernels' launches on this path."""
+    router.  Returns the six kernels' launches on this path, each of
+    which (or of ``kernels``, the path's own: a MoE model runs no padded
+    FFN) must launch; the line is ``label``'s."""
     from repro_torch.configs import get_config
     from repro_torch.serving import Engine, ServeRequest
     from repro_torch.serving.cluster import ClusterEngine
@@ -1652,7 +1684,8 @@ def phase_cluster_serve(smi: str, dev: str = "cuda", cfg=None,
     assert len(long_.generated) == long_new
     assert all(len(p.generated) == 16 for p in posts)
     # every kernel of the path launched (only CUDA calls count)
-    assert dev != "cuda" or all(n > 0 for n in launches.values()), launches
+    assert dev != "cuda" or all(launches[k] > 0
+                                for k in kernels or launches), launches
     cl.partition.check_invariants()
     m = cl.metrics()
     assert list(m) == list(METRIC_KEYS)
@@ -1661,7 +1694,7 @@ def phase_cluster_serve(smi: str, dev: str = "cuda", cfg=None,
         sessions.append({k: log[k] for k in (
             "tp_from", "tp_to", "cross", "steps", "wall_s", "measured_s",
             "exposed_s", "modeled_s", "kv_bytes", "weight_bytes")})
-    emit(phase="cluster-serve", model=cfg.name, layers=cfg.num_layers,
+    emit(phase=label, model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, instances=2, workers_each=1,
          prompts=list(lens), new_tokens=new, long_prompt=long_len,
          actions=acts, weights_init_s=t_init, wall_s=wall,
@@ -1696,7 +1729,7 @@ def phase_serve_cli(args=()):
     2 instances of 4, its 4 kv heads copied twice),
     or serving full-size qwen2.5-32b (``QWEN_CLI``, which needs the card
     nearly to itself: this process's own tensors are freed first and
-    its allocation printed)."""
+    its allocation printed) or granite-moe-3b-a800m (``MOE_CLI``)."""
     free_card()
     parent_gb = torch.cuda.memory_allocated() / 1e9
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -3821,6 +3854,489 @@ def phase_cluster_calibrated(smi: str, cal: dict, dev: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# Slice 10: MoE blocks (granite-moe-3b-a800m; llama4-maverick reduced)
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "granite-moe-3b-a800m"
+#: the kernels every MoE path runs (granite has no dense MLP: the padded
+#: FFN runs only for maverick's shared expert, in moe-parity)
+MOE_KERNELS = ("paged_attention", "chunk_prefill", "flash_attention",
+               "copy_page_slices", "gather_page_slices")
+#: moe-transform's and moe-cluster's KV migrations: (ta, workers) ->
+#: (tb, workers after)
+MOE_MOVES = (((1, 2), (2, 2)), ((2, 2), (1, 2)),    # TP1x2 <-> TP2
+             ((1, 1), (2, 2)), ((2, 2), (1, 1)))    # a merge, a split
+#: whole-model logits of the card against the CPU in fp32, as the CPU
+#: tests hold the port against the reference
+MOE_TOL = 1e-4
+#: bf16 on the card: the least share of decode rows (teacher forced)
+#: whose greedy token equals an engine's started at TP2, at each stage
+#: of a TP1x2 -> TP2 change.  bf16 sums in other orders flip router
+#: choices, and at 4 rows a decode has one buffer slot an expert (cap
+#: 1), so one row's flip moves other rows' drops: the rows part more
+#: than a dense model's would (0.81-0.88 measured on an H100, PERF.md).
+#: Correctness is held in fp32 (equal streams); this bounds the drift.
+MOE_BF16_AGREE = 0.5
+
+
+def moe_cases():
+    """(model, case function, keywords) for granite's kernel shapes on
+    the MoE phases, from its padding plan of 2 shards (moe-transform's
+    engine and moe-cluster's pool): a prompt's first chunk and a later
+    one at TP1 and TP2, decode and flash at TP2 (TP1's are
+    ``head_shape_cases``' granite rows), each KV migration of
+    ``MOE_MOVES`` and the merge's slot export and import."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    cfg = get_config(MOE_MODEL)
+    plan = make_plan(cfg, 2, mode="page")
+    dh = cfg.resolved_head_dim
+    out = []
+    for t in (1, 2):
+        heads = dict(Hq=plan.q_heads_padded // t, kvs=plan.kv_slots // t,
+                     dh=dh)
+        out += [(MOE_MODEL, case_chunk, dict(S=4096, done=0, cap=8192,
+                                             attend_prefix=False, **heads)),
+                (MOE_MODEL, case_chunk, heads)]
+        if t == 2:
+            out += [(MOE_MODEL, case_decode, dict(B=4, ctx=2048, cap=8192,
+                                                  **heads)),
+                    (MOE_MODEL, case_flash, heads)]
+    for (ta, W), (tb, W2) in MOE_MOVES:
+        out.append((MOE_MODEL, case_reshard, dict(
+            ta=ta, tb=tb, W=W, W2=W2, kvs=plan.kv_slots, dh=dh)))
+    out.append((MOE_MODEL, case_slot_move, dict(
+        slot=1, to_slot=2, kvs=plan.kv_slots, dh=dh)))
+    return out
+
+
+def _moe_model(cfg, plan, seed: int, dev: str, on: str = "cpu"):
+    """Random weights built on ``on`` from ``seed`` (on the CPU: the
+    same for every device), the MLPs re-laid for ``plan``'s shards, on
+    ``dev``."""
+    from repro_torch.core.weight_transform import relayout_block_mlp
+    from repro_torch.models.model import build
+    model = build(cfg, plan, seed=seed, device=on)
+    for blk in model.layers:
+        relayout_block_mlp(blk.mlp, cfg.d_ff, plan.max_tp)
+    return model.to(dev)
+
+
+def phase_moe_parity(dev: str = "cuda"):
+    """Reduced granite-moe and llama4-maverick (``(ATTN, MOE)``, a shared
+    expert) in fp32, the same weights and requests on ``dev`` and on the
+    CPU (the kernels' plain versions): one device with budgeted chunked
+    prefill, and two workers at TP1x2 whose decode overflows capacity
+    across the replicas (capacity factor 0.5), transformed TP1x2 ->
+    TP2 -> TP1x2 mid-decode (maverick's shared expert on the padded
+    FFN).  Greedy streams equal; first-token logits of a whole prompt
+    and of a chunked one within ``MOE_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.serving import Engine, ServeRequest
+
+    t0 = time.monotonic()
+    rows = []
+    for name in (MOE_MODEL, "llama4-maverick-400b-a17b"):
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  dtype="float32")
+        over = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+        prompts = _prompts(torch.Generator().manual_seed(29),
+                           (9, 23, 41, 14), cfg.vocab_size)
+        streams, logits = {}, {}
+        for d in (dev, "cpu"):
+            model = _moe_model(cfg, make_plan(cfg, 1), 0, d)
+            eng = Engine(cfg, params=model, max_batch=4, max_seq=64,
+                         page_tokens=16, device=d,
+                         prefill_policy=PrefillPolicy(token_budget=16,
+                                                      mode="mixed"))
+            streams[d, "one device"] = _drive(
+                eng, [ServeRequest(p, max_new_tokens=12) for p in prompts])
+            with torch.no_grad():
+                whole = model.prefill(
+                    torch.tensor(prompts[1], device=d)[None],
+                    model.init_decode_caches(1, 64, 16))
+                caches = model.init_decode_caches(1, 64, 16)
+                long_ = torch.tensor(prompts[2], device=d)[None]
+                for s0 in range(0, long_.shape[1], 16):
+                    chunked = model.prefill_chunk(
+                        long_[:, s0:s0 + 16],
+                        torch.tensor([s0], dtype=torch.int32, device=d),
+                        caches, first_chunk=s0 == 0)
+            logits[d] = (whole.float().cpu(), chunked.float().cpu())
+            m2 = _moe_model(over, make_plan(over, 2, mode="page"), 1, d)
+            eng = Engine(over, params=m2, devices=[d] * 2, max_batch=4,
+                         max_seq=64, page_tokens=16)
+            streams[d, "TP1x2 -> TP2 -> TP1x2"] = _drive(
+                eng, [ServeRequest(p, max_new_tokens=12) for p in prompts],
+                before=5, plan=(2, 1))
+            del model, m2, eng
+        for k in ("one device", "TP1x2 -> TP2 -> TP1x2"):
+            assert streams[dev, k] == streams["cpu", k], (name, k, streams)
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(logits[dev], logits["cpu"]))
+        assert err <= MOE_TOL, (name, "first-token logits", err)
+        rows.append({"model": cfg.name, "pattern": list(cfg.pattern),
+                     "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                     "shared_expert": cfg.moe.shared_expert,
+                     "first_token_logit_max_abs_err": err})
+    if dev == "cuda":
+        free_card()
+    emit(phase="moe-parity", dtype="float32", prompts=[9, 23, 41, 14],
+         models=rows, streams_equal=True, tol=MOE_TOL,
+         overflow_capacity_factor=0.5, seconds=time.monotonic() - t0)
+
+
+def moe_split(p, cfg, plan, tokens: int, dev: str) -> dict:
+    """Device time of one MoE MLP's parts at ``tokens`` tokens routed
+    together, on layer weights ``p``: the routing (router product,
+    softmax, top-k, positions), the two expert ``bmm`` over the
+    ``(Ep, cap, d)`` buffer alone, and the rest of ``moe_experts`` (the
+    dispatch scatter, the activation, the weighted combine).  The
+    ``bmm`` bound reads every expert's weights once (all ``Ep`` experts
+    are read on each call) and the buffers once, and writes the outputs
+    once."""
+    from repro_torch.models import blocks as B
+    dt = p["wi"].dtype
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((tokens, cfg.d_model), generator=g, device=dev).to(dt)
+    Ep, d, ncol = p["wi"].shape
+    ffp = p["wo"].shape[1]
+
+    def route():
+        topv, topi = B.moe_route(p["router"], x, cfg, plan)
+        cap = B.moe_capacity(tokens, cfg)
+        return (topv, topi, *B.moe_positions(topi, Ep, cap), cap)
+
+    topv, topi, pos, keep, cap = route()
+    buf = torch.randn((Ep, cap, d), generator=g, device=dev).to(dt)
+    h = torch.randn((Ep, cap, ffp), generator=g, device=dev).to(dt)
+    iters = 20
+    # the routing and the experts are a dozen small launches each: hold
+    # the card long enough that the events time its work, not the host's
+    t_route = time_ms(route, iters, hold=20)
+    t_experts = time_ms(lambda: B.moe_experts(
+        p, x, topv, topi, pos, keep, cap, cfg.activation), iters, hold=20)
+    t_bmm = time_ms(lambda: (torch.bmm(buf, p["wi"]),
+                             torch.bmm(h, p["wo"])), iters)
+    nb = (nbytes(p["wi"], p["wo"], buf, h)
+          + Ep * cap * (ncol + d) * buf.element_size())
+    flops = 2 * Ep * cap * d * ncol + 2 * Ep * cap * ffp * d
+    b_ms, b_by = bound_ms(nb, flops, dt)
+    return {"tokens": tokens, "cap": cap, "experts_padded": Ep,
+            "kept_choices": int(keep.sum()), "choices": keep.numel(),
+            "route_ms": t_route, "experts_ms": t_experts,
+            "expert_bmm_ms": t_bmm,
+            "dispatch_act_combine_ms": t_experts - t_bmm,
+            "expert_bmm_bytes": nb, "expert_bmm_flops": flops,
+            "expert_bmm_bound_ms": b_ms, "expert_bmm_bound_by": b_by}
+
+
+def phase_moe_serve(smi: str, dev: str = "cuda", cfg=None,
+                    lens=(300, 1200, 2500, 5000), new: int = 32,
+                    max_seq: int = 8192, page_tokens: int = 64):
+    """Full-size granite-moe-3b-a800m (32 layers, 40 experts, top-8) in
+    bf16 with random weights on one device through ``Engine.step``:
+    whole prompts and a 5000-token one that chunks (4096 + 904).  Every
+    launch counter of kernels 1-3 must rise.  Prints TTFT, TPOT,
+    tokens/s, memory; then a profiled decode step of 4 rows at 2048
+    tokens (busy against wall) and the MoE MLP's split at that step's
+    4 tokens and at a 4096-token chunk (``moe_split``), with the
+    attention kernel's share of the step from the profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models.model import build
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or get_config(MOE_MODEL)
+    plan = make_plan(cfg, 1)
+    t0 = time.monotonic()
+    model = build(cfg, plan, seed=0, device=dev)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    eng = Engine(cfg, params=model, max_batch=4, max_seq=max_seq,
+                 page_tokens=page_tokens, device=dev)
+    gen = torch.Generator().manual_seed(31)
+    warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    sync(dev)
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    for r in reqs:
+        assert len(r.generated) == new, (len(r.prompt), len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert dev != "cuda" or all(launches[k] > 0 for k in (
+        "paged_attention", "chunk_prefill", "flash_attention")), launches
+    chunked = [n for n in lens
+               if len(eng.prefill_policy.chunk_sizes(n, page_tokens)) > 1]
+    assert chunked, "no prompt chunked"
+    out = {"phase": "moe-serve", "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+           "prompts": list(lens), "chunked_prompts": chunked,
+           "new_tokens": new, "weights_init_s": t_init, "wall_s": wall,
+           "ttft_s": [r.ttft for r in reqs], "tpot_s": [r.tpot for r in reqs],
+           "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+           "launches": launches, "gpu": smi}
+    if dev == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        prof = decode_profile(eng, cfg, gen)
+        p0 = eng.model.layers[0].mlp
+        step = moe_split(p0, cfg, plan, 4, dev)
+        chunk = moe_split(p0, cfg, plan, 4096, dev)
+        n_moe = sum(1 for k in cfg.pattern if k == "moe")
+        attn = prof["kinds_ms"].get("paged decode (port)", 0.0)
+        per_step = {k: step[k] * n_moe for k in (
+            "route_ms", "expert_bmm_ms", "dispatch_act_combine_ms")}
+        out.update(decode_step={
+            "rows": 4, "context": 2048,
+            "unprofiled_wall_ms": prof["unprofiled_wall_ms"],
+            "profiled_wall_ms": prof["wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "attention_kernel_ms": attn,
+            **{"moe_" + k: v for k, v in per_step.items()},
+            "shares_of_busy": {
+                "attention_kernel": attn / prof["device_busy_ms"],
+                **{"moe_" + k[:-3]: v / prof["device_busy_ms"]
+                   for k, v in per_step.items()}}},
+            moe_split_per_layer={"decode": step, "prefill_chunk": chunk})
+        emit(phase="profile", gpu=smi, model=cfg.name, **prof)
+    emit(**out)
+    del eng, model
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def _moe_worker_engine(cfg, dev, W=2, seed=0, **kw):
+    """An engine on W workers of ``dev``, its weights generated there
+    from ``seed``."""
+    from repro_torch.core.padding import make_plan
+    from repro_torch.serving import Engine
+    plan = make_plan(cfg, W, mode="page")
+    return Engine(cfg, params=_moe_model(cfg, plan, seed, dev, on=dev),
+                  devices=[dev] * W, **kw)
+
+
+def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
+                        parity_layers: int = 4, max_seq: int = 8192,
+                        lens=(300, 1200, 2500, 3500), long_len: int = 6000,
+                        new: int = 48, page_tokens: int = 64,
+                        layers_per_step: int = 4):
+    """granite-moe on two workers of the card.  In fp32 at full width
+    and ``parity_layers`` layers: TP1x2 -> TP2 mid-decode gives the
+    streams of an engine started at TP2, a round trip TP1x2 -> TP2 ->
+    TP1x2 those of an engine that never transformed.  In bf16 at full
+    width and depth: the same prompts decode at TP1x2, the engine
+    transforms to TP2 mid-decode, serves a 6000-token request only TP2
+    holds, and transforms back (``layers_per_step`` layers a schedule
+    step); every decode row of the short prompts is held against an
+    engine started at TP2 (teacher forced: the row's logits beside the
+    reference's, by where the row ran), the bf16 tolerance the card
+    gives.  Prints each session's steps, walls and the KV and weight
+    bytes it moved; kernels 1-3 and 5-6 must launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import weight_transform as WT
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.serving import ServeRequest, State
+
+    base = cfg or get_config(MOE_MODEL)
+    t0 = time.monotonic()
+    c32 = dataclasses.replace(base, num_layers=parity_layers,
+                              dtype="float32")
+    prompts = _prompts(torch.Generator().manual_seed(37),
+                       (60, 150, 250, 90), c32.vocab_size)
+    kw = dict(max_batch=4, max_seq=512, page_tokens=page_tokens,
+              prefill_policy=PrefillPolicy(token_budget=128, mode="mixed"))
+    streams = {}
+    for name, before, plan in (("tp2", 0, None), ("mid", 6, (2,)),
+                               ("round_trip", 6, (2, 1)),
+                               ("untransformed", 0, ())):
+        eng = _moe_worker_engine(c32, dev, **kw)
+        if plan is None:
+            eng.transform(2)
+            while eng.transforming:
+                eng.step()
+            plan = ()
+        streams[name] = _drive(
+            eng, [ServeRequest(p, max_new_tokens=16) for p in prompts],
+            before, plan)
+        del eng
+    assert streams["mid"] == streams["tp2"], streams
+    assert streams["round_trip"] == streams["untransformed"], streams
+    t_parity = time.monotonic() - t0
+
+    gen = torch.Generator().manual_seed(43)
+    shorts = _prompts(gen, lens, base.vocab_size)
+    long_prompt = _prompts(gen, (long_len,), base.vocab_size)[0]
+    kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens)
+
+    def rows_of(eng, reqs, keep, force=None):
+        """Wrap ``eng._decode``: record each request's logits row (on the
+        host) by token index, with where the engine stood (``TP1x2``,
+        ``session``, ``TP2``); with ``force``, each row takes the
+        recorded run's token (teacher forcing)."""
+        orig = eng._decode
+
+        def decode(tokens, positions):
+            where = ("session" if eng.transforming
+                     else "TP1x2" if eng.tp == 1 else f"TP{eng.tp}")
+            logits = orig(tokens, positions)
+            for i, r in enumerate(reqs):
+                if r.state != State.DECODE or eng.slots[r.slot] is not r:
+                    continue
+                j = len(r.generated)
+                keep[i, j] = (logits[r.slot].float().cpu(), where)
+                if force is not None and (i, j) in force:
+                    logits = logits.clone()
+                    logits[r.slot] = -1e30
+                    logits[r.slot, int(force[i, j][0].argmax())] = 0.0
+            return logits
+
+        eng._decode = decode
+
+    want = {}
+    ref = _moe_worker_engine(base, dev, **kw)
+    ref.transform(2, layers_per_step=base.num_layers)
+    while ref.transforming:
+        ref.step()
+    ref_reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
+    rows_of(ref, ref_reqs, want)
+    _drive(ref, ref_reqs)
+    del ref
+    if dev == "cuda":
+        free_card()
+
+    eng = _moe_worker_engine(base, dev, **kw)
+    warm = ServeRequest(_prompts(gen, (70,), base.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reset_launch_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
+    got = {}
+    rows_of(eng, reqs, got, force=want)
+    t_run = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) < new // 3 for r in reqs):
+        eng.step()
+    assert eng.tp == 1 and all(r.slot is not None for r in reqs)
+    n_up = eng.transform(2, layers_per_step=layers_per_step)
+    while eng.transforming:
+        eng.step()
+    assert eng.tp == 2 and eng.max_seq() == max_seq
+    long_ = ServeRequest(long_prompt, max_new_tokens=16)
+    assert eng.max_seq_at(1) < long_.total_tokens <= eng.max_seq()
+    eng.submit(long_)
+    while eng.waiting or any(s is not None for s in eng.slots):
+        eng.step()
+    n_down = eng.transform(1, layers_per_step=layers_per_step)
+    while eng.transforming:
+        eng.step()
+    sync(dev)
+    wall = time.monotonic() - t_run
+    launches = launch_counts()
+    assert eng.tp == 1
+    for r in reqs + [long_]:
+        assert r.done and all(0 <= t < base.vocab_size for t in r.generated)
+    assert dev != "cuda" or all(launches[k] > 0
+                                for k in MOE_KERNELS), launches
+    # the bf16 tolerance: every decode row of the transformed run against
+    # the engine started at TP2, on the same tokens, by where it ran
+    held = {}
+    for (i, j), (row, where) in got.items():
+        if (i, j) not in want:
+            continue
+        ref_row = want[i, j][0]
+        h = held.setdefault(where, {"rows": 0, "logit_max_abs_diff": 0.0,
+                                    "over_logit_rms": 0.0,
+                                    "argmax_flips": 0})
+        diff = float((row - ref_row).abs().max())
+        rms = float(ref_row[:base.vocab_size].pow(2).mean().sqrt())
+        h["rows"] += 1
+        h["logit_max_abs_diff"] = max(h["logit_max_abs_diff"], diff)
+        h["over_logit_rms"] = max(h["over_logit_rms"], diff / rms)
+        h["argmax_flips"] += int(row.argmax()) != int(ref_row.argmax())
+    assert held.get("TP2", {}).get("rows"), held
+    for where, h in held.items():
+        h["argmax_agree"] = 1 - h["argmax_flips"] / h["rows"]
+        assert h["argmax_agree"] >= MOE_BF16_AGREE, (where, held)
+    ups, downs = (eng.transform_reports[:n_up],
+                  eng.transform_reports[n_up:])
+    assert len(downs) == n_down
+    # the MLP bytes each session wrote (every worker's shard is a fresh
+    # tensor at a new degree; the router stays): TP2's shards are one
+    # replica in all, TP1x2 a replica a worker; beside them the
+    # reference's accounting (the swap path: granite's plan is not
+    # page-aligned)
+    replica = sum(t.numel() * t.element_size() for layer in eng.layers
+                  for k, t in layer.mlp[0].items() if k != "router")
+    sessions = []
+    for log, reps in zip(eng.transform_log, (ups, downs)):
+        st = WT.account_regroup(base, eng.plan, log["tp_from"],
+                                log["tp_to"], "padded")
+        sessions.append(dict(
+            session_summary(log, reps, eng.W), kv_bytes=log["kv_bytes"],
+            weight_bytes_across_workers=log["weight_bytes"],
+            mlp_bytes_written=replica * (eng.W if log["tp_to"] == 1 else 1),
+            mlp_bytes_accounted=base.num_layers * (st.bytes_copied
+                                                   + st.bytes_transferred)))
+    emit(phase="moe-transform", model=base.name, dtype=base.dtype,
+         layers=base.num_layers, workers=eng.W, prompts=list(lens),
+         long_prompt=long_len, parity_layers=parity_layers,
+         parity_mid_equals_tp2=True,
+         parity_round_trip_equals_untransformed=True,
+         parity_seconds=t_parity, wall_s=wall, sessions=sessions,
+         bf16_held_against_tp2=held,
+         ttft_s=[r.ttft for r in reqs + [long_]],
+         tpot_s=[r.tpot for r in reqs + [long_]], launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del eng
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+#: the serve CLI on a MoE model: granite-moe-3b-a800m at published
+#: widths and depth in bf16, one instance of one worker of the card
+MOE_CLI = ("--arch", MOE_MODEL, "--no-smoke", "--instances", "1",
+           "--workers", "1", "--max-seq", "8192", "--requests", "4",
+           "--long-every", "2")
+
+
+def phase_moe_cluster(smi: str, dev: str = "cuda", cfg=None, **kw):
+    """``phase_cluster_serve`` on full-size granite-moe in bf16: 2
+    instances x 1 worker of the card, prompts of 300-2500 tokens, a
+    6000-token request only the merged TP2 holds (a live merge under
+    ``GygesScheduler``), the split after the dwell, the revived donor
+    serving.  Kernels 1-3 and 5-6 must launch."""
+    from repro_torch.configs import get_config
+    kw = dict(dict(lens=(300, 1200, 2500), new=32, long_new=16), **kw)
+    return phase_cluster_serve(smi, dev, cfg or get_config(MOE_MODEL),
+                               label="moe-cluster", kernels=MOE_KERNELS,
+                               **kw)
+
+
+# ---------------------------------------------------------------------------
 # Shape census: every kernel shape the phases launch was held against its
 # plain version
 # ---------------------------------------------------------------------------
@@ -3907,7 +4423,8 @@ CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
 #: versions) on the same weights and prompts: the shapes they launch are
 #: checked there, the rest only by the kernels phase
 PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
-                 "spill-parity", "ladder-parity", "layout-parity")
+                 "spill-parity", "ladder-parity", "layout-parity",
+                 "moe-parity")
 
 
 class ShapeCensus:
@@ -4298,12 +4815,16 @@ def main():
     census = ShapeCensus()
     census.install()
 
+    seconds = {}
+
     def run(label, fn, *a):
         census.into = label
+        t0 = time.monotonic()
         try:
             return fn(*a)
         finally:
             census.into = None
+            seconds[label] = time.monotonic() - t0
 
     main_cases = run("kernels", phase_kernels)
     run("parity", phase_parity)
@@ -4341,6 +4862,13 @@ def main():
     layout = run("layout-serve", phase_layout_serve, smi)
     clayout = run("cluster-layout", phase_cluster_layout, smi)
     assert all(clayout[k] > 0 for k in SP_KERNELS), clayout
+    # slice 10: MoE blocks
+    run("moe-parity", phase_moe_parity)
+    moe = {"moe-serve": run("moe-serve", phase_moe_serve, smi),
+           "moe-transform": run("moe-transform", phase_moe_transform, smi),
+           "moe-cluster": run("moe-cluster", phase_moe_cluster, smi)}
+    phase_serve_cli(MOE_CLI)
+    emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
@@ -4366,7 +4894,8 @@ def main():
                 "calibrate": cal["launches"].get(name, 0),
                 "cluster-calibrated": calibrated.get(name, 0),
                 "layout-serve": layout[name],
-                "cluster-layout": clayout[name]}})
+                "cluster-layout": clayout[name],
+                **{k: v.get(name, 0) for k, v in moe.items()}}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

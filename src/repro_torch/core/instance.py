@@ -64,6 +64,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.padding import PaddingPlan
+from repro_torch.core.weight_transform import MLP_PAIRS
 from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import pool as pp
 
@@ -269,16 +270,27 @@ def reshard_mlp(group: List[Params], ta: int, tb: int, p: int, S: int,
     (p+1)*S/tb)``) from the ``ta`` shards of one source TP group: ``wi``
     ``[gate_p | up_p]`` and the matching ``wo`` rows.  A shard of S/t
     consecutive Eq. 2 shards is ``[g_a 0 g_b 0 | u_a 0 u_b 0]``, itself
-    an Eq. 2 layout (``mlp_shards``)."""
-    d = group[0]["wi"].shape[0]
-    per = S // ta
-    fs = group[0]["wo"].shape[0] // per
-    runs = _runs(p * S // tb, (p + 1) * S // tb, per)
-    wi = _join([group[i]["wi"].view(d, 2, per, fs)[:, :, a:b]
-                for i, a, b in runs], 2, device)
-    wo = _join([group[i]["wo"].view(per, fs, d)[a:b] for i, a, b in runs],
-               0, device)
-    return {"wi": wi.view(d, -1), "wo": wo.view(-1, d)}
+    an Eq. 2 layout (``mlp_shards``).  A MoE layer's expert tensors
+    ``wi (Ep, d, 2*ffp)`` / ``wo (Ep, ffp, d)`` split the same way with
+    the expert axis in front (every shard holds every expert, as the
+    reference shards ``wi``'s last axis and ``wo``'s second-to-last), its
+    shared expert as a dense MLP; the router is replicated
+    (``move_mlp``) and is not part of the shard."""
+    out = {}
+    for a_key, b_key in MLP_PAIRS:
+        if a_key not in group[0]:
+            continue
+        wi0 = group[0][a_key]
+        lead, d = wi0.shape[:-2], wi0.shape[-2]
+        per = S // ta
+        fs = group[0][b_key].shape[-2] // per
+        runs = _runs(p * S // tb, (p + 1) * S // tb, per)
+        wi = _join([group[i][a_key].view(*lead, d, 2, per, fs)[..., a:b, :]
+                    for i, a, b in runs], -2, device)
+        wo = _join([group[i][b_key].view(*lead, per, fs, d)[..., a:b, :, :]
+                    for i, a, b in runs], -3, device)
+        out[a_key], out[b_key] = wi.view(*lead, d, -1), wo.view(*lead, -1, d)
+    return out
 
 
 def shard_mlp(p: Params, t: int, pos: int, S: int, device=None) -> Params:
@@ -290,10 +302,16 @@ def shard_mlp(p: Params, t: int, pos: int, S: int, device=None) -> Params:
 
 def move_mlp(layer: WorkerLayer, dst, lb: Layout, S: int) -> None:
     """The layer's MLP at layout ``lb`` on the workers of ``dst`` (its
-    ``mesh`` still names the source assembly)."""
-    layer.mlp = reshard(
+    ``mesh`` still names the source assembly).  A MoE router follows as
+    a replicated value."""
+    new = reshard(
         layer.mlp, layer.mesh, layer.mlp_layout, dst, lb,
         lambda g, ta, b, p, dev: reshard_mlp(g, ta, b, p, S, dev))
+    if "router" in layer.mlp[0]:
+        routers = replicas_across([p["router"] for p in layer.mlp],
+                                  layer.mesh, dst)
+        new = [{**p, "router": r} for p, r in zip(new, routers)]
+    layer.mlp = new
     layer.mlp_layout = lb
 
 
@@ -476,7 +494,7 @@ class InstanceGroup:
                  max_seq: int, page_tokens: int = 16, seed: int = 0,
                  params=None):
         from repro_torch.core.padding import make_plan
-        from repro_torch.core.weight_transform import relayout_mlp_for_tp
+        from repro_torch.core.weight_transform import relayout_block_mlp
         from repro_torch.launch.mesh import InstanceMesh
         from repro_torch.models import model as M
 
@@ -493,10 +511,7 @@ class InstanceGroup:
             params = M.build(cfg, self.plan, seed,
                              device=self.mesh.devices[0])
             for blk in params.layers:
-                blk.mlp["wi"].data, blk.mlp["wo"].data = \
-                    relayout_mlp_for_tp(blk.mlp["wi"].data,
-                                        blk.mlp["wo"].data, cfg.d_ff,
-                                        self.plan.max_tp)
+                relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp)
         blocks = [(b.kind, b.ln1, b.ln2, dict(b.attn), dict(b.mlp))
                   for b in params.layers]
         self.layers, self.static = place_replicas(

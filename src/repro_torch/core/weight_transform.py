@@ -35,23 +35,26 @@ from repro_torch.models import layers as Lyr
 
 def pad_columns_for_tp(w: torch.Tensor, ff: int, ffp: int, tp: int
                        ) -> torch.Tensor:
-    """(d, ff) -> (d, ffp): the real columns in ``tp`` shards, each padded
-    at its end with zeros (U' = [U1, 0, U2, 0, ...])."""
-    d = w.shape[0]
+    """(..., d, ff) -> (..., d, ffp): the real columns in ``tp`` shards,
+    each padded at its end with zeros (U' = [U1, 0, U2, 0, ...]); leading
+    axes (an expert axis) are carried along."""
+    lead = w.shape[:-1]
     assert ff % tp == 0, (ff, tp)
     shard, shard_p = ff // tp, ffp // tp
-    w = w.reshape(d, tp, shard)
-    return torch.nn.functional.pad(w, (0, shard_p - shard)).reshape(d, ffp)
+    w = w.reshape(*lead, tp, shard)
+    return torch.nn.functional.pad(w, (0, shard_p - shard)).reshape(
+        *lead, ffp)
 
 
 def pad_rows_for_tp(w: torch.Tensor, ff: int, ffp: int, tp: int
                     ) -> torch.Tensor:
-    """(ff, d) -> (ffp, d): D' = [D1; 0; D2; 0; ...] row padding."""
-    d = w.shape[1]
+    """(..., ff, d) -> (..., ffp, d): D' = [D1; 0; D2; 0; ...] row
+    padding."""
+    lead, d = w.shape[:-2], w.shape[-1]
     shard, shard_p = ff // tp, ffp // tp
-    w = w.reshape(tp, shard, d)
+    w = w.reshape(*lead, tp, shard, d)
     return torch.nn.functional.pad(w, (0, 0, 0, shard_p - shard)).reshape(
-        ffp, d)
+        *lead, ffp, d)
 
 
 def relayout_mlp_for_tp(wi: torch.Tensor, wo: torch.Tensor, ff: int,
@@ -59,14 +62,31 @@ def relayout_mlp_for_tp(wi: torch.Tensor, wo: torch.Tensor, ff: int,
     """Fused gated MLP weights with their zero padding at the global tail
     (the reference's init: ``wi = [gate, 0 | up, 0]``, ``wo = [D; 0]``)
     -> the per-shard Eq. 2 layout the port keeps.  The same layout when
-    there is no padding (``ffp == ff``) or one shard."""
-    d, ffp = wi.shape[0], wi.shape[1] // 2
+    there is no padding (``ffp == ff``) or one shard.  Works on the last
+    two axes: ``wi (..., d, 2*ffp)``, ``wo (..., ffp, d)``, so MoE expert
+    tensors (``(Ep, d, 2*ffp)``, ``(Ep, ffp, d)``) re-lay every expert."""
+    ffp = wi.shape[-1] // 2
     if ffp == ff or tp == 1:
         return wi, wo
-    gate, up = wi[:, :ff], wi[:, ffp:ffp + ff]
+    gate, up = wi[..., :ff], wi[..., ffp:ffp + ff]
     wi_p = torch.cat([pad_columns_for_tp(gate, ff, ffp, tp),
-                      pad_columns_for_tp(up, ff, ffp, tp)], dim=1)
-    return wi_p, pad_rows_for_tp(wo[:ff], ff, ffp, tp)
+                      pad_columns_for_tp(up, ff, ffp, tp)], dim=-1)
+    return wi_p, pad_rows_for_tp(wo[..., :ff, :], ff, ffp, tp)
+
+
+#: a layer's sharded MLP weight pairs (``wi``, ``wo``): the dense MLP or
+#: the MoE experts, and a MoE layer's shared expert
+MLP_PAIRS = (("wi", "wo"), ("shared_wi", "shared_wo"))
+
+
+def relayout_block_mlp(mlp, ff: int, tp: int) -> None:
+    """Re-lay, in place, every gated weight pair of one layer's ``mlp``
+    (a dict or ``nn.ParameterDict`` of the reference's layout) for ``tp``
+    Eq. 2 shards (``relayout_mlp_for_tp``); a router stays as it is."""
+    for a, b in MLP_PAIRS:
+        if a in mlp:
+            mlp[a].data, mlp[b].data = relayout_mlp_for_tp(
+                mlp[a].data, mlp[b].data, ff, tp)
 
 
 def ffn_reference(x, u, d_w, activation: str = "swiglu"):

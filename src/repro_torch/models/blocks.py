@@ -1,9 +1,10 @@
-"""Per-block parameter init and apply functions for the dense decoder.
+"""Per-block parameter init and apply functions for the decoder.
 
 The counterpart of ``repro.models.blocks`` for the ATTN and SLIDING
-kinds (attention + dense MLP).  Parameters are plain dicts of tensors
-(``nn.ParameterDict`` inside the model); padded slots (heads, d_ff)
-carry zero weights so the padded model equals the unpadded one.
+kinds (attention + dense MLP) and MOE (attention + a capacity-routed
+mixture of experts).  Parameters are plain dicts of tensors
+(``nn.ParameterDict`` inside the model); padded slots (heads, d_ff,
+experts) carry zero weights so the padded model equals the unpadded one.
 
 Attention goes through the kernel wrappers, which run the hand-written
 CUDA kernel for tensors on the card and the plain version on the CPU:
@@ -12,7 +13,9 @@ with its in-place scatter, ``attention_decode`` -> paged decode over the
 pool in place (no gather).  The query/key/value/output projections are
 plain ``torch.matmul``; so is the single-device engine's MLP
 (``apply_mlp``), while an engine with workers runs the padded FFN kernel
-(``apply_padded_mlp``).
+(``apply_padded_mlp``).  The MoE routing, dispatch, expert products
+(``torch.bmm`` over the capacity buffer) and combine are plain PyTorch,
+as the reference's are plain ``jnp``.
 
 Sequence-parallel layouts (``attention_decode_sp``, ``attention_chunk_sp``:
 the counterparts of the reference's ``attention_decode`` /
@@ -46,15 +49,17 @@ Params = Dict[str, torch.Tensor]
 
 #: block kinds of other architectures, and the ROADMAP item that ports them
 NOT_PORTED = {
-    MOE: "ROADMAP queue 1 item 10 (MoE)",
     RGLRU: "ROADMAP queue 1 item 10 (RG-LRU)",
     MLSTM: "ROADMAP queue 1 item 10 (xLSTM)",
     SLSTM: "ROADMAP queue 1 item 10 (xLSTM)",
 }
 
+#: the block kinds the port runs: attention and an MLP each
+ATTENTION_KINDS = (ATTN, SLIDING, MOE)
+
 
 def check_kind(kind: str) -> None:
-    if kind not in (ATTN, SLIDING):
+    if kind not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: "
             f"{NOT_PORTED.get(kind, 'unknown kind')}")
@@ -303,18 +308,151 @@ def apply_padded_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, tp: int,
 
 
 # ===========================================================================
+# MoE MLP sub-layer (capacity-based top-k routing, expert axis padded)
+# ===========================================================================
+#
+# The reference's ``apply_moe_mlp`` (``repro/models/blocks.py:256-332``)
+# with ``nb = 1``, the only block count a serving path uses.  Routing
+# (``moe_route``) and buffer positions (``moe_positions``) are split out
+# so that an engine whose workers each hold a part of one call's rows
+# can route over the call's rows in their global order (the capacity
+# and the positions depend on every row routed together) and then run
+# the experts for its own rows only (``moe_experts``): a token's expert
+# output depends only on its own input and on whether its choice was
+# kept.  The reference's load-balance loss is training-only; no serving
+# caller reads it, and it is not computed here.
+
+
+def init_moe_mlp(gen: torch.Generator, cfg: ModelConfig, plan: PaddingPlan,
+                 device) -> Params:
+    """``router (d, Ep)``, ``wi (Ep, d, 2*ffp)``, ``wo (Ep, ffp, d)``
+    (padded experts and d_ff columns zero) and, for a shared expert,
+    its dense MLP as ``shared_wi`` / ``shared_wo`` (the reference's
+    ``shared/wi``, ``shared/wo``)."""
+    d, ff, ffp = cfg.d_model, cfg.d_ff, plan.d_ff_padded
+    E, Ep = plan.num_experts, plan.experts_padded
+    dt = dtype_of(cfg)
+    gated = cfg.activation in ("swiglu", "geglu")
+    col_mask = (torch.arange(ffp, device=device) < ff).to(dt)
+    emask = (torch.arange(Ep, device=device) < E).to(dt)[:, None, None]
+    cm = torch.cat([col_mask, col_mask]) if gated else col_mask
+    wi = _dense(gen, d, (Ep, d, cm.shape[0]), dt, device) * emask * cm
+    wo = (_dense(gen, ff, (Ep, ffp, d), dt, device) * emask
+          * col_mask[None, :, None])
+    out = {"router": _dense(gen, d, (d, Ep), dt, device), "wi": wi, "wo": wo}
+    if cfg.moe.shared_expert:
+        sh = init_mlp(gen, cfg, plan, device)
+        out["shared_wi"], out["shared_wo"] = sh["wi"], sh["wo"]
+    return out
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots each expert's buffer has for a call routing ``tokens``
+    tokens together (the reference's ``cap``, real experts only)."""
+    moe = cfg.moe
+    return max(1, int(tokens * moe.top_k * moe.capacity_factor
+                      / moe.num_experts))
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+              plan: PaddingPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each token's ``top_k`` experts: x (T, d) -> (topv (T, k) fp32
+    weights renormalised to sum 1, topi (T, k) int64 experts, in
+    descending gate order).  Router logits in fp32, padded experts at
+    -inf."""
+    logits = (x @ router).float()
+    real = torch.arange(logits.shape[-1], device=x.device) < plan.num_experts
+    logits = torch.where(real, logits, float("-inf"))
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(gates, cfg.moe.top_k, dim=-1)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    return topv, topi
+
+
+def moe_positions(topi: torch.Tensor, experts: int, cap: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each choice's position in its expert's buffer, counted in
+    flattened ``(token, k)`` order (the reference's cumsum), and whether
+    it falls inside the capacity: (pos (T, k) int64, keep (T, k) bool).
+    The one-hot is laid out ``(Ep, T*k)`` so the count is a scan along
+    the inner axis, one row an expert."""
+    flat = topi.reshape(-1)
+    hit = torch.arange(experts, device=flat.device)[:, None] == flat
+    pos = (torch.cumsum(hit, dim=1).gather(0, flat[None])[0] - 1
+           ).reshape(topi.shape)
+    return pos, pos < cap
+
+
+def moe_experts(p: Params, x: torch.Tensor, topv: torch.Tensor,
+                topi: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+                cap: int, activation: str) -> torch.Tensor:
+    """The routed experts' output for x (T, d) under a routing decision:
+    every kept choice's token is written at (expert, pos) of a
+    ``(Ep, cap, d)`` buffer, the gated expert products run as two
+    ``torch.bmm`` over it, and each token sums its kept choices' outputs
+    weighted by ``topv``.  A dropped choice writes nothing and adds
+    nothing.  (The reference writes a dropped choice's zero row at
+    position ``cap - 1``, over whatever kept choice sits there: ROADMAP
+    queue 3.)  ``wi`` / ``wo`` may be a TP shard of the expert columns
+    (``[gate | up]`` halves of the shard's columns): the output is then
+    that shard's partial sum."""
+    T, d = x.shape
+    Ep = p["wi"].shape[0]
+    tok = torch.arange(T, device=x.device)[:, None].expand_as(topi)
+    # dropped choices land in a sink row past the capacity, which the
+    # products never read (no host sync to select the kept ones)
+    buf = x.new_zeros((Ep, cap + 1, d))
+    buf[topi, torch.where(keep, pos, cap)] = x[tok]
+    h = torch.bmm(buf[:, :cap], p["wi"])
+    if activation in ("swiglu", "geglu"):
+        g, u = h.chunk(2, dim=-1)
+        h = Lyr._act(activation, g) * u
+    else:
+        h = Lyr._act(activation, h)
+    yb = torch.bmm(h, p["wo"])                            # (Ep, cap, d)
+    w = torch.where(keep, topv, 0.0).to(x.dtype)
+    return (yb[topi, torch.where(keep, pos, 0)] * w[..., None]).sum(dim=1)
+
+
+def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  plan: PaddingPlan) -> torch.Tensor:
+    """The MoE MLP of one call: x (B, S, d), every row routed together
+    (T = B * S tokens), plus the shared expert's dense MLP when the
+    config has one."""
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])
+    topv, topi = moe_route(p["router"], xt, cfg, plan)
+    cap = moe_capacity(xt.shape[0], cfg)
+    pos, keep = moe_positions(topi, p["wi"].shape[0], cap)
+    y = moe_experts(p, xt, topv, topi, pos, keep, cap, cfg.activation)
+    y = y.reshape(shape)
+    if "shared_wi" in p:
+        y = y + Lyr.dense_mlp(x, p["shared_wi"], p["shared_wo"],
+                              cfg.activation)
+    return y
+
+
+# ===========================================================================
 # Block apply
 # ===========================================================================
 
 def _window_of(kind: str, cfg: ModelConfig) -> int:
     """Effective attention window for a block: SLIDING blocks always use
-    cfg.window; ATTN blocks become windowed under the long-context
-    variant (cfg.attention == "sliding")."""
+    cfg.window; ATTN and MOE blocks become windowed under the
+    long-context variant (cfg.attention == "sliding")."""
     if kind == SLIDING:
         return cfg.window
-    if kind == ATTN and cfg.attention == "sliding":
+    if kind in (ATTN, MOE) and cfg.attention == "sliding":
         return cfg.window
     return 0
+
+
+def _mlp(kind: str, p, x: torch.Tensor, cfg: ModelConfig,
+         plan: PaddingPlan) -> torch.Tensor:
+    """The block's MLP sub-layer: dense, or the MoE MLP."""
+    if kind == MOE:
+        return apply_moe_mlp(p, x, cfg, plan)
+    return apply_mlp(p, x, cfg)
 
 
 def apply_block_seq(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
@@ -328,7 +466,7 @@ def apply_block_seq(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
                                  window=_window_of(kind, cfg))
     x = x + attn_out
     h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg), kv
+    return x + _mlp(kind, p["mlp"], h, cfg, plan), kv
 
 
 def apply_block_chunk(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
@@ -342,7 +480,7 @@ def apply_block_chunk(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
         window=_window_of(kind, cfg), first_chunk=first_chunk)
     x = x + attn_out
     h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg), cache
+    return x + _mlp(kind, p["mlp"], h, cfg, plan), cache
 
 
 def apply_block_decode(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
@@ -356,7 +494,7 @@ def apply_block_decode(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
         window=_window_of(kind, cfg))
     x = x + attn_out
     h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg), cache
+    return x + _mlp(kind, p["mlp"], h, cfg, plan), cache
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, plan: PaddingPlan,

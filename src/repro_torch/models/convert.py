@@ -12,11 +12,14 @@ port's layer ``g * len(unit) + i`` is ``blocks[i][...][g]`` and the R
 remainder layers follow.
 
 A gated MLP is re-laid for the plan's ``max_tp`` shards
-(``core.weight_transform.relayout_mlp_for_tp``): the reference pads
+(``core.weight_transform.relayout_block_mlp``): the reference pads
 ``d_ff`` at the global tail, the port at the tail of every shard (the
 Eq. 2 layout its padded FFN kernel and its workers' shards read).  The
 padding is zero, so the function is the same; at ``max_tp = 1`` the two
-layouts are one.
+layouts are one.  A MoE layer's ``mlp`` carries ``router`` as it is,
+its expert tensors ``wi (Ep, d, 2*ffp)`` / ``wo (Ep, ffp, d)`` re-laid
+expert by expert, and its shared expert (the reference's
+``mlp/shared/{wi,wo}``) as ``mlp.shared_wi`` / ``mlp.shared_wo``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.padding import PaddingPlan
-from repro_torch.core.weight_transform import relayout_mlp_for_tp
+from repro_torch.core.weight_transform import relayout_block_mlp
 from repro_torch.models.blocks import dtype_of
 
 
@@ -68,10 +71,13 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
         state[pre + "ln2"] = t(p["ln2"])
         for k in ("wq", "wk", "wv", "wo"):
             state[pre + "attn." + k] = t(p["attn"][k])
-        wi, wo = t(p["mlp"]["wi"]), t(p["mlp"]["wo"])
+        mlp = {k: t(v) for k, v in p["mlp"].items() if k != "shared"}
+        if "shared" in p["mlp"]:
+            mlp["shared_wi"] = t(p["mlp"]["shared"]["wi"])
+            mlp["shared_wo"] = t(p["mlp"]["shared"]["wo"])
         if cfg.activation in ("swiglu", "geglu"):
-            wi, wo = relayout_mlp_for_tp(wi, wo, cfg.d_ff, plan.max_tp)
-        state[pre + "mlp.wi"], state[pre + "mlp.wo"] = wi, wo
+            relayout_block_mlp(mlp, cfg.d_ff, plan.max_tp)
+        state.update({pre + "mlp." + k: v for k, v in mlp.items()})
     return state
 
 

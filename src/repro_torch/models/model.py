@@ -1,7 +1,8 @@
 """Model assembly: embedding -> per-layer blocks -> final norm -> head.
 
-The counterpart of ``repro.models.model`` for decoder-only dense models
-(ATTN / SLIDING layers).  The reference stacks the layers of each
+The counterpart of ``repro.models.model`` for decoder-only models of
+ATTN / SLIDING / MOE layers (a pattern unit such as ``(ATTN, MOE)``
+tiles over the depth).  The reference stacks the layers of each
 pattern position and runs them with ``lax.scan``; here layers are a
 ``ModuleList`` walked by a Python loop, and the decode caches are a list
 with one ``PagedState`` per layer, updated in place.
@@ -20,7 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MOE, ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.launch.mesh import Layout
@@ -41,7 +42,10 @@ def _params(d) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One decoder layer: ``ln1``, ``ln2``, ``attn`` {wq, wk, wv, wo} and
-    ``mlp`` {wi, wo}, named as in the reference's parameter tree."""
+    ``mlp``, named as in the reference's parameter tree: {wi, wo} dense,
+    or for a MOE layer {router (d, Ep), wi (Ep, d, 2*ffp), wo (Ep, ffp,
+    d)} and, with a shared expert, ``shared_wi`` / ``shared_wo`` (the
+    reference's ``shared/wi``, ``shared/wo``)."""
 
     def __init__(self, kind: str, attn, mlp, ln1, ln2):
         super().__init__()
@@ -89,9 +93,14 @@ class Model(nn.Module):
 
         embed = normal((plan.vocab_padded, d)).to(dt) * vmask[:, None]
         zeros = torch.zeros((d,), dtype=dt, device=device)
+
+        def mlp(kind):
+            if kind == MOE:
+                return B.init_moe_mlp(gen, cfg, plan, device)
+            return B.init_mlp(gen, cfg, plan, device)
+
         blocks = [Block(kind, B.init_attention(gen, cfg, plan, device),
-                        B.init_mlp(gen, cfg, plan, device), zeros.clone(),
-                        zeros.clone())
+                        mlp(kind), zeros.clone(), zeros.clone())
                   for kind in cfg.pattern]
         head = None
         if not cfg.tie_embeddings:
@@ -105,17 +114,27 @@ class Model(nn.Module):
         d, dh, dt = cfg.d_model, cfg.resolved_head_dim, B.dtype_of(cfg)
         gated = cfg.activation in ("swiglu", "geglu")
         ffp = plan.d_ff_padded
+        ncol = 2 * ffp if gated else ffp
 
         def e(*shape):
             return torch.empty(shape, dtype=dt, device=device)
+
+        def mlp(kind):
+            if kind != MOE:
+                return {"wi": e(d, ncol), "wo": e(ffp, d)}
+            Ep = plan.experts_padded
+            out = {"router": e(d, Ep), "wi": e(Ep, d, ncol),
+                   "wo": e(Ep, ffp, d)}
+            if cfg.moe.shared_expert:
+                out.update(shared_wi=e(d, ncol), shared_wo=e(ffp, d))
+            return out
 
         blocks = [Block(kind,
                         {"wq": e(d, plan.q_heads_padded * dh),
                          "wk": e(d, plan.kv_padded * dh),
                          "wv": e(d, plan.kv_padded * dh),
                          "wo": e(plan.q_heads_padded * dh, d)},
-                        {"wi": e(d, 2 * ffp if gated else ffp),
-                         "wo": e(ffp, d)}, e(d), e(d))
+                        mlp(kind), e(d), e(d))
                   for kind in cfg.pattern]
         head = None if cfg.tie_embeddings else e(d, plan.vocab_padded)
         return cls(cfg, plan, e(plan.vocab_padded, d), blocks, e(d), head)
@@ -377,13 +396,14 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
         xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
         here = (layer.mlp_layout, mesh)
         tp, ff = I.mlp_shards(layer.mlp_layout.tp, S, cfg.d_ff)
-        outs = []
-        for w in range(mesh.W):
-            if xs[w].shape[0] == 0:
-                outs.append(None)
-                continue
-            h = Lyr.rmsnorm(xs[w], layer.ln2[w], eps)
-            outs.append(B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff))
+        hs = [None if x.shape[0] == 0 else Lyr.rmsnorm(x, layer.ln2[w], eps)
+              for w, x in enumerate(xs)]
+        if layer.kind == MOE:
+            outs = moe_workers(layer, hs, cfg, plan, tp, ff)
+        else:
+            outs = [None if h is None
+                    else B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff)
+                    for w, h in enumerate(hs)]
         xs = _residual(xs, outs, layer.mlp_layout.tp, mesh)
         if on_layer is not None:
             on_layer(i)
@@ -396,6 +416,51 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
              for w in range(0, static_mesh.W, here[0].degree)
              if xs[w].shape[0]]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def moe_workers(layer: "I.WorkerLayer", hs: List[Optional[torch.Tensor]],
+                cfg: ModelConfig, plan: PaddingPlan, tp: int, ff: int
+                ) -> List[Optional[torch.Tensor]]:
+    """A MoE layer's MLP on every worker of its assembly (hs: each
+    worker's normed rows (R_w, S, d), None where it holds none), routed
+    as the reference routes the call: every row of the row set together,
+    in global slot order.  One worker of each replica routes its rows;
+    their choices are gathered onto every worker that holds rows (the
+    all-gather of ``(rows, top_k)`` expert ids), which counts the buffer
+    positions over the whole call and runs the experts for its own rows
+    only, with the replica's weights and choices (every worker of a TP
+    group uses the same ones).  The shared expert runs the padded FFN
+    kernel over its ``(tp, ff)`` shard.  Returns the partial outputs
+    (before the TP all-reduce)."""
+    mesh, lay = layer.mesh, layer.mlp_layout
+    d = cfg.d_model
+    first = [w for w in range(0, mesh.W, lay.degree) if hs[w] is not None]
+    routes = {w: B.moe_route(layer.mlp[w]["router"], hs[w].reshape(-1, d),
+                             cfg, plan) for w in first}
+    offs, n = {}, 0
+    for w in first:
+        offs[w] = n
+        n += routes[w][1].shape[0]
+    cap = B.moe_capacity(n, cfg)
+    outs: List[Optional[torch.Tensor]] = []
+    for w, h in enumerate(hs):
+        if h is None:
+            outs.append(None)
+            continue
+        dev, r = mesh.devices[w], w - w % lay.degree
+        topv, topi = (t.to(dev) for t in routes[r])
+        every = torch.cat([routes[u][1].to(dev) for u in first])
+        pos, keep = B.moe_positions(every, layer.mlp[w]["wi"].shape[0], cap)
+        mine = slice(offs[r], offs[r] + topi.shape[0])
+        y = B.moe_experts(layer.mlp[w], h.reshape(-1, d), topv, topi,
+                          pos[mine], keep[mine], cap, cfg.activation)
+        y = y.reshape(h.shape)
+        if "shared_wi" in layer.mlp[w]:
+            y = y + B.apply_padded_mlp(
+                {"wi": layer.mlp[w]["shared_wi"],
+                 "wo": layer.mlp[w]["shared_wo"]}, h, cfg, tp, ff)
+        outs.append(y)
+    return outs
 
 
 def _residual(xs, outs, tp: int, mesh) -> List[torch.Tensor]:

@@ -68,7 +68,7 @@ from repro_torch.core.scheduler import (Action, BaseScheduler,
                                         GygesScheduler, PrefillPolicy,
                                         ScaleDown, ScaleUp, SchedulerConfig,
                                         Spill)
-from repro_torch.core.weight_transform import relayout_mlp_for_tp
+from repro_torch.core.weight_transform import relayout_block_mlp
 from repro_torch.launch.mesh import Worker, workers_of
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine
@@ -120,9 +120,7 @@ class ClusterEngine:
         if params is None:
             params = M.build(cfg, self.plan, seed, device=workers[0].device)
             for blk in params.layers:
-                blk.mlp["wi"].data, blk.mlp["wo"].data = relayout_mlp_for_tp(
-                    blk.mlp["wi"].data, blk.mlp["wo"].data, cfg.d_ff,
-                    self.total_width)
+                relayout_block_mlp(blk.mlp, cfg.d_ff, self.total_width)
         self.prefill_policy = prefill_policy or PrefillPolicy()
         self.engines: List[Engine] = []
         for k in range(n_instances):

@@ -57,8 +57,14 @@ adopted workers may share one card.  They also take part in KV spill
 (rung 1 of the capacity ladder): a host reserves whole free slots for
 a guest's overflow pages (``host_spilled``), and the guest serves the
 request on an extended view of its slot and the hosted pages
-(``admit_spilled``).  Recurrent block kinds are not ported yet (ROADMAP
-queue 1).
+(``admit_spilled``; not for a MoE model).  Recurrent block kinds are
+not ported yet (ROADMAP queue 1).
+
+A MoE model needs nothing of its own here: each prefill call routes its
+one request's tokens together and each batched decode routes every
+slot (idle slots' filler rows included) in slot order, as the
+reference's calls do; an engine with workers routes over that global
+order across its replicas (``models.model.moe_workers``).
 
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
 caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
@@ -73,7 +79,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, SLIDING, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core import kv_transform as KT
 from repro_torch.core import transform_engine as TE
@@ -84,7 +90,7 @@ from repro_torch.core.scheduler import PrefillPolicy
 from repro_torch.launch.mesh import (InstanceMesh, Layout, Worker,
                                      resolve_device, workers_of)
 from repro_torch.models import model as M
-from repro_torch.models.blocks import _window_of
+from repro_torch.models.blocks import ATTENTION_KINDS, _window_of
 from repro_torch.paged import pool as pp
 from repro_torch.serving.request import ServeRequest, State
 
@@ -209,15 +215,13 @@ class Engine:
             "workers")
         if cfg.activation not in ("swiglu", "geglu"):
             raise NotImplementedError(
-                f"{cfg.name}: the worker engine's padded FFN takes gated "
-                "MLPs only")
+                f"{cfg.name}: the worker engine's MLP shards (the padded "
+                "FFN's, a MoE layer's experts and shared expert) are "
+                "gated [gate | up] layouts only")
         if params is None:
             params = M.build(cfg, self.plan, seed, device=self.device)
             for blk in params.layers:
-                blk.mlp["wi"].data, blk.mlp["wo"].data = \
-                    WT.relayout_mlp_for_tp(blk.mlp["wi"].data,
-                                           blk.mlp["wo"].data, cfg.d_ff,
-                                           self.plan.max_tp)
+                WT.relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp)
         self.mesh = InstanceMesh(workers, 1)
         self.model = self.caches = None
         self._place(params)
@@ -252,7 +256,7 @@ class Engine:
         page-rounded window; ``max_seq_alloc`` for full attention)."""
         caps = []
         for k in set(self.cfg.pattern):
-            if k in (ATTN, SLIDING):
+            if k in ATTENTION_KINDS:
                 w = _window_of(k, self.cfg)
                 cap = (self.max_seq_alloc if w == 0
                        else min(self.max_seq_alloc, w))
@@ -922,6 +926,12 @@ class Engine:
                       hosting: Dict) -> None:
         """Guest side: queue a request whose overflow KV will live in
         ``host``'s pool (the reservation from ``host.host_spilled``)."""
+        if self.cfg.moe is not None:
+            # its batch-1 extended decode and chunks route other row
+            # sets than the batched decode; not held against the
+            # reference yet: ROADMAP queue 1
+            raise NotImplementedError(
+                f"{self.cfg.name}: KV spill of a MoE engine is not ported")
         assert hosting["page_tokens"] == self.page_tokens, (
             "KV spill requires a uniform page size across the cluster")
         ext_tokens = self._local_page_cap() \

@@ -13,6 +13,7 @@ key for key, with NaN in the same places and floats within 1e-9
 relative.  Pure Python.
 """
 import dataclasses
+import itertools
 import math
 
 import pytest
@@ -31,6 +32,16 @@ from repro_torch.core import kv_transform as TKT
 from repro_torch.core import scheduler as TSch
 
 REL = 1e-9
+
+
+@pytest.fixture(autouse=True)
+def _fresh_sim_ids():
+    """Both simulators number their instances from a class-level counter:
+    restart both before each test, so a port-only run earlier in this
+    process cannot shift the port's ids against the reference's."""
+    RS.SimInstance._ids = itertools.count()
+    TS.SimInstance._ids = itertools.count()
+
 
 #: trace name -> (generator keywords, model, how the run is driven)
 TRACES = {

@@ -4,8 +4,8 @@
 imports inside functions and under
 ``TYPE_CHECKING`` count too).  Every module also imports without a GPU,
 and the entry points that default to the card (``ClusterEngine`` on
-CUDA workers, the ``serve`` CLI without ``--device cpu``) raise there
-rather than run on the CPU.
+CUDA workers, the ``serve`` CLI without ``--device cpu``, ``Engine``
+for a MoE model) raise there rather than run on the CPU.
 """
 import ast
 import importlib
@@ -46,7 +46,9 @@ def test_every_port_module_imports_without_gpu():
             "kernels/page_migrate.py", "kernels/padded_ffn.py",
             "core/partition.py", "core/events.py", "core/scheduler.py",
             "serving/cluster.py", "launch/serve.py", "core/costmodel.py",
-            "core/cluster_sim.py", "core/calibrate.py"} <= names
+            "core/cluster_sim.py", "core/calibrate.py",
+            "models/blocks.py", "models/model.py", "models/convert.py",
+            "serving/engine.py"} <= names
     for p in PORT:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(rel.parts)
@@ -67,3 +69,17 @@ def test_cluster_and_cli_without_gpu_raise(monkeypatch):
             ClusterEngine(cfg, devices, n_instances=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--requests", "1"])
+
+
+def test_moe_entry_points_without_gpu_raise(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    for kw in ({}, {"devices": ["cuda"] * 2}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Engine(cfg, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "granite-moe-3b-a800m", "--requests", "1"])

@@ -110,8 +110,9 @@ def test_random_init_is_seeded_and_padded():
         assert torch.equal(x, y), n
     assert not a.embed[plan.vocab:].any()          # padded vocab rows
     assert not a.lm_head[:, plan.vocab:].any()
+    B.check_kind("moe")                             # ported: no raise
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        B.check_kind("moe")
+        B.check_kind("rglru")
 
 
 @pytest.mark.parametrize("builder", ["build", "random", "empty",

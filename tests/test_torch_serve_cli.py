@@ -8,6 +8,8 @@ The reference runs on 4 fake host devices, the port on
 lengths decide every action (``eos_id`` is None), so the lines must be
 equal.  The trace is short (6 requests, every third long) to keep the
 reference's compiles few; it still scales an instance up and down.
+Each architecture of ``ARCHS`` runs at its reduced config: the default
+llama3-8b and granite-moe-3b-a800m (MoE layers, 4 experts top-2).
 """
 import os
 import subprocess
@@ -18,6 +20,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--requests", "6", "--long-every", "3", "--gen-tokens", "4"]
 SCHEDULERS = ("gyges",)
+ARCHS = ("llama3-8b", "granite-moe-3b-a800m")
+CASES = [(s, a) for s in SCHEDULERS for a in ARCHS]
+#: the default architecture's cases keep the scheduler's name as id
+IDS = [s if a == ARCHS[0] else f"{s}-{a}" for s, a in CASES]
 
 
 @pytest.fixture(scope="module")
@@ -28,15 +34,15 @@ def outputs():
                          "--xla_cpu_collective_call_terminate_"
                          "timeout_seconds=600")
     procs = {}
-    for s in SCHEDULERS:
-        args = ARGS + ["--scheduler", s]
-        procs[("reference", s)] = subprocess.Popen(
+    for s, arch in CASES:
+        args = ARGS + ["--scheduler", s, "--arch", arch]
+        procs[("reference", s, arch)] = subprocess.Popen(
             [sys.executable, "-m", "repro.launch.serve", *args],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env)
         # one torch thread: its many tiny ops would otherwise wait on a
         # pool the suite's other workers crowd out
-        procs[("port", s)] = subprocess.Popen(
+        procs[("port", s, arch)] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.serve", *args,
              "--device", "cpu", "--workers", "4"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -55,10 +61,10 @@ def _split(lines):
     return head, [kv.split("=")[0] for kv in metrics[8:].split(", ")]
 
 
-@pytest.mark.parametrize("scheduler", SCHEDULERS)
-def test_action_lines_equal_reference(outputs, scheduler):
-    want, want_keys = _split(outputs[("reference", scheduler)])
-    got, got_keys = _split(outputs[("port", scheduler)])
+@pytest.mark.parametrize("scheduler,arch", CASES, ids=IDS)
+def test_action_lines_equal_reference(outputs, scheduler, arch):
+    want, want_keys = _split(outputs[("reference", scheduler, arch)])
+    got, got_keys = _split(outputs[("port", scheduler, arch)])
     assert got == want
     assert got_keys == want_keys
     acts = [l for l in got if " -> TP" in l]

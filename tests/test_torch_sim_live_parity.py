@@ -22,6 +22,7 @@ planes' metrics carry exactly ``METRIC_KEYS``.  Port live = JAX live is
 ``test_torch_cluster_sim.py``'s.
 """
 import dataclasses
+import itertools
 import os
 import sys
 
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.calibrate import CalibratedCostModel, calibrate
-from repro_torch.core.cluster_sim import Cluster
+from repro_torch.core.cluster_sim import Cluster, SimInstance
 from repro_torch.core.events import SLO, VirtualClock, replay
 from repro_torch.core.scheduler import (SCHEDULERS, GygesScheduler,
                                         PrefillPolicy, ScaleUp,
@@ -48,6 +49,15 @@ TRACE = [(0, 10, 4), (1, 12, 4), (2, 8, 4), (3, 40, 8), (4, 10, 4),
          (5, 6, 4)]
 LADDER_TRACE = [(0, 10, 4), (1, 24, 16), (2, 40, 16), (3, 10, 4)]
 LAYOUT_TRACE = [(0, 4, 8), (1, 4, 8), (2, 40, 24), (3, 4, 8)]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_sim_ids():
+    """The simulator numbers its instances from a class-level counter
+    (as the reference does): restart it before each test, so the ids a
+    split's fresh instances take do not depend on what ran earlier in
+    this process."""
+    SimInstance._ids = itertools.count()
 
 
 @pytest.fixture(scope="module", autouse=True)
