@@ -1038,7 +1038,8 @@ def phase_kernels():
         cases = [("llama3-8b", fn, kw) for fn, kw in cases]
         # slice 7's shapes: its engines' degrees and KV migrations; slice
         # 8's: the partial entries and the combine at its shard shapes
-        cases += slice7_cases() + slice8_cases() + moe_cases()
+        cases += (slice7_cases() + slice8_cases() + moe_cases()
+                  + rg_cases())
         for model, fn, kw in cases + head_shape_cases():
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
@@ -1729,7 +1730,8 @@ def phase_serve_cli(args=()):
     2 instances of 4, its 4 kv heads copied twice),
     or serving full-size qwen2.5-32b (``QWEN_CLI``, which needs the card
     nearly to itself: this process's own tensors are freed first and
-    its allocation printed) or granite-moe-3b-a800m (``MOE_CLI``)."""
+    its allocation printed), granite-moe-3b-a800m (``MOE_CLI``) or
+    recurrentgemma-9b (``RG_CLI``)."""
     free_card()
     parent_gb = torch.cuda.memory_allocated() / 1e9
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -1948,9 +1950,11 @@ def phase_spill_parity(dev: str = "cuda", cfg=None, max_seq: int = 512,
 def phase_cluster_spill(smi: str, dev: str = "cuda", cfg=None,
                         max_seq: int = 4096, lens=(300, 1200, 300, 1200),
                         new: int = 128, long_len: int = 6000,
-                        long_new: int = 32, page_tokens: int = 64) -> dict:
-    """Full-size llama3-8b in bf16, 2 instances x 1 worker of the card
-    (4096 tokens a worker), ``SchedulerConfig(spill=True,
+                        long_new: int = 32, page_tokens: int = 64,
+                        label: str = "cluster-spill") -> dict:
+    """Full-size llama3-8b in bf16 (or ``cfg``, emitted as ``label``),
+    2 instances x 1 worker of the card (4096 tokens a worker),
+    ``SchedulerConfig(spill=True,
     spill_slack=2.0)``: prompts of 300 and 1200 tokens on both
     instances, then a 6000-token request whose 31 overflow pages spill
     into one reserved slot of the neighbour; no transformation.  Prints
@@ -2055,7 +2059,7 @@ def phase_cluster_spill(smi: str, dev: str = "cuda", cfg=None,
         return sum(got) / len(got) * 1e3 if got else None
 
     dec_only = [s for s in steps[:long_done] if not s[3] and s[2] > 0]
-    emit(phase="cluster-spill", model=cfg.name, layers=cfg.num_layers,
+    emit(phase=label, model=cfg.name, layers=cfg.num_layers,
          dtype=cfg.dtype, instances=2, workers_each=1, max_seq=max_seq,
          prompts=list(lens), new_tokens=new, long_prompt=long_len,
          long_new_tokens=long_new, actions=acts, weights_init_s=t_init,
@@ -4133,6 +4137,68 @@ def _moe_worker_engine(cfg, dev, W=2, seed=0, **kw):
                   devices=[dev] * W, **kw)
 
 
+def stage_of(eng) -> str:
+    """Where a worker engine stands in a TP1x2 -> TP2 -> TP1x2 run:
+    ``TP1x2`` before its first change, ``session``, ``TP2``, and
+    ``TP1x2 again`` once it has changed back."""
+    if eng.transforming:
+        return "session"
+    if eng.tp != 1:
+        return f"TP{eng.tp}"
+    return "TP1x2 again" if eng.transform_log else "TP1x2"
+
+
+def record_rows(eng, reqs, keep, force=None, where=None):
+    """Wrap ``eng._decode``: record each request's logits row (on the
+    host) by token index, with where the engine stood (``TP1x2``,
+    ``session``, ``TP2``; ``where(eng)`` when given); with ``force``,
+    each row takes the recorded run's token (teacher forcing)."""
+    from repro_torch.serving import State
+    orig = eng._decode
+
+    def decode(tokens, positions):
+        at = (where(eng) if where is not None else
+              "session" if eng.transforming
+              else "TP1x2" if eng.tp == 1 else f"TP{eng.tp}")
+        logits = orig(tokens, positions)
+        for i, r in enumerate(reqs):
+            if r.state != State.DECODE or eng.slots[r.slot] is not r:
+                continue
+            j = len(r.generated)
+            keep[i, j] = (logits[r.slot].float().cpu(), at)
+            if force is not None and (i, j) in force:
+                logits = logits.clone()
+                logits[r.slot] = -1e30
+                logits[r.slot, int(force[i, j][0].argmax())] = 0.0
+        return logits
+
+    eng._decode = decode
+
+
+def held_rows(got: dict, want: dict, vocab: int) -> dict:
+    """Each recorded row of a teacher-forced run beside the reference
+    run's row on the same tokens, by where it ran: rows, the largest
+    logit difference (absolute, and over the row's logit RMS), and the
+    share whose greedy token agrees."""
+    held = {}
+    for (i, j), (row, where) in got.items():
+        if (i, j) not in want:
+            continue
+        ref_row = want[i, j][0]
+        h = held.setdefault(where, {"rows": 0, "logit_max_abs_diff": 0.0,
+                                    "over_logit_rms": 0.0,
+                                    "argmax_flips": 0})
+        diff = float((row - ref_row).abs().max())
+        rms = float(ref_row[:vocab].pow(2).mean().sqrt())
+        h["rows"] += 1
+        h["logit_max_abs_diff"] = max(h["logit_max_abs_diff"], diff)
+        h["over_logit_rms"] = max(h["over_logit_rms"], diff / rms)
+        h["argmax_flips"] += int(row.argmax()) != int(ref_row.argmax())
+    for h in held.values():
+        h["argmax_agree"] = 1 - h["argmax_flips"] / h["rows"]
+    return held
+
+
 def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
                         parity_layers: int = 4, max_seq: int = 8192,
                         lens=(300, 1200, 2500, 3500), long_len: int = 6000,
@@ -4153,7 +4219,7 @@ def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
     from repro_torch.configs import get_config
     from repro_torch.core import weight_transform as WT
     from repro_torch.core.scheduler import PrefillPolicy
-    from repro_torch.serving import ServeRequest, State
+    from repro_torch.serving import ServeRequest
 
     base = cfg or get_config(MOE_MODEL)
     t0 = time.monotonic()
@@ -4186,37 +4252,13 @@ def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
     long_prompt = _prompts(gen, (long_len,), base.vocab_size)[0]
     kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens)
 
-    def rows_of(eng, reqs, keep, force=None):
-        """Wrap ``eng._decode``: record each request's logits row (on the
-        host) by token index, with where the engine stood (``TP1x2``,
-        ``session``, ``TP2``); with ``force``, each row takes the
-        recorded run's token (teacher forcing)."""
-        orig = eng._decode
-
-        def decode(tokens, positions):
-            where = ("session" if eng.transforming
-                     else "TP1x2" if eng.tp == 1 else f"TP{eng.tp}")
-            logits = orig(tokens, positions)
-            for i, r in enumerate(reqs):
-                if r.state != State.DECODE or eng.slots[r.slot] is not r:
-                    continue
-                j = len(r.generated)
-                keep[i, j] = (logits[r.slot].float().cpu(), where)
-                if force is not None and (i, j) in force:
-                    logits = logits.clone()
-                    logits[r.slot] = -1e30
-                    logits[r.slot, int(force[i, j][0].argmax())] = 0.0
-            return logits
-
-        eng._decode = decode
-
     want = {}
     ref = _moe_worker_engine(base, dev, **kw)
     ref.transform(2, layers_per_step=base.num_layers)
     while ref.transforming:
         ref.step()
     ref_reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
-    rows_of(ref, ref_reqs, want)
+    record_rows(ref, ref_reqs, want)
     _drive(ref, ref_reqs)
     del ref
     if dev == "cuda":
@@ -4232,7 +4274,7 @@ def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
         torch.cuda.reset_peak_memory_stats()
     reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
     got = {}
-    rows_of(eng, reqs, got, force=want)
+    record_rows(eng, reqs, got, force=want)
     t_run = time.monotonic()
     for r in reqs:
         eng.submit(r)
@@ -4261,23 +4303,9 @@ def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
                                 for k in MOE_KERNELS), launches
     # the bf16 tolerance: every decode row of the transformed run against
     # the engine started at TP2, on the same tokens, by where it ran
-    held = {}
-    for (i, j), (row, where) in got.items():
-        if (i, j) not in want:
-            continue
-        ref_row = want[i, j][0]
-        h = held.setdefault(where, {"rows": 0, "logit_max_abs_diff": 0.0,
-                                    "over_logit_rms": 0.0,
-                                    "argmax_flips": 0})
-        diff = float((row - ref_row).abs().max())
-        rms = float(ref_row[:base.vocab_size].pow(2).mean().sqrt())
-        h["rows"] += 1
-        h["logit_max_abs_diff"] = max(h["logit_max_abs_diff"], diff)
-        h["over_logit_rms"] = max(h["over_logit_rms"], diff / rms)
-        h["argmax_flips"] += int(row.argmax()) != int(ref_row.argmax())
+    held = held_rows(got, want, base.vocab_size)
     assert held.get("TP2", {}).get("rows"), held
     for where, h in held.items():
-        h["argmax_agree"] = 1 - h["argmax_flips"] / h["rows"]
         assert h["argmax_agree"] >= MOE_BF16_AGREE, (where, held)
     ups, downs = (eng.transform_reports[:n_up],
                   eng.transform_reports[n_up:])
@@ -4334,6 +4362,569 @@ def phase_moe_cluster(smi: str, dev: str = "cuda", cfg=None, **kw):
     return phase_cluster_serve(smi, dev, cfg or get_config(MOE_MODEL),
                                label="moe-cluster", kernels=MOE_KERNELS,
                                **kw)
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: recurrentgemma-9b (RG-LRU blocks), and KV spill of a MoE engine
+# ---------------------------------------------------------------------------
+
+RG_MODEL = "recurrentgemma-9b"
+#: the kernels every recurrentgemma path runs: its sliding layers'
+#: attention (one device runs its MLPs as plain matmuls, two workers on
+#: the padded FFN; the state and mixer move without a page kernel)
+RG_KERNELS = ("paged_attention", "chunk_prefill", "flash_attention")
+RG_WORKER_KERNELS = RG_KERNELS + ("padded_ffn", "copy_page_slices",
+                                  "gather_page_slices")
+#: whole-model logits of the card against the CPU in fp32
+RG_TOL = 1e-4
+#: bf16 on the card: the least share of teacher-forced decode rows of a
+#: TP1x2 -> TP2 -> TP1x2 run whose greedy token equals that of an engine
+#: at the same degree throughout, at each stage: rows at TP1x2 against
+#: an engine that stays at TP1x2 (before the first change they are the
+#: same sums, so every row agrees), rows at TP2 and mid-session against
+#: an engine started at TP2.  The same run in fp32 (``RG_FP32_LAYERS``
+#: layers at full width) must agree on every row, so what is left is
+#: bf16 rounding in other sum orders (the TP2 all-reduce of bf16
+#: partials after ``w_out``, ``wo`` and the MLP), carried forward in the
+#: recurrent state and read through a 256000-word random head whose top
+#: two logits lie close.  Stated before the first card run, which held
+#: every row against the TP2 engine and read 0.798 on the TP1x2 rows:
+#: the gap between two degrees, not a fault of the change (PERF.md).
+RG_BF16_AGREE = 0.8
+#: rg-transform's fp32 run: layers at full width (an fp32 replica of all
+#: 38 would not fit twice on the card), and its logits' tolerance
+RG_FP32_LAYERS = 12
+RG_FP32_TOL = 1e-3
+#: the fp32 MoE rows (ROADMAP queue 3 item 1): every teacher-forced row
+#: of granite at full depth at TP1x2, mid-session and at TP2 takes the
+#: greedy token of an engine started at TP2, with logits within this
+#: absolute difference (32 layers of fp32 sums in other orders)
+MOE_FP32_TOL = 1e-3
+
+
+def rg_cases():
+    """(model, case function, keywords) for recurrentgemma-9b's kernel
+    shapes on the slice-11 phases: on one device or worker (its plan of
+    1: 16 q heads over 1 kv slot) and at each degree of rg-transform's
+    two workers (a plan of 2: the kv head copied into 2 slots; TP1x2 16
+    q heads over 2, TP2 8 over 1): chunk prefill on the 2048-token
+    window ring (a prompt's first chunk, a chunk over a full ring, a
+    904-token tail over a wrapped one), decode on the wrapped ring,
+    windowed flash prefill, and the padded FFN's geglu shards (d 4096,
+    ff 12288) at both tilings and a 512-token chunk's; then the two KV
+    migrations TP1x2 <-> TP2 of its ring pools."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import instance as I
+    from repro_torch.core.padding import make_plan
+    from repro_torch.kernels import padded_ffn as PF
+    cfg = get_config(RG_MODEL)
+    w, dh = cfg.window, cfg.resolved_head_dim
+    out = []
+    for W, t in ((1, 1), (2, 1), (2, 2)):
+        plan = (make_plan(cfg, 1) if W == 1
+                else make_plan(cfg, W, mode="page"))
+        heads = dict(Hq=plan.q_heads_padded // t, kvs=plan.kv_slots // t,
+                     dh=dh)
+        ring = dict(cap=w, window=w, **heads)
+        out += [(RG_MODEL, case_chunk, dict(S=w, done=0,
+                                            attend_prefix=False, **ring)),
+                (RG_MODEL, case_chunk, dict(S=w, done=w, **ring)),
+                (RG_MODEL, case_chunk, dict(S=904, done=2 * w, **ring)),
+                (RG_MODEL, case_decode, dict(q_pos=[2500, 3000, 4100, 5000],
+                                             **ring)),
+                (RG_MODEL, case_flash, dict(S=w, window=w, **heads))]
+        # the MLP of an engine with workers: the serve CLI's one worker
+        # (a plan of 1) and rg-transform's two
+        tp, ff = I.mlp_shards(t, plan.max_tp, cfg.d_ff)
+        for T in (1, PF.DECODE_MAX_T + 1, 512):
+            out.append((RG_MODEL, case_ffn, dict(
+                T=T, tp=tp, ff=ff, ffp=plan.d_ff_padded // t, d=cfg.d_model,
+                model=RG_MODEL, what=f"TP{t} x{W // t} of a plan of {W}",
+                activation=cfg.activation, iters=10)))
+    kvs = make_plan(cfg, 2, mode="page").kv_slots
+    for ta, tb in ((1, 2), (2, 1)):
+        out.append((RG_MODEL, case_reshard, dict(ta=ta, tb=tb, W=2, W2=2,
+                                                 kvs=kvs, dh=dh, cap=w)))
+    return out
+
+
+def ring_whole_vs_chunked(model, prompt, max_seq: int, page_tokens: int,
+                          chunk: int, steps: int) -> dict:
+    """A whole prompt longer than the sliding layers' window against the
+    same prompt in chunks of ``chunk`` tokens, on one model: every ring
+    holds the same positions, each kept key at slot p % capacity, and
+    pools within ``RG_TOL``; then ``steps`` greedy decode steps on both
+    (each appends over the ring's oldest key) take the same tokens with
+    logits within ``RG_TOL``.  Returns the largest differences."""
+    d, S = prompt.device, prompt.shape[1]
+    whole = model.init_decode_caches(1, max_seq, page_tokens)
+    chunked = model.init_decode_caches(1, max_seq, page_tokens)
+    with torch.no_grad():
+        lw = model.prefill(prompt, whole)
+        for s0 in range(0, S, chunk):
+            lc = model.prefill_chunk(
+                prompt[:, s0:s0 + chunk],
+                torch.tensor([s0], dtype=torch.int32, device=d), chunked,
+                first_chunk=s0 == 0)
+        errs = [float((lw - lc).abs().max())]
+        pool_err, rings = 0.0, 0
+        for w, c in zip(whole, chunked):
+            if w.recurrent:
+                continue
+            rings += 1
+            assert w.capacity < S, (w.capacity, S)
+            assert torch.equal(w.positions, c.positions), "ring positions"
+            assert bool((w.positions % w.capacity == torch.arange(
+                w.capacity, device=d)).all()), "ring slots"
+            pool_err = max(pool_err, float((w.pool - c.pool).abs().max()))
+        assert rings and pool_err <= RG_TOL, (rings, pool_err)
+        tok = lc[:, -1].argmax(-1)
+        for i in range(steps):
+            pos = torch.tensor([S + i], dtype=torch.int32, device=d)
+            lw = model.decode_step(whole, tok, pos)
+            lc = model.decode_step(chunked, tok, pos)
+            errs.append(float((lw - lc).abs().max()))
+            assert torch.equal(lw.argmax(-1), lc.argmax(-1)), i
+            tok = lc.argmax(-1)
+    assert max(errs) <= RG_TOL, errs
+    return {"prompt": S, "chunk": chunk, "decode_steps": steps,
+            "logit_max_abs_diff": max(errs), "pool_max_abs_diff": pool_err}
+
+
+def phase_rg_parity(dev: str = "cuda", cfg=None, layers: int = 3,
+                    lens=(40, 150, 90), new: int = 8, max_seq: int = 512,
+                    page_tokens: int = 64, budget: int = 64,
+                    long_len: int = 2500):
+    """recurrentgemma-9b at full width, ``layers`` layers of its pattern
+    (RGLRU, RGLRU, SLIDING), fp32: the same weights and prompts on
+    ``dev`` and on the CPU (the kernels' plain versions).  One device
+    with budgeted chunked prefill (the recurrent carry from chunk to
+    chunk, restored over the decode filler), and two workers at TP1x2
+    changed to TP2 while a prompt is mid-chunk and others decode.
+    Greedy streams equal; a whole prompt's and a chunked prompt's
+    first-token logits within ``RG_TOL``.  On ``dev`` also a
+    ``long_len``-token prompt, longer than the window, whole against
+    chunked (``ring_whole_vs_chunked``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.serving import Engine, ServeRequest
+
+    from repro_torch.core.weight_transform import relayout_block_mlp
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    c = dataclasses.replace(cfg or get_config(RG_MODEL), num_layers=layers,
+                            dtype="float32")
+    prompts = _prompts(torch.Generator().manual_seed(47), lens,
+                       c.vocab_size)
+    kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens,
+              prefill_policy=PrefillPolicy(token_budget=budget,
+                                           mode="mixed"))
+    # one set of weights, generated on ``dev`` and copied to the CPU, for
+    # the one-device plan and the two workers' (their MLP re-laid)
+    plans = (make_plan(c, 1), make_plan(c, 2, mode="page"))
+    src = _moe_model(c, plans[0], 0, dev, on=dev).state_dict()
+
+    def model_of(plan, d):
+        m = Model.empty(c, plan, device=d)
+        m.load_state_dict(src)
+        for blk in m.layers:
+            relayout_block_mlp(blk.mlp, c.d_ff, plan.max_tp)
+        return m
+
+    streams, logits, bits = {}, {}, {}
+    for d in (dev, "cpu"):
+        model = model_of(plans[0], d)
+        eng = Engine(c, params=model, device=d, **kw)
+        streams[d, "one device, chunked"] = _drive(
+            eng, [ServeRequest(p, max_new_tokens=new) for p in prompts])
+        with torch.no_grad():
+            long_ = torch.tensor(prompts[1], device=d)[None]
+            whole = model.prefill(long_, model.init_decode_caches(
+                1, max_seq, page_tokens))
+            caches = model.init_decode_caches(1, max_seq, page_tokens)
+            for s0 in range(0, long_.shape[1], page_tokens):
+                chunked = model.prefill_chunk(
+                    long_[:, s0:s0 + page_tokens],
+                    torch.tensor([s0], dtype=torch.int32, device=d),
+                    caches, first_chunk=s0 == 0)
+        logits[d] = (whole.float().cpu(), chunked.float().cpu())
+        bits[d] = bool(torch.equal(whole, chunked))
+        if d == dev:
+            over = _prompts(torch.Generator().manual_seed(48), (long_len,),
+                            c.vocab_size)[0]
+            ring = ring_whole_vs_chunked(
+                model, torch.tensor(over, device=d)[None],
+                long_len + page_tokens, page_tokens, min(512, c.window), new)
+        del model, eng
+        m2 = model_of(plans[1], d)
+        eng = Engine(c, params=m2, devices=[d] * 2, **kw)
+        streams[d, "TP1x2 -> TP2"] = _drive(
+            eng, [ServeRequest(p, max_new_tokens=new) for p in prompts],
+            before=3, plan=(2,))
+        assert eng.tp == 2
+        del m2, eng
+    del src
+    for k in ("one device, chunked", "TP1x2 -> TP2"):
+        assert streams[dev, k] == streams["cpu", k], (k, streams)
+    err = max((a - b).abs().max().item()
+              for a, b in zip(logits[dev], logits["cpu"]))
+    assert err <= RG_TOL, ("first-token logits", err)
+    if dev == "cuda":
+        free_card()
+    emit(phase="rg-parity", model=c.name, layers=layers,
+         pattern=list(c.pattern), d_model=c.d_model, dtype="float32",
+         prompts=list(lens), new_tokens=new, chunk_budget=budget,
+         streams_equal=True, first_token_logit_max_abs_err=err, tol=RG_TOL,
+         chunked_equals_whole_bits=bits, over_window=ring,
+         seconds=time.monotonic() - t0)
+
+
+def rec_split(p, rows: int, tokens: int, dev: str) -> dict:
+    """Device time of one recurrent mixer's parts on layer weights ``p``
+    at ``rows`` rows of ``tokens`` tokens (1: a decode step): the causal
+    conv, the two gate products, the scan (``rglru_step`` at one token,
+    else the blocked ``rglru`` over 64-token blocks), and the whole
+    mixer after its input product (``rglru_mix``: those, the gelu gate
+    and ``w_out``).  The gates' bound reads their two weights and the
+    input once and writes both outputs once."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.paged.recurrent import make_rec_state
+    d = p["w_out"].shape[0]
+    dt = p["w_in"].dtype
+    g = torch.Generator(device=dev).manual_seed(53)
+    u = torch.randn((rows, tokens, 2 * d), generator=g, device=dev).to(dt)
+    st = make_rec_state(rows, d, dt, 64, device=dev)
+    xb = u[..., :d].contiguous()
+    xc, _ = L.causal_conv1d(xb, p["conv_w"], p["conv_b"], st.conv)
+    gx, ga = xc @ p["w_gx"], xc @ p["w_ga"]
+
+    def scan():
+        if tokens == 1:
+            return L.rglru_step(xc[:, 0], gx[:, 0], ga[:, 0], p["a_param"],
+                                st.h)
+        return L.rglru(xc, gx, ga, p["a_param"], h0=st.h, block=64)
+
+    mode = "decode" if tokens == 1 else "chunk"
+    iters = 20
+    out = {"rows": rows, "tokens": tokens,
+           "conv_ms": time_ms(lambda: L.causal_conv1d(
+               xb, p["conv_w"], p["conv_b"], st.conv), iters, hold=20),
+           "gates_ms": time_ms(lambda: (xc @ p["w_gx"], xc @ p["w_ga"]),
+                               iters, hold=20),
+           "scan_ms": time_ms(scan, iters, hold=20),
+           "mixer_ms": time_ms(lambda: B.rglru_mix(p, u, st.clone(), mode),
+                               iters, hold=20)}
+    nb = nbytes(p["w_gx"], p["w_ga"], xc) + 2 * nbytes(xc)
+    b_ms, b_by = bound_ms(nb, 4 * rows * tokens * d * d, dt)
+    out.update(gates_bound_ms=b_ms, gates_bound_by=b_by)
+    return out
+
+
+def phase_rg_serve(smi: str, dev: str = "cuda", cfg=None,
+                   lens=(300, 1200, 2500, 5000), new: int = 32,
+                   max_seq: int = 8192, page_tokens: int = 64):
+    """Full-size recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local
+    attention on a 2048-token ring) in bf16 with random weights on one
+    device through ``Engine.step``: 4 slots of ``max_seq`` tokens,
+    prompts of 300-5000 tokens (5000 chunks: the 4096-token threshold,
+    then the ring's 2048).  Kernels 1-3 must launch.  Prints weights,
+    TTFT, TPOT, tokens/s and peak memory, then a profiled decode step of
+    4 rows at 2048 tokens (busy against wall) and the recurrent mixer's
+    parts at that step's rows and at a 2048-token chunk
+    (``rec_split``), times its 26 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models.model import build
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or get_config(RG_MODEL)
+    plan = make_plan(cfg, 1)
+    t0 = time.monotonic()
+    model = build(cfg, plan, seed=0, device=dev)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in model.parameters()) / 1e9
+    eng = Engine(cfg, params=model, max_batch=4, max_seq=max_seq,
+                 page_tokens=page_tokens, device=dev)
+    gen = torch.Generator().manual_seed(59)
+    warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    sync(dev)
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    for r in reqs:
+        assert len(r.generated) == new, (len(r.prompt), len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert dev != "cuda" or all(launches[k] > 0 for k in RG_KERNELS), \
+        launches
+    chunked = [n for n in lens
+               if len(eng.prefill_policy.chunk_sizes(n, page_tokens)) > 1]
+    assert chunked, "no prompt chunked"
+    n_rec = sum(1 for k in cfg.pattern if k == "rglru")
+    out = {"phase": "rg-serve", "model": cfg.name, "layers": cfg.num_layers,
+           "rglru_layers": n_rec, "dtype": cfg.dtype, "window": cfg.window,
+           "prompts": list(lens), "chunked_prompts": chunked,
+           "new_tokens": new, "weights_gb": weights_gb,
+           "weights_init_s": t_init, "wall_s": wall,
+           "ttft_s": [r.ttft for r in reqs], "tpot_s": [r.tpot for r in reqs],
+           "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+           "launches": launches, "gpu": smi}
+    if dev == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        prof = decode_profile(eng, cfg, gen)
+        p0 = eng.model.layers[0].rec
+        step = rec_split(p0, 4, 1, dev)
+        chunk = rec_split(p0, 1, cfg.window, dev)
+        per_step = {k: step[k] * n_rec
+                    for k in ("conv_ms", "gates_ms", "scan_ms", "mixer_ms")}
+        busy = prof["device_busy_ms"]
+        out.update(decode_step={
+            "rows": 4, "context": 2048,
+            "unprofiled_wall_ms": prof["unprofiled_wall_ms"],
+            "profiled_wall_ms": prof["wall_ms"], "device_busy_ms": busy,
+            "device_idle_share": prof["device_idle_share"],
+            "attention_kernel_ms": prof["kinds_ms"].get(
+                "paged decode (port)", 0.0),
+            **{"rglru_" + k: v for k, v in per_step.items()},
+            "shares_of_busy": {"rglru_" + k[:-3]: v / busy
+                               for k, v in per_step.items()}},
+            rec_split_per_layer={"decode": step, "prefill_chunk": chunk})
+        emit(phase="profile", gpu=smi, model=cfg.name, **prof)
+    emit(**out)
+    del eng, model
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def teacher_forced_change(base, dev: str, shorts, new: int, kw: dict,
+                          layers_per_step: int, back: bool = True,
+                          at_tp2: int = 6, same_degree: bool = False):
+    """An engine started at TP2 on two workers of ``dev`` decodes the
+    prompts ``shorts`` (its rows recorded); then another at TP1x2 decodes
+    them teacher forced by those rows, changes to TP2 once each request
+    has a third of its ``new`` tokens, decodes ``at_tp2`` steps there
+    and, with ``back``, changes to TP1x2.  Its rows are held against the
+    TP2 engine's; with ``same_degree`` a third engine stays at TP1x2
+    throughout, forced by the same rows, and the rows decoded at TP1x2
+    (``TP1x2``, ``TP1x2 again``) are held against that engine's.  The
+    engines are built one after another.  Returns (engine, requests,
+    rows held by where they ran, session reports up and down, wall s,
+    launches)."""
+    from repro_torch.serving import ServeRequest
+
+    def warm(e):
+        e.submit(ServeRequest(shorts[0][:70], max_new_tokens=2))
+        e.run_until_done()
+
+    want, same = {}, {}
+    ref = _moe_worker_engine(base, dev, **kw)
+    ref.transform(2, layers_per_step=base.num_layers)
+    while ref.transforming:
+        ref.step()
+    ref_reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
+    record_rows(ref, ref_reqs, want)
+    _drive(ref, ref_reqs)
+    del ref
+    if dev == "cuda":
+        free_card()
+    if same_degree:
+        ref = _moe_worker_engine(base, dev, **kw)
+        warm(ref)
+        ref_reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
+        record_rows(ref, ref_reqs, same, force=want)
+        _drive(ref, ref_reqs)
+        assert ref.tp == 1 and not ref.transform_log
+        del ref
+        if dev == "cuda":
+            free_card()
+    eng = _moe_worker_engine(base, dev, **kw)
+    warm(eng)
+    reset_launch_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
+    got = {}
+    record_rows(eng, reqs, got, force=want, where=stage_of)
+    t_run = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) < new // 3 for r in reqs):
+        eng.step()
+    n = []
+    for tp in (2, 1)[:2 if back else 1]:
+        assert all(r.slot is not None for r in reqs), "decoding throughout"
+        n.append(eng.transform(tp, layers_per_step=layers_per_step))
+        while eng.transforming:
+            eng.step()
+        assert eng.tp == tp
+        for _ in range(at_tp2 if tp == 2 else 0):
+            eng.step()
+    eng.run_until_done()
+    sync(dev)
+    wall = time.monotonic() - t_run
+    at1 = {k: v for k, v in got.items()
+           if same_degree and v[1].startswith("TP1x2")}
+    held = held_rows({k: v for k, v in got.items() if k not in at1}, want,
+                     base.vocab_size)
+    for h in held.values():
+        h["against"] = "TP2"
+    for where, h in held_rows(at1, same, base.vocab_size).items():
+        held[where] = dict(h, against="TP1x2")
+    assert held.get("TP2", {}).get("rows"), held
+    reps = eng.transform_reports
+    return (eng, reqs, held, [reps[:n[0]], reps[n[0]:]], wall,
+            launch_counts())
+
+
+def phase_rg_transform(smi: str, dev: str = "cuda", cfg=None,
+                       max_seq: int = 8192, lens=(300, 1200, 2500, 3500),
+                       new: int = 48, page_tokens: int = 64,
+                       layers_per_step: int = 8, budget: int = 1024,
+                       fp32_layers: int = RG_FP32_LAYERS):
+    """Full-size recurrentgemma-9b in bf16 on two workers of the card,
+    prompts prefilled in chunks of ``budget`` tokens: TP1x2 -> TP2 ->
+    TP1x2 mid-decode (``layers_per_step`` layers a schedule step),
+    every decode row held teacher forced against an engine at the same
+    degree throughout (``teacher_forced_change``, ``RG_BF16_AGREE``; the
+    rows before the first change take every token of the engine that
+    stays at TP1x2), after the same run in fp32 at ``fp32_layers``
+    layers, where every row must agree (within ``RG_FP32_TOL``).  Prints each session's
+    steps, walls and exposed time, the KV-and-state bytes its kv ops
+    copied, the state and pool bytes the layers hold, the weight bytes
+    that crossed workers and the MLP bytes the reference accounts.
+    Kernels 1-6 must launch (5-6 on the ring pools' migrations)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import instance as I
+    from repro_torch.core import weight_transform as WT
+    from repro_torch.core.scheduler import PrefillPolicy
+
+    base = cfg or get_config(RG_MODEL)
+    gen = torch.Generator().manual_seed(61)
+    shorts = _prompts(gen, lens, base.vocab_size)
+    # a prefill budget: the longer prompts chunk on the workers
+    kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens,
+              prefill_policy=PrefillPolicy(token_budget=budget,
+                                           mode="mixed"))
+    # fp32 first, at full width: every row agrees
+    c32 = dataclasses.replace(base, dtype="float32",
+                              num_layers=min(fp32_layers, base.num_layers))
+    eng, _, held32, _, _, _ = teacher_forced_change(
+        c32, dev, shorts, new, kw, layers_per_step, same_degree=True)
+    del eng
+    if dev == "cuda":
+        free_card()
+    for where, h in held32.items():
+        assert h["argmax_flips"] == 0, ("fp32 rows part", where, held32)
+        assert h["logit_max_abs_diff"] <= RG_FP32_TOL, (where, held32)
+    eng, reqs, held, (ups, downs), wall, launches = teacher_forced_change(
+        base, dev, shorts, new, kw, layers_per_step, same_degree=True)
+    assert set(held) == {"TP1x2", "session", "TP2", "TP1x2 again"}, held
+    assert held["TP1x2"]["argmax_flips"] == 0, held
+    for where, h in held.items():
+        assert h["argmax_agree"] >= RG_BF16_AGREE, (where, held)
+    for r in reqs:
+        assert r.done and all(0 <= t < base.vocab_size for t in r.generated)
+    assert dev != "cuda" or all(launches[k] > 0
+                                for k in RG_WORKER_KERNELS), launches
+    state_b = sum(c.nbytes for layer in eng.layers
+                  for c in layer.cache if c.recurrent)
+    pool_b = sum(c.nbytes for layer in eng.layers
+                 for c in layer.cache if not c.recurrent)
+    sessions = []
+    for log, reps in zip(eng.transform_log, (ups, downs)):
+        st = WT.account_regroup(base, eng.plan, log["tp_from"],
+                                log["tp_to"], "padded")
+        sessions.append(dict(
+            session_summary(log, reps, eng.W),
+            kv_and_state_bytes=log["kv_bytes"],
+            weight_bytes_across_workers=log["weight_bytes"],
+            mlp_bytes_accounted=base.num_layers * (st.bytes_copied
+                                                   + st.bytes_transferred),
+            modeled_s=log["modeled_s"]))
+    emit(phase="rg-transform", model=base.name, dtype=base.dtype,
+         layers=base.num_layers, workers=eng.W, prompts=list(lens),
+         new_tokens=new, layers_per_step=layers_per_step, wall_s=wall,
+         sessions=sessions, state_bytes_held=state_b,
+         ring_pool_bytes_held=pool_b, bf16_held=held,
+         agree_bound=RG_BF16_AGREE, fp32_layers=c32.num_layers,
+         fp32_held=held32, fp32_tol=RG_FP32_TOL,
+         ttft_s=[r.ttft for r in reqs], tpot_s=[r.tpot for r in reqs],
+         launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del eng
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def phase_moe_rows_fp32(smi: str, dev: str = "cuda", cfg=None,
+                        max_seq: int = 8192, lens=(300, 1200, 2500, 3500),
+                        new: int = 24, page_tokens: int = 64,
+                        layers_per_step: int = 8):
+    """ROADMAP queue 3 item 1: moe-transform's teacher-forced row check
+    in fp32 at full depth (granite-moe-3b-a800m, 32 layers, cap 1 at 4
+    decode rows): TP1x2 -> TP2 mid-decode on two workers of the card,
+    every row against an engine started at TP2, built first and freed
+    before the other (an fp32 replica is 13.6 GB).  Every row must take
+    the reference's greedy token, logits within ``MOE_FP32_TOL``; a
+    failure names the stage it parted at."""
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(cfg or get_config(MOE_MODEL),
+                               dtype="float32")
+    gen = torch.Generator().manual_seed(67)
+    shorts = _prompts(gen, lens, base.vocab_size)
+    kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens)
+    eng, reqs, held, (ups, _), wall, launches = teacher_forced_change(
+        base, dev, shorts, new, kw, layers_per_step, back=False)
+    emit(phase="moe-rows-fp32", model=base.name, dtype=base.dtype,
+         layers=base.num_layers, workers=eng.W, prompts=list(lens),
+         new_tokens=new, held_against_tp2=held, tol=MOE_FP32_TOL,
+         session=session_summary(eng.transform_log[0], ups, eng.W),
+         wall_s=wall, gpu=smi)
+    for where, h in held.items():
+        assert h["argmax_flips"] == 0, ("fp32 rows part", where, held)
+        assert h["logit_max_abs_diff"] <= MOE_FP32_TOL, (where, held)
+    del eng
+    if dev == "cuda":
+        free_card()
+
+
+def phase_moe_spill(smi: str, dev: str = "cuda", cfg=None, **kw) -> dict:
+    """``phase_cluster_spill`` on full-size granite-moe-3b-a800m in bf16:
+    2 instances x 1 worker of the card (4096 tokens a worker), prompts of
+    300 and 1200 tokens on both, then a 6000-token request that spills
+    into the neighbour; its extended calls route their own rows.  Prints
+    a decode step's wall with and without the spilled slot."""
+    from repro_torch.configs import get_config
+    kw = dict(dict(new=64, long_new=16), **kw)
+    return phase_cluster_spill(smi, dev, cfg or get_config(MOE_MODEL),
+                               label="moe-spill", **kw)
+
+
+#: the serve CLI on the hybrid model: recurrentgemma-9b at published
+#: widths and depth in bf16, one instance of one worker of the card
+RG_CLI = ("--arch", RG_MODEL, "--no-smoke", "--instances", "1",
+          "--workers", "1", "--max-seq", "8192", "--requests", "4",
+          "--long-every", "2")
 
 
 # ---------------------------------------------------------------------------
@@ -4424,7 +5015,7 @@ CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
 #: checked there, the rest only by the kernels phase
 PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
                  "spill-parity", "ladder-parity", "layout-parity",
-                 "moe-parity")
+                 "moe-parity", "rg-parity")
 
 
 class ShapeCensus:
@@ -4868,6 +5459,13 @@ def main():
            "moe-transform": run("moe-transform", phase_moe_transform, smi),
            "moe-cluster": run("moe-cluster", phase_moe_cluster, smi)}
     phase_serve_cli(MOE_CLI)
+    run("moe-rows-fp32", phase_moe_rows_fp32, smi)
+    moe["moe-spill"] = run("moe-spill", phase_moe_spill, smi)
+    # slice 11: recurrentgemma-9b
+    run("rg-parity", phase_rg_parity)
+    rg = {"rg-serve": run("rg-serve", phase_rg_serve, smi),
+          "rg-transform": run("rg-transform", phase_rg_transform, smi)}
+    phase_serve_cli(RG_CLI)
     emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []
@@ -4895,7 +5493,8 @@ def main():
                 "cluster-calibrated": calibrated.get(name, 0),
                 "layout-serve": layout[name],
                 "cluster-layout": clayout[name],
-                **{k: v.get(name, 0) for k, v in moe.items()}}})
+                **{k: v.get(name, 0) for k, v in moe.items()},
+                **{k: v.get(name, 0) for k, v in rg.items()}}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,19 @@ the padding plan (``plan.max_tp``: the engine's own W, or the whole
 pool's in a cluster), and a TP-t shard is ``S/t`` consecutive of them
 (``mlp_shards``).
 
+A recurrent (RGLRU) layer keeps the reference's spec
+(``repro/core/instance.py:67-84``, ``:117-122``) in ``attn`` and
+``cache``: ``w_in (d, 2d)`` by column and ``w_out (d, d)`` by row over
+tp, the conv, the gates and ``a_param`` replicated, and its state rows
+(``paged.recurrent.RecState``) over the replicas, replicated over sp and
+tp.  ``w_in`` is ``[x | y]``, so at TP2 one worker holds the x branch
+and the other the y branch: each worker multiplies by its column shard,
+the TP group all-gathers ``u``, the conv, gates and scan run on every
+worker of the group, and each worker multiplies its row slice of ``y``
+by its ``w_out`` shard before the all-reduce (``models.model.
+rec_workers``).  Its weights and state move in the layer's ``kv`` op
+(``move_rec``), as attention weights move with their pages.
+
 ``InstanceGroup`` is the counterpart of the reference's owner of the
 same name: a thin transformable owner of ``WorkerLayer`` lists that
 serves through the engine's layer walk.
@@ -63,10 +76,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.configs.base import RGLRU
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.core.weight_transform import MLP_PAIRS
 from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import pool as pp
+from repro_torch.paged.recurrent import cat_rows, make_rec_state
 
 Params = Dict[str, torch.Tensor]
 
@@ -74,8 +89,11 @@ Params = Dict[str, torch.Tensor]
 @dataclass
 class WorkerLayer:
     """One decoder layer spread over the workers of ``mesh`` (the
-    assembly its tensors live on).  ``attn_layout`` is the ``Layout`` of
-    the attention weights AND the layer's paged cache (they move
+    assembly its tensors live on).  ``attn`` holds the layer's token
+    mixer, whatever its kind: attention weights, or a recurrent layer's
+    RG-LRU mixer (the model's ``Block.mixer``, there ``attn`` or
+    ``rec``).  ``attn_layout`` is the ``Layout`` of the mixer weights
+    AND the layer's cache, a paged pool or a recurrent state (they move
     together, in the ``kv`` op of a transform); ``mlp_layout`` that of
     the MLP weights (the ``mlp`` op); an int TP degree given here is
     turned into its ``Layout``.  Every list has one entry a worker of
@@ -87,7 +105,7 @@ class WorkerLayer:
     ln2: List[torch.Tensor]
     attn: List[Params]
     mlp: List[Params]
-    cache: List[pp.PagedState]
+    cache: List
     mesh: Any
 
     def __post_init__(self):
@@ -321,12 +339,46 @@ def pages_per_slot(layer: WorkerLayer) -> int:
     return layer.cache[0].page_table.shape[1] * layer.attn_layout.sp
 
 
+def reshard_rec(group: List[Params], ta: int, tb: int, p: int, device
+                ) -> Params:
+    """Position p's recurrent-mixer shard at degree ``tb`` from the
+    ``ta`` shards of one source TP group: columns ``[p*2d/tb,
+    (p+1)*2d/tb)`` of ``w_in`` and rows ``[p*d/tb, (p+1)*d/tb)`` of
+    ``w_out``, each a compact tensor of its own on ``device``; the conv,
+    gates and ``a_param`` copied (replicated)."""
+    d = group[0]["w_out"].shape[1]
+    cols = _runs(p * 2 * d // tb, (p + 1) * 2 * d // tb, 2 * d // ta)
+    rows = _runs(p * d // tb, (p + 1) * d // tb, d // ta)
+    out = {"w_in": _join([group[i]["w_in"][:, a:b] for i, a, b in cols], 1,
+                         device),
+           "w_out": _join([group[i]["w_out"][a:b] for i, a, b in rows], 0,
+                          device)}
+    for k in ("conv_w", "conv_b", "w_gx", "w_ga", "a_param"):
+        out[k] = _compact(group[p % ta][k], device)
+    return out
+
+
+def move_rec(layer: WorkerLayer, dst, lb: Layout) -> int:
+    """A recurrent layer's state rows (``kv_transform.regroup_rec``) and
+    mixer weights at layout ``lb`` on the workers of ``dst``; returns the
+    state bytes copied."""
+    from repro_torch.core.kv_transform import regroup_rec
+    src, la = layer.mesh, layer.attn_layout
+    layer.cache, moved = regroup_rec(layer.cache, src, la, dst, lb)
+    layer.attn = reshard(layer.attn, src, la, dst, lb, reshard_rec)
+    layer.attn_layout = lb
+    return moved
+
+
 def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
               ) -> int:
     """The layer's paged cache (``kv_transform.migrate_sharded``) and
     attention weights at layout ``lb`` on the workers of ``dst``; returns
-    the bytes the migration's kernels and exchange moved."""
+    the bytes the migration's kernels and exchange moved.  A recurrent
+    layer's state and mixer move instead (``move_rec``)."""
     from repro_torch.core.kv_transform import migrate_sharded
+    if layer.cache[0].recurrent:
+        return move_rec(layer, dst, lb)
     src, la = layer.mesh, layer.attn_layout
     mps = pages_per_slot(layer)
     new, moved = migrate_sharded([c.pool for c in layer.cache], src, la,
@@ -345,11 +397,13 @@ def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
 
 def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
                    share: bool, kvs: int, page_tokens: int, dh: int,
-                   batch: int, mps: int
+                   batch: int, mps: Callable[[str], int]
                    ) -> Tuple[List[WorkerLayer], List[Dict]]:
     """Layers at TP1 x W on ``mesh``: every worker a replica of
     ``blocks`` (``(kind, ln1, ln2, attn, mlp)`` a layer) and an empty
-    pool of ``batch/W`` slots of ``mps`` pages, and the replicated
+    pool of ``batch/W`` slots of ``mps(kind)`` pages (a window's ring
+    holds fewer), or a zero recurrent
+    state of ``batch/W`` rows, and the replicated
     ``static`` weights (embed, final_ln, lm_head).  With ``share`` worker
     0 takes the given tensors and every other worker a copy; without it
     every worker copies."""
@@ -365,11 +419,17 @@ def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
         return [{k: v[w] for k, v in cols.items()} for w in range(len(devs))]
 
     tp1 = Layout(1, 1)
+    dt, d = static["embed"].dtype, static["embed"].shape[1]
+
+    def caches(kind):
+        if kind == RGLRU:
+            return [make_rec_state(batch // len(devs), d, dt, page_tokens,
+                                   device=dev) for dev in devs]
+        return init_worker_caches(kvs, page_tokens, dh, batch, mps(kind),
+                                  dt, devs)
+
     layers = [WorkerLayer(kind, tp1, tp1, per_worker(ln1), per_worker(ln2),
-                          dicts(attn), dicts(mlp),
-                          init_worker_caches(kvs, page_tokens, dh, batch,
-                                             mps, static["embed"].dtype,
-                                             devs), mesh)
+                          dicts(attn), dicts(mlp), caches(kind), mesh)
               for kind, ln1, ln2, attn, mlp in blocks]
     cols = {k: None if v is None else per_worker(v)
             for k, v in static.items()}
@@ -382,12 +442,15 @@ def identity_page_table(batch: int, mps: int, device) -> torch.Tensor:
             + torch.arange(mps, device=device)[None, :]).to(torch.int32)
 
 
-def join_cache(states: List[pp.PagedState], layout) -> pp.PagedState:
+def join_cache(states: List, layout):
     """The global view of one layer's cache at ``layout`` (a ``Layout``
     or a TP degree; on worker 0's device): pool (NP, kvs, 2, P, dh) under
     global page ids, with the global page table, ``seq_lens`` and
-    ``positions``: what the reference's sharded arrays hold."""
+    ``positions``: what the reference's sharded arrays hold.  A
+    recurrent layer's: the state rows of every replica, in slot order."""
     lay = Layout.of(layout)
+    if states[0].recurrent:
+        return cat_rows(states[::lay.degree], states[0].h.device)
     dev = states[0].pool.device
     d, t = lay.degree, lay.tp
     pools, seqs, poss = [], [], []
@@ -408,14 +471,16 @@ def join_cache(states: List[pp.PagedState], layout) -> pp.PagedState:
                          torch.cat(poss))
 
 
-def split_cache(state: pp.PagedState, layout, devices: Sequence
-                ) -> List[pp.PagedState]:
+def split_cache(state, layout, devices: Sequence) -> List:
     """A global cache (``join_cache``'s view) laid out at ``layout`` (a
     ``Layout`` or a TP degree) on ``devices``, each worker's part a
     compact copy: the cache an engine at that layout holds for the same
-    bytes."""
+    bytes (a recurrent state: each worker its replica's rows)."""
     lay = Layout.of(layout)
     W = len(devices)
+    if state.recurrent:
+        return [state.rows(*rows_of(lay, state.batch, W, w)).to(dev)
+                for w, dev in enumerate(devices)]
     B, mps = state.page_table.shape
     kvs = state.pool.shape[1]
     assert mps % lay.sp == 0, (
@@ -497,6 +562,7 @@ class InstanceGroup:
         from repro_torch.core.weight_transform import relayout_block_mlp
         from repro_torch.launch.mesh import InstanceMesh
         from repro_torch.models import model as M
+        from repro_torch.models.blocks import slot_pages
 
         self.mesh = InstanceMesh(devices, 1)
         self.devices, self.W = self.mesh.workers, self.mesh.W
@@ -512,12 +578,12 @@ class InstanceGroup:
                              device=self.mesh.devices[0])
             for blk in params.layers:
                 relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp)
-        blocks = [(b.kind, b.ln1, b.ln2, dict(b.attn), dict(b.mlp))
+        blocks = [(b.kind, b.ln1, b.ln2, dict(b.mixer), dict(b.mlp))
                   for b in params.layers]
         self.layers, self.static = place_replicas(
             blocks, params.static(), self.mesh, True, self.plan.kv_slots,
             page_tokens, cfg.resolved_head_dim, self.batch,
-            -(-max_seq // page_tokens))
+            lambda kind: slot_pages(kind, cfg, max_seq, page_tokens))
 
     # -- the paper's §4: the transformation -----------------------------
     def transform(self, new_tp: int) -> None:

@@ -24,6 +24,12 @@ The counterpart of ``repro.core.kv_transform``.  Two planes:
   layout over those plus the adopted ones, a donor's move onto fewer
   workers, and back.  ``layout_migration_stats`` accounts for any such
   move, page-axis moves included.
+
+A recurrent layer's state has no pages: its rows follow the replicas
+(``regroup_rec``).  A worker whose rows at the old layout cover its new
+ones keeps a slice of them; the others receive their rows copied from
+the workers that hold them (TP1 x 2 -> TP2 gathers each replica's rows
+onto both workers, TP2 -> TP1 x 2 splits them).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from repro_torch.kernels import page_migrate as PM
 from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import layout as L
 from repro_torch.paged.pool import PagedState
+from repro_torch.paged.recurrent import RecState, cat_rows
 
 # ---------------------------------------------------------------------------
 # Interconnect cost model
@@ -213,12 +220,15 @@ def migrate_slot_pages(src_pool: torch.Tensor, dst_pool: torch.Tensor,
                                heads_per_slice=dst_pool.shape[1])
 
 
-def export_slot(state: PagedState, slot: int) -> PagedState:
-    """A merge donor's slot as a self-contained batch-1 state: its pages
+def export_slot(state, slot: int):
+    """A merge donor's slot as a self-contained batch-1 state (a
+    recurrent layer's: a copy of its state row): its pages
     ``[slot*mps, (slot+1)*mps)`` packed by the gather kernel (every head
     as one slice, one contiguous segment a page) under an identity page
     table, with copies of its ``seq_lens`` and ``positions`` rows.  The
     counterpart of the reference's ``_extract_slot_cache``."""
+    if state.recurrent:
+        return state.slot(slot).clone()
     mps = state.page_table.shape[-1]
     dev = state.pool.device
     ids = torch.arange(slot * mps, (slot + 1) * mps, dtype=torch.int32,
@@ -232,13 +242,17 @@ def export_slot(state: PagedState, slot: int) -> PagedState:
                       state.positions[slot:slot + 1].clone())
 
 
-def import_slot(state: PagedState, sub: PagedState, slot: int) -> None:
+def import_slot(state, sub, slot: int) -> None:
     """Land an exported batch-1 state in ``slot`` of ``state``, in place
-    (the reference's ``_import_slot_cache``): its pages at the head of
-    the slot's (wider) page range through ``migrate_slot_pages``, its
+    (the reference's ``_import_slot_cache``; a state row is copied): its
+    pages at the head of the slot's (wider) page range through
+    ``migrate_slot_pages``, its
     cursor and stored positions in the slot's rows; the positions past
     the donor's capacity stay invalid.  ``sub`` may lie on another
     device."""
+    if state.recurrent:
+        state.slot(slot).copy_(sub)
+        return
     mps_d, mps_s = state.page_table.shape[-1], sub.page_table.shape[-1]
     assert mps_s <= mps_d, "donor slots cannot exceed the grown target's"
     migrate_slot_pages(sub.pool, state.pool, mps_s, slot * mps_d)
@@ -445,4 +459,43 @@ def migrate_sharded(pools: List[torch.Tensor], src, la, dst, lb,
             heads_per_slice=h)
         moved += 2 * recv.numel() * recv.element_size()
         out.append(pool)
+    return out, moved
+
+
+def regroup_rec(states: List[RecState], src, la, dst, lb
+                ) -> Tuple[List[RecState], int]:
+    """One recurrent layer's state rows from layout ``la`` on the workers
+    of ``src`` to ``lb`` on those of ``dst`` (replica r holds the rows of
+    its slots on every one of its workers).  A worker of both whose old
+    rows cover its new ones keeps them (the same tensors when the rows
+    do not change, else a compact slice); every other worker receives
+    its rows copied from one worker of each source replica that holds
+    some.  Returns the states and the bytes copied."""
+    from repro_torch.core.instance import rows_of
+    a, b = Layout.of(la), Layout.of(lb)
+    B = states[0].batch * (src.W // a.degree)
+    out, moved = [], 0
+    for w, wk in enumerate(dst.workers):
+        lo, hi = rows_of(b, B, dst.W, w)
+        if wk in src.workers:
+            u = src.workers.index(wk)
+            ulo, uhi = rows_of(a, B, src.W, u)
+            if (ulo, uhi) == (lo, hi):
+                out.append(states[u])
+                continue
+            if ulo <= lo and hi <= uhi:
+                part = states[u].rows(lo - ulo, hi - ulo).to(wk.device)
+                out.append(part)
+                moved += 2 * part.nbytes
+                continue
+        parts = []
+        for u in range(0, src.W, a.degree):
+            ulo, uhi = rows_of(a, B, src.W, u)
+            if ulo < hi and lo < uhi:
+                parts.append(states[u].rows(max(lo, ulo) - ulo,
+                                            min(hi, uhi) - ulo))
+        new = cat_rows(parts, wk.device) if len(parts) > 1 \
+            else parts[0].to(wk.device)
+        out.append(new)
+        moved += 2 * new.nbytes
     return out, moved

@@ -319,6 +319,8 @@ class TransformSession:
         if op.component == "mlp":
             return _mlp_stats(sched, self.cfg, self.plan, "padded").time_s(
                 self.link, overlap=op.overlap)
+        if layer.cache[0].recurrent:
+            return 0.0      # the reference prices a layer without a pool
         pool = layer.cache[0].pool
         la, lb = sched.resolved_layouts()
         lay = layer.attn_layout
@@ -374,8 +376,7 @@ class TransformSession:
         of the migrated pool and the attention bytes that crossed
         assemblies."""
         src, old = layer.mesh, layer.attn
-        pool_bytes = sum(c.pool.numel() * c.pool.element_size()
-                         for c in layer.cache)
+        pool_bytes = sum(c.nbytes for c in layer.cache)
         moved = I.move_attn(layer, self.mesh_to, self.target_layout,
                             self.plan)
         return moved, pool_bytes, self._crossed_bytes(src, old, layer.attn)

@@ -19,7 +19,8 @@ assemblies") compares workers, never devices: two workers on one card
 are two entries.
 
 The exchanges between workers (``all_to_all``, ``all_reduce_sum``,
-``all_gather``, ``sp_all_gather``, ``replicate``) copy between worker
+``all_gather``, ``group_all_gather``, ``sp_all_gather``, ``replicate``)
+copy between worker
 tensors with
 ``Tensor.copy_``: plain data movement, as ``lax.all_to_all`` is in the
 reference.  ``all_to_all``, ``all_gather`` and ``replicate`` also run
@@ -194,6 +195,22 @@ class InstanceMesh:
             total = total.to(xs[grp[0]].dtype)
             for w in grp:
                 out[w] = total.to(self.devices[w], copy=True)
+        return out
+
+    def group_all_gather(self, xs: List[Optional[torch.Tensor]], tp: int,
+                         dim: int) -> List[Optional[torch.Tensor]]:
+        """The all-gather inside each TP group at degree ``tp``: every
+        member receives the members' tensors concatenated along ``dim``,
+        in worker order, in a tensor of its own.  A group whose entries
+        are None (it holds none of the rows) stays None."""
+        out: List[Optional[torch.Tensor]] = [None] * len(xs)
+        for grp in self.groups(tp):
+            if xs[grp[0]] is None:
+                continue
+            parts = [xs[u] for u in grp]
+            for w in grp:
+                out[w] = torch.cat([x.to(self.devices[w]) for x in parts],
+                                   dim=dim)
         return out
 
     def sp_all_gather(self, bufs: List[Optional[torch.Tensor]],

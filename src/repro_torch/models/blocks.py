@@ -1,8 +1,9 @@
 """Per-block parameter init and apply functions for the decoder.
 
 The counterpart of ``repro.models.blocks`` for the ATTN and SLIDING
-kinds (attention + dense MLP) and MOE (attention + a capacity-routed
-mixture of experts).  Parameters are plain dicts of tensors
+kinds (attention + dense MLP), MOE (attention + a capacity-routed
+mixture of experts) and RGLRU (Griffin's recurrent mixer + dense MLP).
+Parameters are plain dicts of tensors
 (``nn.ParameterDict`` inside the model); padded slots (heads, d_ff,
 experts) carry zero weights so the padded model equals the unpadded one.
 
@@ -16,6 +17,15 @@ plain ``torch.matmul``; so is the single-device engine's MLP
 (``apply_padded_mlp``).  The MoE routing, dispatch, expert products
 (``torch.bmm`` over the capacity buffer) and combine are plain PyTorch,
 as the reference's are plain ``jnp``.
+
+A recurrent block's mixer (``rglru_mix``) is the reference's
+``apply_block_seq`` / ``apply_block_decode`` RGLRU branch
+(``repro/models/blocks.py:443-459``, ``:551-563``): input projection
+``w_in`` to ``[x | y]``, the causal conv and the two gates on x, the
+RG-LRU scan (``layers.rglru``), ``y`` gated by gelu, and ``w_out``.  Its
+per-slot state is a ``paged.recurrent.RecState`` updated in place.  It
+is plain PyTorch, as the reference's is plain ``jnp``: no TPU kernel
+computes it.
 
 Sequence-parallel layouts (``attention_decode_sp``, ``attention_chunk_sp``:
 the counterparts of the reference's ``attention_decode`` /
@@ -44,22 +54,24 @@ from repro_torch.kernels import ref as KR
 from repro_torch.launch.mesh import Layout
 from repro_torch.models import layers as Lyr
 from repro_torch.paged import pool as pp
+from repro_torch.paged.recurrent import CONV_K, RecState, make_rec_state
 
 Params = Dict[str, torch.Tensor]
 
 #: block kinds of other architectures, and the ROADMAP item that ports them
 NOT_PORTED = {
-    RGLRU: "ROADMAP queue 1 item 10 (RG-LRU)",
     MLSTM: "ROADMAP queue 1 item 10 (xLSTM)",
     SLSTM: "ROADMAP queue 1 item 10 (xLSTM)",
 }
 
-#: the block kinds the port runs: attention and an MLP each
+#: the block kinds whose mixer is attention over a paged KV cache
 ATTENTION_KINDS = (ATTN, SLIDING, MOE)
+#: the block kinds the port runs: a mixer and an MLP each
+PORTED_KINDS = ATTENTION_KINDS + (RGLRU,)
 
 
 def check_kind(kind: str) -> None:
-    if kind not in ATTENTION_KINDS:
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: "
             f"{NOT_PORTED.get(kind, 'unknown kind')}")
@@ -433,6 +445,60 @@ def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ===========================================================================
+# Recurrent mixer (RG-LRU block: Griffin)
+# ===========================================================================
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """The reference's RGLRU mixer leaves (``repro/models/blocks.py:
+    348-358``): ``w_in (d, 2d)`` = ``[x | y]``, ``conv_w (K, d)``,
+    ``conv_b (d,)``, the gates ``w_gx`` / ``w_ga (d, d)``, ``a_param
+    (d,)`` (fp32 in every model dtype: ``linspace(0.5, 2.0, d)``) and
+    ``w_out (d, d)``."""
+    d, dt = cfg.d_model, dtype_of(cfg)
+    return {"w_in": _dense(gen, d, (d, 2 * d), dt, device),
+            "conv_w": _dense(gen, CONV_K, (CONV_K, d), dt, device),
+            "conv_b": torch.zeros((d,), dtype=dt, device=device),
+            "w_gx": _dense(gen, d, (d, d), dt, device),
+            "w_ga": _dense(gen, d, (d, d), dt, device),
+            "a_param": torch.linspace(0.5, 2.0, d, dtype=torch.float32,
+                                      device=device),
+            "w_out": _dense(gen, d, (d, d), dt, device)}
+
+
+def rglru_mix(p: Params, u: torch.Tensor, state: RecState, mode: str,
+              part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """The recurrent mixer after its input projection: ``u = h @ w_in``
+    (B, S, 2d), the x and y branches side by side.  ``mode``: ``seq``
+    (a whole prompt from a zero state), ``chunk`` (continuing from
+    ``state``'s carry) or ``decode`` (S = 1, one RG-LRU step); the
+    final state is written into ``state`` in place.  ``part = (p, t)``:
+    the caller holds row shard p of t of ``w_out`` (a TP-t worker), and
+    the result is that shard's partial product; every worker of a TP
+    group runs the conv, gates and scan on the whole ``u``."""
+    d = u.shape[-1] // 2
+    xb, yb = u[..., :d], u[..., d:]
+    carry = mode != "seq"
+    xb, conv = Lyr.causal_conv1d(xb, p["conv_w"], p["conv_b"],
+                                 state.conv if carry else None)
+    gx = xb @ p["w_gx"]
+    ga = xb @ p["w_ga"]
+    if mode == "decode":
+        y, h = Lyr.rglru_step(xb[:, 0], gx[:, 0], ga[:, 0], p["a_param"],
+                              state.h)
+        y = y[:, None]
+    else:
+        y, h = Lyr.rglru(xb, gx, ga, p["a_param"],
+                         h0=state.h if carry else None, block=state.block)
+    state.conv.copy_(conv)
+    state.h.copy_(h)
+    y = y * Lyr._act("geglu", yb)           # jax.nn.gelu: the tanh form
+    w, t = part
+    if t > 1:
+        y = y[..., w * d // t:(w + 1) * d // t]
+    return y @ p["w_out"]
+
+
+# ===========================================================================
 # Block apply
 # ===========================================================================
 
@@ -455,60 +521,88 @@ def _mlp(kind: str, p, x: torch.Tensor, cfg: ModelConfig,
     return apply_mlp(p, x, cfg)
 
 
-def apply_block_seq(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
-                    x: torch.Tensor, positions: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
-                                                   torch.Tensor]]:
-    """Whole-prompt forward for one block; returns (y, (k, v))."""
+def _mixer(kind: str, p, h: torch.Tensor, cfg: ModelConfig,
+           plan: PaddingPlan, positions: torch.Tensor, cache, mode: str,
+           first_chunk: bool = False):
+    """The block's mixer sub-layer on the normed input ``h``: attention
+    over the paged cache, or the recurrent mixer over its state (both
+    updated in place).  Returns (out, (k, v) of a whole prompt's
+    attention or None)."""
+    if kind == RGLRU:
+        return rglru_mix(p["rec"], h @ p["rec"]["w_in"], cache, mode), None
+    window = _window_of(kind, cfg)
+    if mode == "seq":
+        return attention_seq(p["attn"], h, cfg, plan, positions,
+                             window=window)
+    if mode == "chunk":
+        return attention_chunk(p["attn"], h, cfg, plan, positions, cache,
+                               window=window, first_chunk=first_chunk)[0], \
+            None
+    return attention_decode(p["attn"], h, cfg, plan, positions, cache,
+                            window=window)[0], None
+
+
+def _apply_block(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
+                 x: torch.Tensor, positions: torch.Tensor, cache, mode: str,
+                 first_chunk: bool = False):
     check_kind(kind)
     h = Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    attn_out, kv = attention_seq(p["attn"], h, cfg, plan, positions,
-                                 window=_window_of(kind, cfg))
-    x = x + attn_out
+    out, kv = _mixer(kind, p, h, cfg, plan, positions, cache, mode,
+                     first_chunk)
+    x = x + out
     h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + _mlp(kind, p["mlp"], h, cfg, plan), kv
 
 
+def apply_block_seq(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
+                    x: torch.Tensor, positions: torch.Tensor, cache=None):
+    """Whole-prompt forward for one block; returns (y, (k, v)) for an
+    attention block (the caller fills its cache) and (y, None) for a
+    recurrent one, whose final state lands in ``cache``."""
+    return _apply_block(kind, p, cfg, plan, x, positions, cache, "seq")
+
+
 def apply_block_chunk(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
-                      x: torch.Tensor, positions: torch.Tensor,
-                      cache: pp.PagedState, first_chunk: bool = False):
-    """Prefill-chunk forward for one block, continuing from its cache."""
-    check_kind(kind)
-    h = Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    attn_out, cache = attention_chunk(
-        p["attn"], h, cfg, plan, positions, cache,
-        window=_window_of(kind, cfg), first_chunk=first_chunk)
-    x = x + attn_out
-    h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(kind, p["mlp"], h, cfg, plan), cache
+                      x: torch.Tensor, positions: torch.Tensor, cache,
+                      first_chunk: bool = False):
+    """Prefill-chunk forward for one block, continuing from its cache
+    (a recurrent block: from the state's carry, as the reference's
+    ``apply_block_chunk`` delegates to the sequence form)."""
+    y, _ = _apply_block(kind, p, cfg, plan, x, positions, cache, "chunk",
+                        first_chunk)
+    return y, cache
 
 
 def apply_block_decode(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
-                       x: torch.Tensor, positions: torch.Tensor,
-                       cache: pp.PagedState):
+                       x: torch.Tensor, positions: torch.Tensor, cache):
     """Single-token decode for one block. x: (B,1,d)."""
-    check_kind(kind)
-    h = Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    attn_out, cache = attention_decode(
-        p["attn"], h, cfg, plan, positions, cache,
-        window=_window_of(kind, cfg))
-    x = x + attn_out
-    h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(kind, p["mlp"], h, cfg, plan), cache
+    y, _ = _apply_block(kind, p, cfg, plan, x, positions, cache, "decode")
+    return y, cache
+
+
+def slot_pages(kind: str, cfg: ModelConfig, max_seq: int,
+               page_tokens: int) -> int:
+    """Pages a slot of an attention block's cache holds: ``max_seq``
+    tokens for full attention, a window's ring ``min(max_seq, window)``,
+    page-rounded."""
+    w = _window_of(kind, cfg)
+    cap = max_seq if w == 0 else min(max_seq, w)
+    return -(-cap // page_tokens)
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, plan: PaddingPlan,
                      batch: int, max_seq: int, page_tokens: int, *,
-                     device) -> pp.PagedState:
+                     device):
     """The block's slot-partitioned header-centric paged cache (the
     kernels' canonical layout): full attention holds
     ``max_seq`` tokens per slot, a window holds ``min(max_seq, window)``
-    (a ring), page-rounded."""
+    (a ring), page-rounded.  A recurrent block's is its zero state
+    (``RecState``), scanned in blocks of the page size."""
     check_kind(kind)
-    w = _window_of(kind, cfg)
-    cap = max_seq if w == 0 else min(max_seq, w)
-    cap = -(-cap // page_tokens) * page_tokens
-    mps = cap // page_tokens
+    if kind == RGLRU:
+        return make_rec_state(batch, cfg.d_model, dtype_of(cfg),
+                              page_tokens, device=device)
+    mps = slot_pages(kind, cfg, max_seq, page_tokens)
     return pp.make_state(batch * mps, plan.kv_slots, page_tokens,
                          cfg.resolved_head_dim, batch, mps, dtype_of(cfg),
                          device=device)

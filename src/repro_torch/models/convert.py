@@ -19,7 +19,10 @@ padding is zero, so the function is the same; at ``max_tp = 1`` the two
 layouts are one.  A MoE layer's ``mlp`` carries ``router`` as it is,
 its expert tensors ``wi (Ep, d, 2*ffp)`` / ``wo (Ep, ffp, d)`` re-laid
 expert by expert, and its shared expert (the reference's
-``mlp/shared/{wi,wo}``) as ``mlp.shared_wi`` / ``mlp.shared_wo``.
+``mlp/shared/{wi,wo}``) as ``mlp.shared_wi`` / ``mlp.shared_wo``.  A
+RGLRU layer's mixer leaves, which the reference keeps at the layer's
+top level, go under ``rec``; ``a_param`` stays fp32 in every model
+dtype, as the reference's init makes it.
 """
 from __future__ import annotations
 
@@ -28,10 +31,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import RGLRU, ModelConfig
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.core.weight_transform import relayout_block_mlp
 from repro_torch.models.blocks import dtype_of
+
+#: the mixer leaves of a RGLRU layer
+REC_KEYS = ("w_in", "conv_w", "conv_b", "w_gx", "w_ga", "a_param", "w_out")
 
 
 def _unit_len(cfg: ModelConfig) -> int:
@@ -42,12 +48,12 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
                     ) -> Dict[str, torch.Tensor]:
     dt = dtype_of(cfg)
 
-    def t(a) -> torch.Tensor:
+    def t(a, to=dt) -> torch.Tensor:
         # bf16 arrays arrive as ml_dtypes bfloat16; go through float32
         a = np.asarray(a)
         if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
             a = a.astype(np.float32)
-        return torch.from_numpy(np.array(a)).to(dt)
+        return torch.from_numpy(np.array(a)).to(to)
 
     unit = _unit_len(cfg)
     G, R = cfg.num_layers // unit, cfg.num_layers % unit
@@ -56,6 +62,7 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
         for i in range(unit):
             layers.append(_index(np_tree["blocks"][i], g))
     layers.extend(np_tree["rem"][:R])
+    kinds = cfg.pattern
 
     if np.shape(np_tree["embed"]) != (plan.vocab_padded, cfg.d_model):
         raise ValueError(f"embed {np.shape(np_tree['embed'])} does not "
@@ -69,8 +76,13 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
         pre = f"layers.{li}."
         state[pre + "ln1"] = t(p["ln1"])
         state[pre + "ln2"] = t(p["ln2"])
-        for k in ("wq", "wk", "wv", "wo"):
-            state[pre + "attn." + k] = t(p["attn"][k])
+        if kinds[li] == RGLRU:
+            for k in REC_KEYS:
+                state[pre + "rec." + k] = t(
+                    p[k], torch.float32 if k == "a_param" else dt)
+        else:
+            for k in ("wq", "wk", "wv", "wo"):
+                state[pre + "attn." + k] = t(p["attn"][k])
         mlp = {k: t(v) for k, v in p["mlp"].items() if k != "shared"}
         if "shared" in p["mlp"]:
             mlp["shared_wi"] = t(p["mlp"]["shared"]["wi"])

@@ -272,3 +272,102 @@ def paged_decode_attention(
                                    window)
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     return out.reshape(B, Hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (recurrentgemma / Griffin)  [arXiv:2402.19427]
+# ---------------------------------------------------------------------------
+#
+# The reference's ``rglru`` / ``rglru_step`` / ``causal_conv1d``
+# (``repro/models/layers.py:261-325``): fp32 inside, output and state
+# cast to the model's dtype.  The reference runs the sequence form as a
+# ``jax.lax.associative_scan``; here it is a BLOCKED scan of fixed
+# order.  Inside each block of ``block`` tokens a log-depth
+# (Hillis-Steele) scan runs from a zero carry, every block at once; the
+# carries then pass across blocks in order, and each token adds its
+# block's carry times its running product of ``a``.  A call whose start
+# lies on a block boundary, carrying the state at that boundary, gives
+# the same bits as one call over the whole sequence: the engine's chunk
+# boundaries are page-aligned and the block is the page size, so in
+# fp32 chunked prefill equals whole-prompt prefill bit for bit.  In a
+# bf16 model the carry between chunks is stored in bf16, as the
+# reference stores it, so there the two differ by that rounding.  Every
+# step is a separate multiply and add (no fused multiply-add), so each
+# value is rounded the same way whatever the shape of the call.
+
+_C_RGLRU = 8.0
+
+
+def _rglru_coeffs(x: torch.Tensor, gate_x: torch.Tensor,
+                  gate_a: torch.Tensor, a_param: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) of the recurrence h_t = a_t * h_{t-1} + b_t, fp32."""
+    log_a = (-_C_RGLRU * F.softplus(a_param.float())
+             * torch.sigmoid(gate_a.float()))
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    gx = x.float() * torch.sigmoid(gate_x.float())
+    return a, mult * gx
+
+
+def rglru(x: torch.Tensor, gate_x: torch.Tensor, gate_a: torch.Tensor,
+          a_param: torch.Tensor, h0: Optional[torch.Tensor] = None,
+          block: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Real-Gated Linear Recurrent Unit over a sequence.  x, gate_x,
+    gate_a: (B, S, D); a_param: (D,) fp32; h0: (B, D) carried state (zero
+    when None).  Returns (y (B, S, D), h_last (B, D)), both in x's
+    dtype.  Depth: log2(block) whole-tensor steps, then one small step a
+    block for the carries."""
+    B, S, D = x.shape
+    a, b = _rglru_coeffs(x, gate_x, gate_a, a_param)
+    L = block
+    nb = -(-S // L)
+    pad = nb * L - S
+    if pad:     # identity steps at the end: a = 1, b = 0
+        a = F.pad(a, (0, 0, 0, pad), value=1.0)
+        b = F.pad(b, (0, 0, 0, pad))
+    a = a.view(B, nb, L, D)
+    b = b.view(B, nb, L, D)
+    k = 1
+    while k < L:
+        b = torch.cat([b[:, :, :k],
+                       b[:, :, k:] + a[:, :, k:] * b[:, :, :-k]], dim=2)
+        a = torch.cat([a[:, :, :k], a[:, :, k:] * a[:, :, :-k]], dim=2)
+        k *= 2
+    c = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    carries = [c]
+    for j in range(nb - 1):
+        c = b[:, j, -1] + a[:, j, -1] * c
+        carries.append(c)
+    y = b + a * torch.stack(carries, dim=1)[:, :, None, :]
+    y = y.view(B, nb * L, D)[:, :S]
+    return y.to(x.dtype), y[:, -1].to(x.dtype)
+
+
+def rglru_step(x: torch.Tensor, gate_x: torch.Tensor, gate_a: torch.Tensor,
+               a_param: torch.Tensor, h: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  x, gates: (B, D); h: (B, D).  Returns (y, new
+    state), both the new state in x's dtype."""
+    a, b = _rglru_coeffs(x, gate_x, gate_a, a_param)
+    h_new = (a * h.float() + b).to(x.dtype)
+    return h_new, h_new
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal temporal conv.  x: (B, S, D), w: (K, D), b: (D,),
+    state: (B, K-1, D) trailing inputs (zero when None).  Returns (y,
+    new_state), y in x's dtype."""
+    K = w.shape[0]
+    B, S, D = x.shape
+    if state is None:
+        state = x.new_zeros((B, K - 1, D))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)       # (B, S+K-1, D)
+    y = torch.zeros((B, S, D), dtype=torch.float32, device=x.device)
+    for i in range(K):                  # K is tiny (4): unrolled
+        y = y + xp[:, i:i + S].float() * w[i].float()
+    y = (y + b.float()).to(x.dtype)
+    return y, xp[:, S:]

@@ -1,11 +1,14 @@
 """Model assembly: embedding -> per-layer blocks -> final norm -> head.
 
 The counterpart of ``repro.models.model`` for decoder-only models of
-ATTN / SLIDING / MOE layers (a pattern unit such as ``(ATTN, MOE)``
-tiles over the depth).  The reference stacks the layers of each
-pattern position and runs them with ``lax.scan``; here layers are a
-``ModuleList`` walked by a Python loop, and the decode caches are a list
-with one ``PagedState`` per layer, updated in place.
+ATTN / SLIDING / MOE / RGLRU layers (a pattern unit such as ``(ATTN,
+MOE)`` or Griffin's ``(RGLRU, RGLRU, SLIDING)`` tiles over the depth,
+and the remainder layers of a depth the unit does not divide follow:
+recurrentgemma's 38 = 12 * 3 + 2).  The reference stacks the layers of
+each pattern position and runs them with ``lax.scan``; here layers are
+a ``ModuleList`` walked by a Python loop, and the decode caches are a
+list with one state per layer, updated in place: a ``PagedState`` for an
+attention layer, a ``RecState`` for a recurrent one.
 
 Entry points (methods of ``Model``):
     prefill(tokens, caches)                    -> logits of the last token
@@ -21,13 +24,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import MOE, ModelConfig
+from repro_torch.configs.base import MOE, RGLRU, ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.launch.mesh import Layout
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as Lyr
 from repro_torch.paged import pool as pp
+from repro_torch.paged.recurrent import RecState
 
 PAGE_TOKENS = 64  # tokens per KV page (page bytes scale with kv_slots*dh)
 
@@ -41,20 +45,31 @@ def _params(d) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer: ``ln1``, ``ln2``, ``attn`` {wq, wk, wv, wo} and
-    ``mlp``, named as in the reference's parameter tree: {wi, wo} dense,
-    or for a MOE layer {router (d, Ep), wi (Ep, d, 2*ffp), wo (Ep, ffp,
-    d)} and, with a shared expert, ``shared_wi`` / ``shared_wo`` (the
+    """One decoder layer: ``ln1``, ``ln2``, its mixer and ``mlp``, named
+    as in the reference's parameter tree.  The mixer of an attention
+    layer is ``attn`` {wq, wk, wv, wo}; that of a RGLRU layer ``rec``
+    {w_in, conv_w, conv_b, w_gx, w_ga, a_param, w_out} (the reference
+    keeps these at the layer's top level).  ``mlp``: {wi, wo} dense, or
+    for a MOE layer {router (d, Ep), wi (Ep, d, 2*ffp), wo (Ep, ffp, d)}
+    and, with a shared expert, ``shared_wi`` / ``shared_wo`` (the
     reference's ``shared/wi``, ``shared/wo``)."""
 
-    def __init__(self, kind: str, attn, mlp, ln1, ln2):
+    def __init__(self, kind: str, mixer, mlp, ln1, ln2):
         super().__init__()
         B.check_kind(kind)
         self.kind = kind
-        self.attn = _params(attn)
+        if kind == RGLRU:
+            self.rec = _params(mixer)
+        else:
+            self.attn = _params(mixer)
         self.mlp = _params(mlp)
         self.ln1 = _param(ln1)
         self.ln2 = _param(ln2)
+
+    @property
+    def mixer(self) -> nn.ParameterDict:
+        """The mixer's weights: ``rec`` or ``attn``."""
+        return self.rec if self.kind == RGLRU else self.attn
 
     def __getitem__(self, name):      # the block functions take p["..."]
         return getattr(self, name)
@@ -99,8 +114,13 @@ class Model(nn.Module):
                 return B.init_moe_mlp(gen, cfg, plan, device)
             return B.init_mlp(gen, cfg, plan, device)
 
-        blocks = [Block(kind, B.init_attention(gen, cfg, plan, device),
-                        mlp(kind), zeros.clone(), zeros.clone())
+        def mixer(kind):
+            if kind == RGLRU:
+                return B.init_rglru(gen, cfg, device)
+            return B.init_attention(gen, cfg, plan, device)
+
+        blocks = [Block(kind, mixer(kind), mlp(kind), zeros.clone(),
+                        zeros.clone())
                   for kind in cfg.pattern]
         head = None
         if not cfg.tie_embeddings:
@@ -129,12 +149,19 @@ class Model(nn.Module):
                 out.update(shared_wi=e(d, ncol), shared_wo=e(ffp, d))
             return out
 
-        blocks = [Block(kind,
-                        {"wq": e(d, plan.q_heads_padded * dh),
-                         "wk": e(d, plan.kv_padded * dh),
-                         "wv": e(d, plan.kv_padded * dh),
-                         "wo": e(plan.q_heads_padded * dh, d)},
-                        mlp(kind), e(d), e(d))
+        def mixer(kind):
+            if kind == RGLRU:
+                return {"w_in": e(d, 2 * d), "conv_w": e(B.CONV_K, d),
+                        "conv_b": e(d), "w_gx": e(d, d), "w_ga": e(d, d),
+                        "a_param": torch.empty((d,), dtype=torch.float32,
+                                               device=device),
+                        "w_out": e(d, d)}
+            return {"wq": e(d, plan.q_heads_padded * dh),
+                    "wk": e(d, plan.kv_padded * dh),
+                    "wv": e(d, plan.kv_padded * dh),
+                    "wo": e(plan.q_heads_padded * dh, d)}
+
+        blocks = [Block(kind, mixer(kind), mlp(kind), e(d), e(d))
                   for kind in cfg.pattern]
         head = None if cfg.tie_embeddings else e(d, plan.vocab_padded)
         return cls(cfg, plan, e(plan.vocab_padded, d), blocks, e(d), head)
@@ -145,9 +172,9 @@ class Model(nn.Module):
 
     # -- caches -----------------------------------------------------------
     def init_decode_caches(self, batch: int, max_seq: int,
-                           page_tokens: int = PAGE_TOKENS
-                           ) -> List[pp.PagedState]:
-        """One slot-partitioned header-centric cache per layer."""
+                           page_tokens: int = PAGE_TOKENS) -> List:
+        """One slot-partitioned header-centric cache per attention layer,
+        one zero ``RecState`` per recurrent layer."""
         return [B.init_block_cache(blk.kind, self.cfg, self.plan, batch,
                                    max_seq, page_tokens, device=self.device)
                 for blk in self.layers]
@@ -163,23 +190,24 @@ class Model(nn.Module):
                 "lm_head": self.lm_head}
 
     # -- forward passes ---------------------------------------------------
-    def prefill(self, tokens: torch.Tensor, caches: List[pp.PagedState]
-                ) -> torch.Tensor:
+    def prefill(self, tokens: torch.Tensor, caches: List) -> torch.Tensor:
         """Whole prompt(s) from position 0. tokens: (B, S).  Fills every
-        layer's cache (``write_prefill``) and returns the last token's
-        logits (B, 1, vocab_padded)."""
+        layer's cache (``write_prefill``; a recurrent layer's final
+        state) and returns the last token's logits (B, 1,
+        vocab_padded)."""
         Bt, S = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(Bt, S)
         for blk, cache in zip(self.layers, caches):
-            x, (k, v) = B.apply_block_seq(blk.kind, blk, self.cfg, self.plan,
-                                          x, positions)
-            pp.write_prefill(cache, k, v)
+            x, kv = B.apply_block_seq(blk.kind, blk, self.cfg, self.plan,
+                                      x, positions, cache)
+            if kv is not None:
+                pp.write_prefill(cache, *kv)
         return self.lm_logits(x[:, -1:, :])
 
     def prefill_chunk(self, tokens: torch.Tensor, start_pos: torch.Tensor,
-                      caches: List[pp.PagedState],
+                      caches: List,
                       first_chunk: bool = False) -> torch.Tensor:
         """ONE page-aligned prefill chunk folded into the caches.
         tokens: (B, S); start_pos: (B,) global position of the chunk's
@@ -195,7 +223,7 @@ class Model(nn.Module):
                                        first_chunk=first_chunk)
         return self.lm_logits(x[:, -1:, :])
 
-    def decode_step(self, caches: List[pp.PagedState],
+    def decode_step(self, caches: List,
                     tokens: torch.Tensor, positions: torch.Tensor
                     ) -> torch.Tensor:
         """tokens: (B,) int; positions: (B,) int32 global positions.
@@ -271,11 +299,11 @@ class RowSet:
         idx = [i for i, r in enumerate(self.rows) if lo <= r < hi]
         return (idx[0], idx[-1] + 1) if idx else (0, 0)
 
-    def views(self, layer: "I.WorkerLayer", w: int
-              ) -> Optional[pp.PagedState]:
+    def views(self, layer: "I.WorkerLayer", w: int):
         """Worker w's cache for these rows: the whole cache for the full
         batch, else a batch-1 in-place view of the one slot (None when
-        worker w holds none of the rows)."""
+        worker w holds none of the rows); a recurrent layer's state
+        rows alike."""
         W, lay = layer.mesh.W, layer.attn_layout
         lo, hi = self.span(lay, W, w)
         if hi == lo:
@@ -284,8 +312,8 @@ class RowSet:
         if len(self.rows) == self.batch:
             return cache
         assert len(self.rows) == 1, "row sets are one slot or the batch"
-        base = I.rows_of(lay, self.batch, W, w)[0]
-        return pp.slot_view(cache, self.rows[0] - base)
+        i = self.rows[0] - I.rows_of(lay, self.batch, W, w)[0]
+        return cache.slot(i)
 
 
 def relayout(xs: List[torch.Tensor], src: Tuple, dst: Tuple,
@@ -365,7 +393,9 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
               for w, v in enumerate(views)]
         poss = [None if v is None else part(positions, lay, mesh, w)
                 for w, v in enumerate(views)]
-        if lay.sp > 1 and mode == "decode":
+        if layer.kind == RGLRU:
+            outs = rec_workers(layer, hs, views, mode, mesh)
+        elif lay.sp > 1 and mode == "decode":
             outs = B.attention_decode_sp(layer.attn, hs, cfg, plan, poss,
                                          views, lay, mesh, window=window)
         elif lay.sp > 1 and mode == "chunk":
@@ -461,6 +491,28 @@ def moe_workers(layer: "I.WorkerLayer", hs: List[Optional[torch.Tensor]],
                  "wo": layer.mlp[w]["shared_wo"]}, h, cfg, tp, ff)
         outs.append(y)
     return outs
+
+
+def rec_workers(layer: "I.WorkerLayer", hs: List[Optional[torch.Tensor]],
+                views: List[Optional[RecState]], mode: str, mesh
+                ) -> List[Optional[torch.Tensor]]:
+    """A recurrent layer's mixer on every worker of its assembly (hs:
+    each worker's normed rows, None where it holds none; views: their
+    state rows, updated in place).  Each worker multiplies by its column
+    shard of ``w_in``, the TP group all-gathers ``u = [x | y]``, and
+    every worker of the group runs the conv, the gates and the scan on
+    it (its own copy of the state stays equal to its peers'); each then
+    multiplies its row slice of ``y`` by its ``w_out`` shard.  Returns
+    the partial outputs (before the TP all-reduce)."""
+    lay = layer.attn_layout
+    us = [None if v is None else hs[w] @ layer.attn[w]["w_in"]
+          for w, v in enumerate(views)]
+    if lay.tp > 1:
+        us = mesh.group_all_gather(us, lay.tp, dim=-1)
+    return [None if v is None
+            else B.rglru_mix(layer.attn[w], us[w], v, mode,
+                             part=(w % lay.tp, lay.tp))
+            for w, v in enumerate(views)]
 
 
 def _residual(xs, outs, tp: int, mesh) -> List[torch.Tensor]:

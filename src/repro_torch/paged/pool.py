@@ -30,7 +30,7 @@ positions whose page the shard holds, at its local page; the cursor
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import ClassVar, List, Sequence, Tuple
 
 import torch
 
@@ -53,9 +53,57 @@ class PagedState:
     seq_lens: torch.Tensor
     positions: torch.Tensor
 
+    #: the engine's per-slot cache protocol, shared with
+    #: ``paged.recurrent.RecState``: ``slot``, ``clone``, ``copy_``,
+    #: ``nbytes``, ``sanitize_``, ``pin_``, ``empty_``, ``spans``
+    recurrent: ClassVar[bool] = False
+
     @property
     def capacity(self) -> int:
         return self.positions.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the pool."""
+        return self.pool.numel() * self.pool.element_size()
+
+    def slot(self, i: int) -> "PagedState":
+        """Batch-1 in-place view of slot ``i`` (``slot_view``)."""
+        return slot_view(self, i)
+
+    def clone(self) -> "PagedState":
+        """A copy of the pool and the cursors (the page table shared)."""
+        return PagedState(self.pool.clone(), self.page_table,
+                          self.seq_lens.clone(), self.positions.clone())
+
+    def copy_(self, src: "PagedState") -> None:
+        """Overwrite the pool and cursors with ``src``'s."""
+        self.pool.copy_(src.pool)
+        self.seq_lens.copy_(src.seq_lens)
+        self.positions.copy_(src.positions)
+
+    def sanitize_(self, done: int) -> None:
+        """Keep exactly the slots holding prefix tokens (stored position
+        in ``[0, done)``: decode filler past the prefix is invalidated)
+        and set the cursor to ``done``.  Position-based: on a ring the
+        prefix wraps around the slots."""
+        keep = (self.positions >= 0) & (self.positions < done)
+        self.positions.masked_fill_(~keep, -1)
+        self.seq_lens.fill_(done)
+
+    def pin_(self, done: int) -> None:
+        """Set the cursor to ``done``."""
+        self.seq_lens.fill_(done)
+
+    def empty_(self) -> None:
+        """Forget every stored key: positions invalid, cursor 0."""
+        self.positions.fill_(-1)
+        self.seq_lens.zero_()
+
+    def spans(self, cap: int) -> bool:
+        """Whether a slot holds ``cap`` tokens: a full-attention cache at
+        that allocation (a window's ring holds its window)."""
+        return self.capacity == cap
 
 
 def make_state(num_pages: int, kv_slots: int, page_tokens: int,
@@ -118,8 +166,10 @@ def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
     if S > cap:
         k, v = k[:, S - cap:], v[:, S - cap:]
         pos_vals = torch.arange(S - cap, S, dtype=torch.int32, device=dev)
-        # ring offset: token with global pos p lives at slot p % cap
-        roll = (-(S % cap)) % cap
+        # ring offset: token with global pos p lives at slot p % cap, as
+        # a chunked prefill and the next decode's append put it (the
+        # reference rolls by -(S % cap) instead: ROADMAP queue 3)
+        roll = S % cap
         k = torch.roll(k, roll, dims=1)
         v = torch.roll(v, roll, dims=1)
         pos_vals = torch.roll(pos_vals, roll)

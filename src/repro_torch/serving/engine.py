@@ -57,14 +57,25 @@ adopted workers may share one card.  They also take part in KV spill
 (rung 1 of the capacity ladder): a host reserves whole free slots for
 a guest's overflow pages (``host_spilled``), and the guest serves the
 request on an extended view of its slot and the hosted pages
-(``admit_spilled``; not for a MoE model).  Recurrent block kinds are
-not ported yet (ROADMAP queue 1).
+(``admit_spilled``).
+
+A recurrent (RGLRU) layer keeps each slot's state in a ``RecState``
+instead of pages.  A chunked prefill carries it from chunk to chunk in
+its progress record (``"rec"``, the reference's carry): a fresh state
+at the first chunk, the last chunk's state restored over the batched
+decode's filler before each later one, as the reference's
+``_sanitize_tree`` does; an export mid-prefill takes the carry along.
+Spill never moves recurrent state (the slot's own rows serve the
+extended view).
 
 A MoE model needs nothing of its own here: each prefill call routes its
 one request's tokens together and each batched decode routes every
 slot (idle slots' filler rows included) in slot order, as the
 reference's calls do; an engine with workers routes over that global
-order across its replicas (``models.model.moe_workers``).
+order across its replicas (``models.model.moe_workers``).  A spilled
+request's extended calls (its batch-1 decode on the extended view, its
+chunks past the local ceiling) route their own rows alone, as the
+reference's spill path, which has no MoE branch, does.
 
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
 caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
@@ -90,8 +101,9 @@ from repro_torch.core.scheduler import PrefillPolicy
 from repro_torch.launch.mesh import (InstanceMesh, Layout, Worker,
                                      resolve_device, workers_of)
 from repro_torch.models import model as M
-from repro_torch.models.blocks import ATTENTION_KINDS, _window_of
+from repro_torch.models.blocks import ATTENTION_KINDS, slot_pages
 from repro_torch.paged import pool as pp
+from repro_torch.paged.recurrent import RecState
 from repro_torch.serving.request import ServeRequest, State
 
 
@@ -240,27 +252,28 @@ class Engine:
                       for l in source.layers]
             static, share = source.static[0], False
         else:
-            blocks = [(b.kind, b.ln1, b.ln2, dict(b.attn), dict(b.mlp))
+            blocks = [(b.kind, b.ln1, b.ln2, dict(b.mixer), dict(b.mlp))
                       for b in source.layers]
             static, share = source.static(), True
 
-        mps = -(-self.max_seq_alloc // self.page_tokens)
         self.layers, self.static = I.place_replicas(
             blocks, static, self.mesh, share, self.plan.kv_slots,
             self.page_tokens, self.cfg.resolved_head_dim, self.max_batch,
-            mps)
+            self._slot_pages)
+
+    def _slot_pages(self, kind: str) -> int:
+        """Pages a slot of a layer of ``kind`` holds at the current
+        allocation (``models.blocks.slot_pages``, the reference's
+        ``init_block_cache``)."""
+        return slot_pages(kind, self.cfg, self.max_seq_alloc,
+                          self.page_tokens)
 
     def _min_chunk_cap(self) -> int:
         """Largest chunk one prefill call may carry: the smallest
         attention-cache capacity across the model's layers (a ring's
         page-rounded window; ``max_seq_alloc`` for full attention)."""
-        caps = []
-        for k in set(self.cfg.pattern):
-            if k in ATTENTION_KINDS:
-                w = _window_of(k, self.cfg)
-                cap = (self.max_seq_alloc if w == 0
-                       else min(self.max_seq_alloc, w))
-                caps.append(-(-cap // self.page_tokens) * self.page_tokens)
+        caps = [self._slot_pages(k) * self.page_tokens
+                for k in set(self.cfg.pattern) if k in ATTENTION_KINDS]
         return min(caps) if caps else self.max_seq_alloc
 
     # -- the capacity contract (InstanceView accessors) ---------------------
@@ -364,12 +377,12 @@ class Engine:
                          or self.tp_pending is not None))
 
     # -- slot views (the reference's extract / adopt) -----------------------
-    def _slot_caches(self, slot: int) -> List[pp.PagedState]:
+    def _slot_caches(self, slot: int) -> List:
         """Batch-1 in-place views of ``slot`` in every layer's cache (on
         every worker that holds it, for an engine with workers; at TP1
-        one a layer)."""
+        one a layer): pages, or a recurrent layer's state rows."""
         if self.mesh is None:
-            return [pp.slot_view(c, slot) for c in self.caches]
+            return [c.slot(slot) for c in self.caches]
         rows = M.RowSet([slot], self.max_batch)
         return [v for layer in self.layers
                 for v in (rows.views(layer, w)
@@ -469,6 +482,7 @@ class Engine:
         views = (self._assemble_spilled(slot) if ext
                  else self._slot_caches(slot))
         self._sanitize_sub(views, start)
+        self._restore_carry(slot, prog)
         if self.mesh is None:
             logits = self.model.prefill_chunk(
                 tokens.to(self.device),
@@ -482,6 +496,7 @@ class Engine:
                                 caches=views if ext else None)[:, None]
         if ext:
             self.spill_slot(slot, views)
+        self._save_carry(slot, prog)
         prog["done"] += size
         prog["ci"] += 1
         if prog["done"] >= len(req.prompt):
@@ -521,19 +536,46 @@ class Engine:
             return
         for slot, prog in self._prefilling.items():
             for v in self._slot_caches(slot):
-                v.seq_lens.fill_(prog["done"])
+                v.pin_(prog["done"])
+
+    def _slot_rec_views(self, slot: int) -> List[List[RecState]]:
+        """The slot's state rows in each recurrent layer: one in-place
+        view a worker that holds them (every worker of its replica)."""
+        if self.mesh is None:
+            return [[c.slot(slot)] for c in self.caches if c.recurrent]
+        rows = M.RowSet([slot], self.max_batch)
+        return [[v for v in (rows.views(layer, w)
+                             for w in range(layer.mesh.W)) if v is not None]
+                for layer in self.layers if layer.cache[0].recurrent]
+
+    def _restore_carry(self, slot: int, prog: Dict) -> None:
+        """Before a chunk: a fresh recurrent state at the first chunk,
+        else the last chunk's carry restored over whatever the batched
+        decode's filler left in the slot's rows (the reference's
+        ``_sanitize_tree``)."""
+        rec = prog.get("rec")
+        for i, views in enumerate(self._slot_rec_views(slot)):
+            for v in views:
+                if prog["done"] == 0 or rec is None:
+                    v.zero_()
+                else:
+                    v.copy_(rec[i])
+
+    def _save_carry(self, slot: int, prog: Dict) -> None:
+        """After a chunk: keep the slot's recurrent state as the carry of
+        the next one (one copy a layer)."""
+        views = self._slot_rec_views(slot)
+        if views:
+            prog["rec"] = [v[0].clone() for v in views]
 
     @staticmethod
-    def _sanitize_sub(views: List[pp.PagedState], done: int) -> None:
+    def _sanitize_sub(views: List, done: int) -> None:
         """Prepare a slot's views for the next chunk, in place: keep
-        exactly the slots holding real prefix tokens (stored position in
-        ``[0, done)``; decode filler past the prefix is re-invalidated)
-        and set the cursor to ``done``.  Position-based, not slot-index
-        based: on a ring cache prefix positions wrap around the slots."""
+        exactly the slots holding real prefix tokens and set the cursor
+        to ``done`` (``PagedState.sanitize_``).  Recurrent rows are left
+        to the carry (``_restore_carry``)."""
         for v in views:
-            keep = (v.positions >= 0) & (v.positions < done)
-            v.positions.masked_fill_(~keep, -1)
-            v.seq_lens.fill_(done)
+            v.sanitize_(done)
 
     def _sample(self, logits: torch.Tensor, temperature: float) -> int:
         """One token from one row of logits (vocab_padded,)."""
@@ -672,8 +714,8 @@ class Engine:
             "kind": "move", "tp_from": self.tp, "tp_to": self.tp,
             "layout_from": f"{src.W // lay.degree}x{lay}",
             "layout_to": f"{dst.W // lay.degree}x{lay}",
-            "bytes": sum(c.pool.numel() * c.pool.element_size()
-                         for layer in self.layers for c in layer.cache),
+            "bytes": sum(c.nbytes for layer in self.layers
+                         for c in layer.cache),
             "wall_s": time.monotonic() - t0, "kv_bytes": moved})
         self.check_capacity_invariant()
 
@@ -692,8 +734,8 @@ class Engine:
             "tp_from": session.schedule.tp_from,
             "tp_to": session.schedule.tp_to,
             "layout_from": str(lay_from), "layout_to": str(lay_to),
-            "bytes": sum(c.pool.numel() * c.pool.element_size()
-                         for layer in self.layers for c in layer.cache),
+            "bytes": sum(c.nbytes for layer in self.layers
+                         for c in layer.cache),
             "cross": self._session_cross,
             "steps": session.schedule.n_steps,
             "wall_s": time.monotonic() - self._session_t0,
@@ -742,8 +784,8 @@ class Engine:
         for layer in self.layers:
             lay = layer.attn_layout
             lo, hi = I.rows_of(lay, self.max_batch, layer.mesh.W, 0)
-            if layer.cache[0].capacity * lay.sp != old_cap:
-                continue                # a window's ring keeps its size
+            if not layer.cache[0].spans(old_cap // lay.sp):
+                continue    # a window's ring keeps its size, a state too
             if lay.sp == 1:
                 layer.cache = [KT.resize_slot_capacity(c, new_mps, hi - lo)
                                for c in layer.cache]
@@ -836,7 +878,7 @@ class Engine:
                 continue
             prog = self._prefilling.pop(slot, None)
             extra = None if prog is None else {
-                k: prog[k] for k in ("chunks", "ci", "done")}
+                k: prog.get(k) for k in ("chunks", "ci", "done", "rec")}
             sub = []
             for layer in self.layers:
                 w, local = self._holder(layer, slot)
@@ -861,7 +903,7 @@ class Engine:
         if progress is not None:
             self._prefilling[slot] = {"req": req, **progress}
 
-    def global_caches(self) -> List[pp.PagedState]:
+    def global_caches(self) -> List:
         """Every layer's cache as the reference's global arrays hold it
         (``core.instance.join_cache``, sp shards' page ranges joined):
         equal bytes before and after a migration."""
@@ -912,8 +954,7 @@ class Engine:
         # (the reference does not: ROADMAP queue 3).
         for j in slots:
             for v in self._slot_caches(j):
-                v.positions.fill_(-1)
-                v.seq_lens.zero_()
+                v.empty_()
         handle = next(self._hosted_ids)
         self._hosted[handle] = {"slots": slots, "pages": need * mps}
         return {"handle": handle, "slots": slots, "pages": need * mps,
@@ -926,12 +967,6 @@ class Engine:
                       hosting: Dict) -> None:
         """Guest side: queue a request whose overflow KV will live in
         ``host``'s pool (the reservation from ``host.host_spilled``)."""
-        if self.cfg.moe is not None:
-            # its batch-1 extended decode and chunks route other row
-            # sets than the batched decode; not held against the
-            # reference yet: ROADMAP queue 1
-            raise NotImplementedError(
-                f"{self.cfg.name}: KV spill of a MoE engine is not ported")
         assert hosting["page_tokens"] == self.page_tokens, (
             "KV spill requires a uniform page size across the cluster")
         ext_tokens = self._local_page_cap() \
@@ -964,13 +999,13 @@ class Engine:
         """Extended batch-1 view of a spilled slot, one state a layer:
         the slot's local pages followed by the host-pool overflow pages
         of each full-attention layer (a copy, on the slot's device); a
-        ring cache's own slot view otherwise."""
+        ring cache's or a recurrent state's own slot view otherwise."""
         sp = self._spills[slot]
         host: Engine = sp["host"]
         cap = self._local_page_cap()
         parts = [host._slot_caches(j) for j in sp["hosting"]["slots"]]
         return [pp.concat_spilled([loc] + [p[i] for p in parts])
-                if loc.capacity == cap else loc
+                if loc.spans(cap) else loc
                 for i, loc in enumerate(self._slot_caches(slot))]
 
     def spill_slot(self, slot: int, ext: List[pp.PagedState]) -> None:
@@ -989,12 +1024,10 @@ class Engine:
         host_parts: List[List[Optional[pp.PagedState]]] = [
             [None] * len(ext) for _ in host_slots]
         for i, (view, loc) in enumerate(zip(ext, self._slot_caches(slot))):
-            if view.capacity != ext_cap:
-                continue        # a ring cache, computed in place
+            if not view.spans(ext_cap):
+                continue    # a ring cache or a state, computed in place
             parts = pp.split_spilled(view, counts)
-            loc.pool.copy_(parts[0].pool)
-            loc.positions.copy_(parts[0].positions)
-            loc.seq_lens.copy_(parts[0].seq_lens)
+            loc.copy_(parts[0])
             for k, part in enumerate(parts[1:]):
                 host_parts[k][i] = part
         for k, j in enumerate(host_slots):
@@ -1100,9 +1133,8 @@ class Engine:
             protect = ({s for s in self._spills if self.slots[s] is not None}
                        | self._hosted_slots()) \
                 - {r.slot for r in batch_active}
-        saved = {s: [pp.PagedState(v.pool.clone(), v.page_table,
-                                   v.seq_lens.clone(), v.positions.clone())
-                     for v in self._slot_caches(s)] for s in protect}
+        saved = {s: [v.clone() for v in self._slot_caches(s)]
+                 for s in protect}
         if batch_active:
             tokens = np.zeros((self.max_batch,), np.int64)
             positions = np.zeros((self.max_batch,), np.int32)
@@ -1130,9 +1162,7 @@ class Engine:
             self._pin_prefill_cursors()
         for s, views in saved.items():
             for v, keep in zip(self._slot_caches(s), views):
-                v.pool.copy_(keep.pool)
-                v.seq_lens.copy_(keep.seq_lens)
-                v.positions.copy_(keep.positions)
+                v.copy_(keep)
         for r in ext_active:
             emitted += self._decode_spilled(r)
             decode_emitted += 1

@@ -111,8 +111,9 @@ def test_random_init_is_seeded_and_padded():
     assert not a.embed[plan.vocab:].any()          # padded vocab rows
     assert not a.lm_head[:, plan.vocab:].any()
     B.check_kind("moe")                             # ported: no raise
+    B.check_kind("rglru")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        B.check_kind("rglru")
+        B.check_kind("mlstm")
 
 
 @pytest.mark.parametrize("builder", ["build", "random", "empty",

@@ -66,7 +66,9 @@ def test_pool_ops_bit_identical(layout, identity):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_write_prefill_ring_wrap_and_scattered_pages(layout):
     """A ring cache shorter than the prompt keeps the trailing tokens,
-    rolled to their ring slots; a permuted page table scatters them."""
+    each at ring slot ``p % capacity``: the bytes the reference's chunk
+    write of those tokens leaves (its ``write_prefill`` rolls them the
+    other way: ROADMAP queue 3); a permuted page table scatters them."""
     rng = np.random.default_rng(1)
     B, kvs, P, dh, mps = 2, 2, 4, 8, 2
     pt = rng.permutation(B * mps).reshape(B, mps).astype(np.int32)
@@ -75,9 +77,16 @@ def test_write_prefill_ring_wrap_and_scattered_pages(layout):
     ts = tp.make_state(B * mps, kvs, P, dh, B, mps, torch.float32, layout,
                        device="cpu")
     ts.page_table = torch.from_numpy(pt)
-    js = _both(jp.write_prefill, tp.write_prefill, js, ts,
-               *_kv(rng, B, 13, kvs, dh), storage_layout=layout)
+    S, cap = 13, mps * P
+    k, v = _kv(rng, B, S, kvs, dh)
+    tail = np.broadcast_to(np.arange(S - cap, S), (B, cap)).astype(np.int32)
+    js = jp.write_chunk(js, jnp.asarray(k[:, S - cap:]),
+                        jnp.asarray(v[:, S - cap:]), jnp.asarray(tail),
+                        layout)
+    tp.write_prefill(ts, torch.from_numpy(k), torch.from_numpy(v),
+                     storage_layout=layout)
     _same(js, ts)
+    assert (ts.positions % cap == torch.arange(cap)).all()
     # a chunk that wraps the ring, through the permuted page table
     pos = np.broadcast_to(np.arange(13, 17), (B, 4)).astype(np.int32)
     js = _both(jp.write_chunk, tp.write_chunk, js, ts,
