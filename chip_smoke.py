@@ -147,14 +147,16 @@ exits non-zero:
               with no decode between steps leaves every worker's cache
               bit-equal to the layout an engine at that degree holds
               (``core.instance.split_cache``).
-12. ladder-serve — full-size llama3-8b in bf16 on 4 workers of the card
+12. ladder-serve — llama3-8b at full width (16 of its 32 layers:
+              ``LLAMA_LAYERS``) in bf16 on 4 workers of the card
               (four replicas): TP1x4 -> TP2x2 -> TP4 mid-decode, a
               6000-token request only TP4 holds, TP4 -> TP2x2 ->
               TP1x4.  Prints each session (wall, steps, exposed against
               modeled, KV bytes against their bound, weight bytes),
               stall steps, the long request's TTFT and TPOT, memory at
               TP4 and the peak, and the six kernels' launches.
-13. replicated-serve — full-size gemma-2b in fp32 on 4 workers (its one
+13. replicated-serve — gemma-2b at full width (9 of its 18 layers:
+              ``REPLICATED_LAYERS``) in fp32 on 4 workers (its one
               kv head copied into 4 kv slots, dh 256, geglu): TP1x4 ->
               TP2x2 -> TP4 -> TP1x4 mid-decode gives the streams of a
               TP1x4 engine that never transformed.
@@ -206,6 +208,31 @@ exits non-zero:
               2 x 1 workers to TP2 for a 6000-token request, the split,
               the revived donor; then the serve CLI on granite at full
               width (``MOE_CLI``).
+19. moe-rows-fp32, moe-spill, rg-parity, rg-serve, rg-transform and the
+              recurrentgemma CLI (``RG_CLI``): slice 11's phases
+              (``phase_rg_*``).
+20. xlstm-parity — xlstm-1.3b at full width, 3 layers ``(MLSTM, MLSTM,
+              SLSTM)``, fp32, card against CPU engines: one device with
+              budgeted chunks and two workers changed TP1x2 -> TP2
+              mid-chunk give equal streams; a 300-token prompt (which the
+              reference's ``mlstm_chunkwise`` refuses whole) prefilled
+              whole agrees with the same prompt in page chunks and across
+              the devices within ``XL_TOL``.
+21. xlstm-serve — full-size xlstm-1.3b (42 mLSTM + 6 sLSTM layers, no
+              MLP) in bf16 on one device: prompts of 256-2500 tokens in
+              chunks of 1024; weights, state, TTFT, TPOT, memory, a
+              profiled decode step and each mixer's parts a layer at a
+              decode step and a 1024-token chunk.  No kernel launches.
+22. xlstm-transform — the same model on two workers, TP1x2 -> TP2 ->
+              TP1x2 mid-decode, every row recorded beside an engine at
+              the same degree (fp32 at ``XL_FP32_LAYERS`` layers: every
+              row agrees; bf16: the rows before the change bit for bit,
+              the rest printed beside two engines that never change),
+              the TP2 pair's state copies bit-equal, and sessions with
+              no decode between their steps leaving the state bit-equal
+              to ``split_cache`` (``xl_exact_moves``); sessions' walls,
+              state and weight bytes; then the serve CLI on it
+              (``XL_CLI``).
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
@@ -222,8 +249,9 @@ card's name and power limit, one ``kernels`` line (launches counted
 on phase 9's path, and by path: serve / transform-serve, cluster-serve,
 serve-shapes, cluster-spill, ladder-serve, replicated-serve,
 cluster-partial, calibrate, cluster-calibrated, layout-serve,
-cluster-layout, moe-serve, moe-transform and moe-cluster), and the
-last line
+cluster-layout, moe-serve, moe-transform, moe-cluster, moe-spill,
+rg-serve, rg-transform, xlstm-serve and xlstm-transform: 0 on the last
+two, which launch none of the six), and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
@@ -2442,19 +2470,29 @@ def ladder_sessions(eng, reports_from: int = 0) -> list:
     return out
 
 
+#: the depth of ladder-serve's and layout-serve's llama3-8b and of
+#: replicated-serve's gemma-2b: half of each (32 and 18 layers), to keep
+#: the whole script inside its time limit; their layers are alike, so
+#: each kernel shape is the same
+LLAMA_LAYERS = 16
+REPLICATED_LAYERS = 9
+
+
 def phase_ladder_serve(smi: str, dev: str = "cuda", cfg=None,
                        quantum: int = 1536, lens=(300, 600, 900, 1200),
                        new: int = 128, long_len: int = 6000,
                        long_new: int = 32, page_tokens: int = 64):
-    """llama3-8b at full width and depth, bf16, 4 workers of the card
-    (four replicas, about 64 GB): TP1x4 -> TP2x2 -> TP4 mid-decode, a
+    """llama3-8b at full width and ``LLAMA_LAYERS`` of its 32 layers,
+    bf16, 4 workers of the card (four replicas): TP1x4 -> TP2x2 -> TP4
+    mid-decode, a
     6000-token request only TP4 holds, then TP4 -> TP2x2 -> TP1x4
     mid-decode of a second batch.  Returns the six kernels' launches on
     this path."""
     from repro_torch.configs import get_config
     from repro_torch.serving import Engine, ServeRequest
 
-    cfg = cfg or get_config("llama3-8b")
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"),
+                                     num_layers=LLAMA_LAYERS)
     t0 = time.monotonic()
     eng = Engine(cfg, devices=[dev] * 4, seed=0, max_batch=4,
                  max_seq=4 * quantum, page_tokens=page_tokens)
@@ -2533,8 +2571,9 @@ def phase_ladder_serve(smi: str, dev: str = "cuda", cfg=None,
 def phase_replicated_serve(smi: str, dev: str = "cuda", cfg=None,
                            quantum: int = 512, lens=(100, 250, 400, 180),
                            new: int = 128, before: int = 4):
-    """gemma-2b at full width and depth (one kv head copied into four kv
-    slots, dh 256, geglu), fp32, 4 workers of the card: TP1x4 -> TP2x2
+    """gemma-2b at full width and ``REPLICATED_LAYERS`` of its 18 layers
+    (one kv head copied into four kv slots, dh 256, geglu), fp32, 4
+    workers of the card: TP1x4 -> TP2x2
     -> TP4 -> TP1x4 mid-decode gives the streams of a TP1x4 engine that
     never transformed (fp32: the stream check is exact).  Returns the
     kernels' launches on the transforming run."""
@@ -2542,7 +2581,8 @@ def phase_replicated_serve(smi: str, dev: str = "cuda", cfg=None,
     from repro_torch.serving import Engine, ServeRequest
 
     cfg = cfg or dataclasses.replace(get_config("gemma-2b"),
-                                     dtype="float32")
+                                     dtype="float32",
+                                     num_layers=REPLICATED_LAYERS)
     t0 = time.monotonic()
     prompts = _prompts(torch.Generator().manual_seed(37), lens,
                        cfg.vocab_size)
@@ -3258,8 +3298,9 @@ def phase_layout_serve(smi: str, dev: str = "cuda", cfg=None,
                        new: int = 160, long_len: int = 6000,
                        long_new: int = 96, page_tokens: int = 64,
                        dwell: int = 12):
-    """llama3-8b at full width and depth, bf16, 4 workers of the card,
-    brought to TP4 with no request in flight; three prompts and the
+    """llama3-8b at full width and ``LLAMA_LAYERS`` of its 32 layers,
+    bf16, 4 workers of the card, brought to TP4 with no request in
+    flight; three prompts and the
     6000-token request, then, with the long request decoding, TP4 ->
     SP2xTP2 -> TP4 mid-decode (``dwell`` decode steps at each layout).
     Returns the launches on this path (the six kernels and slice 8's
@@ -3268,7 +3309,8 @@ def phase_layout_serve(smi: str, dev: str = "cuda", cfg=None,
     from repro_torch.launch.mesh import Layout
     from repro_torch.serving import Engine, ServeRequest
 
-    cfg = cfg or get_config("llama3-8b")
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"),
+                                     num_layers=LLAMA_LAYERS)
     t0 = time.monotonic()
     eng = Engine(cfg, devices=[dev] * 4, seed=0, max_batch=4,
                  max_seq=4 * quantum, page_tokens=page_tokens)
@@ -4715,7 +4757,8 @@ def phase_rg_serve(smi: str, dev: str = "cuda", cfg=None,
 
 def teacher_forced_change(base, dev: str, shorts, new: int, kw: dict,
                           layers_per_step: int, back: bool = True,
-                          at_tp2: int = 6, same_degree: bool = False):
+                          at_tp2: int = 6, same_degree: bool = False,
+                          where=stage_of, floor=None):
     """An engine started at TP2 on two workers of ``dev`` decodes the
     prompts ``shorts`` (its rows recorded); then another at TP1x2 decodes
     them teacher forced by those rows, changes to TP2 once each request
@@ -4723,8 +4766,11 @@ def teacher_forced_change(base, dev: str, shorts, new: int, kw: dict,
     and, with ``back``, changes to TP1x2.  Its rows are held against the
     TP2 engine's; with ``same_degree`` a third engine stays at TP1x2
     throughout, forced by the same rows, and the rows decoded at TP1x2
-    (``TP1x2``, ``TP1x2 again``) are held against that engine's.  The
-    engines are built one after another.  Returns (engine, requests,
+    (``TP1x2``, ``TP1x2 again``) are held against that engine's.
+    ``where(engine)`` names the stage of each decode (``stage_of``);
+    ``floor``, a dict, receives the TP1x2 engine's rows held against the
+    TP2 engine's (two engines that never change).  The engines are built
+    one after another.  Returns (engine, requests,
     rows held by where they ran, session reports up and down, wall s,
     launches)."""
     from repro_torch.serving import ServeRequest
@@ -4751,6 +4797,8 @@ def teacher_forced_change(base, dev: str, shorts, new: int, kw: dict,
         record_rows(ref, ref_reqs, same, force=want)
         _drive(ref, ref_reqs)
         assert ref.tp == 1 and not ref.transform_log
+        if floor is not None:
+            floor.update(held_rows(same, want, base.vocab_size)["TP1x2"])
         del ref
         if dev == "cuda":
             free_card()
@@ -4761,7 +4809,7 @@ def teacher_forced_change(base, dev: str, shorts, new: int, kw: dict,
         torch.cuda.reset_peak_memory_stats()
     reqs = [ServeRequest(p, max_new_tokens=new) for p in shorts]
     got = {}
-    record_rows(eng, reqs, got, force=want, where=stage_of)
+    record_rows(eng, reqs, got, force=want, where=where)
     t_run = time.monotonic()
     for r in reqs:
         eng.submit(r)
@@ -4928,6 +4976,503 @@ RG_CLI = ("--arch", RG_MODEL, "--no-smoke", "--instances", "1",
 
 
 # ---------------------------------------------------------------------------
+# slice 12: xlstm-1.3b (mLSTM and sLSTM blocks, no MLP)
+# ---------------------------------------------------------------------------
+
+XL_MODEL = "xlstm-1.3b"
+#: whole-model logits and state leaves of the card against the CPU in
+#: fp32 (full width, a hand-cut 3-layer depth), and a whole prompt's
+#: against the same prompt chunked by pages on one device (at full width
+#: the GEMMs of calls of other row counts round apart)
+XL_TOL = 1e-4
+#: No share of bf16 decode rows is held after a change: with random
+#: weights at full depth, two bf16 engines that never change (TP1x2 and
+#: TP2, the same teacher-forced tokens) agree on a few percent of their
+#: greedy tokens, and one device's whole and page-chunked prefills of
+#: one prompt take other first tokens: the recurrence carries each
+#: rounding difference and 48 layers amplify it.  A TP change is held
+#: where it is exact instead: bf16 rows at TP1x2 before the change equal
+#: the TP1x2 engine's bit for bit, a session run with no decode between
+#: its steps leaves every worker's state bit-equal to ``split_cache`` of
+#: the global state, the TP2 pair's copies stay bit-equal, and in fp32
+#: (``XL_FP32_LAYERS``) every row takes the greedy token of the engine
+#: at its degree.  The bf16 rows' agreement is printed beside that of
+#: the two engines that never change (``floor``).
+#: xlstm-transform's fp32 run: layers at full width (two 7:1 units) and
+#: the logits' tolerance against the engine at each degree
+XL_FP32_LAYERS = 16
+XL_FP32_TOL = 1e-3
+
+
+def _xl_cfg(base=None, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(base or get_config(XL_MODEL), **kw)
+
+
+def _leaves_err(a, b) -> float:
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(a.leaves.values(), b.leaves.values()))
+
+
+def xl_whole_vs_chunked(model, prompt, page_tokens: int, steps: int) -> dict:
+    """One prompt prefilled whole against the same prompt in chunks of
+    one page, on one model: the first token's logits and greedy token,
+    every state leaf, then ``steps`` greedy decode steps on both (each
+    fed the chunked run's token).  Returns the largest differences and
+    whether every greedy token agreed; the caller holds them."""
+    d, S = prompt.device, prompt.shape[1]
+    whole = model.init_decode_caches(1, S + steps, page_tokens)
+    chunked = model.init_decode_caches(1, S + steps, page_tokens)
+    with torch.no_grad():
+        lw = model.prefill(prompt, whole)[:, -1]
+        for s0 in range(0, S, page_tokens):
+            lc = model.prefill_chunk(
+                prompt[:, s0:s0 + page_tokens],
+                torch.tensor([s0], dtype=torch.int32, device=d), chunked,
+                first_chunk=s0 == 0)[:, -1]
+        out = {"prompt": S, "chunk": page_tokens, "decode_steps": steps,
+               "first_logit_max_abs_diff": float((lw - lc).abs().max()),
+               "logit_rms": float(lw.float().pow(2).mean().sqrt()),
+               "state_max_abs_diff": max(_leaves_err(w, c) for w, c
+                                         in zip(whole, chunked))}
+        errs, same = [out["first_logit_max_abs_diff"]], []
+        for i in range(steps + 1):
+            same.append(torch.equal(lw.argmax(-1), lc.argmax(-1)))
+            if i == steps:
+                break
+            tok = lc.argmax(-1)
+            pos = torch.tensor([S + i], dtype=torch.int32, device=d)
+            lw = model.decode_step(whole, tok, pos)
+            lc = model.decode_step(chunked, tok, pos)
+            errs.append(float((lw - lc).abs().max()))
+    return dict(out, logit_max_abs_diff=max(errs), same_tokens=all(same),
+                same_first_token=same[0])
+
+
+def phase_xl_parity(dev: str = "cuda", cfg=None, lens=(40, 300, 150),
+                    new: int = 8, max_seq: int = 512, page_tokens: int = 64,
+                    budget: int = 128):
+    """xlstm-1.3b at full width, a hand-cut depth of 3 layers ``(MLSTM,
+    MLSTM, SLSTM)``, fp32: the same weights and prompts on ``dev`` and
+    on the CPU.  One device with budgeted chunked prefill (the carry from
+    chunk to chunk, restored over the decode filler; the 300-token prompt
+    runs in chunks of 128 + 128 + 44), and two workers changed TP1x2 ->
+    TP2 while a prompt is mid-chunk and others decode: greedy streams
+    equal.  Then on each device the 300-token prompt whole (one call:
+    the reference's ``mlstm_chunkwise`` refuses it) against the same
+    prompt in chunks of one page (``xl_whole_vs_chunked``: the same
+    tokens, logits and state within ``XL_TOL``), whose first-token
+    logits must also agree across the devices within ``XL_TOL``."""
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Engine, ServeRequest
+
+    t0 = time.monotonic()
+    c = _xl_cfg(cfg, num_layers=3, layer_pattern=(MLSTM, MLSTM, SLSTM),
+                dtype="float32")
+    prompts = _prompts(torch.Generator().manual_seed(71), lens,
+                       c.vocab_size)
+    kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens,
+              prefill_policy=PrefillPolicy(token_budget=budget,
+                                           mode="mixed"))
+    # one set of weights a plan (a plan of 2 pads the vocabulary),
+    # generated on ``dev`` and copied to the CPU
+    plans = (make_plan(c, 1), make_plan(c, 2, mode="page"))
+    src = [_moe_model(c, p, 0, dev, on=dev).state_dict() for p in plans]
+
+    def model_of(i, d):
+        m = Model.empty(c, plans[i], device=d)
+        m.load_state_dict(src[i])
+        return m
+
+    streams, firsts, wvc = {}, {}, {}
+    for d in (dev, "cpu"):
+        model = model_of(0, d)
+        eng = Engine(c, params=model, device=d, **kw)
+        streams[d, "one device, chunked"] = _drive(
+            eng, [ServeRequest(p, max_new_tokens=new) for p in prompts])
+        long_ = torch.tensor(prompts[1], device=d)[None]
+        with torch.no_grad():
+            firsts[d] = model.prefill(long_, model.init_decode_caches(
+                1, max_seq, page_tokens)).float().cpu()
+        wvc[d] = xl_whole_vs_chunked(model, long_, page_tokens, new)
+        assert wvc[d]["same_tokens"], wvc
+        assert wvc[d]["logit_max_abs_diff"] <= XL_TOL, wvc
+        assert wvc[d]["state_max_abs_diff"] <= XL_TOL, wvc
+        del model, eng
+        eng = Engine(c, params=model_of(1, d), devices=[d] * 2, **kw)
+        streams[d, "TP1x2 -> TP2"] = _drive(
+            eng, [ServeRequest(p, max_new_tokens=new) for p in prompts],
+            before=3, plan=(2,))
+        assert eng.tp == 2
+        del eng
+    del src
+    for k in ("one device, chunked", "TP1x2 -> TP2"):
+        assert streams[dev, k] == streams["cpu", k], (k, streams)
+    err = float((firsts[dev] - firsts["cpu"]).abs().max())
+    assert err <= XL_TOL, ("whole 300-token prompt's logits", err)
+    if dev == "cuda":
+        free_card()
+    emit(phase="xlstm-parity", model=c.name, layers=c.num_layers,
+         pattern=list(c.pattern), d_model=c.d_model, dtype="float32",
+         prompts=list(lens), new_tokens=new, chunk_budget=budget,
+         streams_equal=True, whole_300_logit_max_abs_err=err, tol=XL_TOL,
+         whole_vs_chunked={str(k): v for k, v in wvc.items()},
+         seconds=time.monotonic() - t0)
+
+
+def xl_split(pm, ps, rows: int, tokens: int, dev: str) -> dict:
+    """Device time (CUDA events, the card held ahead of the host) of the
+    xLSTM mixers' parts on layer weights ``pm`` (an MLSTM layer's) and
+    ``ps`` (an SLSTM layer's), at ``rows`` rows of one token (a decode
+    step: ``mlstm_step`` updating ``C`` and ``n`` in place,
+    ``slstm_step``, and each whole mixer after the norm) or one row of
+    ``tokens`` tokens (a prefill chunk: ``mlstm_chunkwise`` in 64-token
+    blocks from a carried state, the ``slstm_seq`` scan).  The sLSTM
+    scan's host wall a call is beside its device time.  The mLSTM parts'
+    bound reads and writes the state once, and reads q, k, v and writes
+    h once; a chunk's also counts its fp32 products."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.paged.recurrent import (make_mlstm_state,
+                                             make_slstm_state)
+    H = pm["w_if"].shape[1] // 2
+    up, d = pm["wq"].shape[1], ps["w_out"].shape[0]
+    dh = up // H
+    dt = pm["wq"].dtype
+    g = torch.Generator(device=dev).manual_seed(73)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    decode = tokens == 1
+    R, S = (rows, 1) if decode else (1, tokens)
+    h = rnd(R, S, d) * 0.5
+    mst = make_mlstm_state(R, H, dh, 64, device=dev)
+    sst = make_slstm_state(R, d, 64, device=dev)
+    u = B.rec_project("mlstm", pm, h)
+    q, k, v = (u[..., j, :].reshape(R, S, H, dh).contiguous()
+               for j in range(3))
+    gif = h @ pm["w_if"]
+    ig, fg = gif[..., :H].contiguous(), gif[..., H:].contiguous()
+    zifo = (h @ ps["w_zifo"]).reshape(R, S, 4, d)
+    leaves = (mst.C, mst.n, mst.m)
+    if decode:
+        mcell = (lambda: L.mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
+                                      fg[:, 0], leaves, out=leaves))
+        zs, r = zifo[:, 0].float(), ps["r_diag"].float()
+        st = tuple(sst.leaves[n] for n in "cnmh")
+        scell = lambda: L.slstm_step(zs, r, st)
+        mode = "decode"
+    else:
+        mcell = (lambda: L.mlstm_chunkwise(q, k, v, ig, fg, state=leaves,
+                                           block=64))
+        scell = lambda: L.slstm_seq(zifo, ps["r_diag"], state=tuple(
+            sst.leaves[n] for n in "cnmh"))
+        mode = "chunk"
+    scell()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    scell()
+    torch.cuda.synchronize()
+    s_host = time.monotonic() - t0
+    iters = 10 if decode else 3
+    # the card held three times as long as the host takes to enqueue
+    hold = max(20, int(s_host * 3e4) + 1)
+    out = {"rows": R, "tokens": S,
+           "mlstm_cell_ms": time_ms(mcell, iters, hold=20),
+           "slstm_cell_ms": time_ms(scell, iters, hold=hold),
+           "slstm_cell_host_ms": s_host * 1e3,
+           "mlstm_mixer_ms": time_ms(lambda: B.rec_mix(
+               "mlstm", pm, B.rec_project("mlstm", pm, h), h, mst, mode),
+               iters, hold=20),
+           "slstm_mixer_ms": time_ms(lambda: B.rec_mix(
+               "slstm", ps, B.rec_project("slstm", ps, h), h, sst, mode),
+               iters, hold=hold)}
+    state_b = nbytes(mst.C, mst.n, mst.m)
+    flops = 0 if decode else 4 * H * S * dh * dh + 4 * H * S * 64 * dh
+    b_ms, b_by = bound_ms(2 * state_b + nbytes(q, k, v) + nbytes(q), flops,
+                          torch.float32)
+    out.update(mlstm_cell_bound_ms=b_ms, mlstm_cell_bound_by=b_by,
+               mlstm_state_bytes=state_b)
+    return out
+
+
+def phase_xl_serve(smi: str, dev: str = "cuda", cfg=None,
+                   lens=(256, 600, 1300, 2500), new: int = 32,
+                   max_seq: int = 4096, page_tokens: int = 64,
+                   budget: int = 1024):
+    """Full-size xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM, no MLP) in
+    bf16 with random weights on one device through ``Engine.step``: 4
+    slots, prompts of 256-2500 tokens (600, 1300 and 2500 are not
+    multiples of 256), prefilled in chunks of ``budget`` tokens.  It
+    runs none of kernels 1-6 (no attention, no MLP; the mixers are plain
+    PyTorch, as the reference's are plain ``jnp``): their launches stay
+    0.  Prints weights, state bytes, TTFT, TPOT, tokens/s and peak
+    memory, a profiled decode step of 4 rows (busy against wall) and
+    the mixers' parts a layer at that step and at a ``budget``-token
+    chunk (``xl_split``), times the layers of each kind."""
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.models.model import build
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or _xl_cfg()
+    plan = make_plan(cfg, 1)
+    t0 = time.monotonic()
+    model = build(cfg, plan, seed=0, device=dev)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in model.parameters()) / 1e9
+    eng = Engine(cfg, params=model, max_batch=4, max_seq=max_seq,
+                 page_tokens=page_tokens, device=dev,
+                 prefill_policy=PrefillPolicy(token_budget=budget,
+                                              mode="mixed"))
+    state_gb = sum(c.nbytes for c in eng.caches) / 1e9
+    gen = torch.Generator().manual_seed(79)
+    warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                        max_new_tokens=2)
+    eng.submit(warm)
+    eng.run_until_done()
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, lens, cfg.vocab_size)]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    sync(dev)
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    for r in reqs:
+        assert len(r.generated) == new, (len(r.prompt), len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert not any(launches.values()), launches
+    chunked = [n for n in lens
+               if len(eng.prefill_policy.chunk_sizes(n, page_tokens)) > 1]
+    assert chunked, "no prompt chunked"
+    n_m = sum(1 for k in cfg.pattern if k == "mlstm")
+    n_s = cfg.num_layers - n_m
+    out = {"phase": "xlstm-serve", "model": cfg.name,
+           "layers": cfg.num_layers, "mlstm_layers": n_m,
+           "slstm_layers": n_s, "dtype": cfg.dtype,
+           "prompts": list(lens), "chunk": budget,
+           "chunked_prompts": chunked, "new_tokens": new,
+           "weights_gb": weights_gb, "state_gb_4_slots": state_gb,
+           "weights_init_s": t_init, "wall_s": wall,
+           "ttft_s": [r.ttft for r in reqs], "tpot_s": [r.tpot for r in reqs],
+           "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+           "launches": launches, "gpu": smi}
+    if dev == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # the state is O(1) a slot: a short context decodes as a long one
+        prof_reqs = [ServeRequest(p, max_new_tokens=24)
+                     for p in _prompts(gen, (64,) * 4, cfg.vocab_size)]
+        for r in prof_reqs:
+            eng.submit(r)
+        while any(len(r.generated) == 0 for r in prof_reqs):
+            eng.step()
+        prof = profile_steps(eng, 8)
+        eng.run_until_done()
+        pm = eng.model.layers[0].rec
+        ps = eng.model.layers[cfg.pattern.index("slstm")].rec
+        step = xl_split(pm, ps, 4, 1, dev)
+        chunk = xl_split(pm, ps, 1, budget, dev)
+        # two correct bf16 computations of one prompt at full depth:
+        # printed, not held (the note above ``XL_FP32_LAYERS``)
+        out["bf16_whole_vs_chunked"] = xl_whole_vs_chunked(
+            eng.model, torch.tensor(_prompts(gen, (budget,),
+                                             cfg.vocab_size)[0],
+                                    device=dev)[None], page_tokens, 0)
+        per_step = {"mlstm_mixer_ms": step["mlstm_mixer_ms"] * n_m,
+                    "mlstm_cell_ms": step["mlstm_cell_ms"] * n_m,
+                    "slstm_mixer_ms": step["slstm_mixer_ms"] * n_s,
+                    "mlstm_cell_bound_ms": step["mlstm_cell_bound_ms"] * n_m}
+        busy = prof["device_busy_ms"]
+        out.update(decode_step={
+            "rows": 4, "unprofiled_wall_ms": prof["unprofiled_wall_ms"],
+            "profiled_wall_ms": prof["wall_ms"], "device_busy_ms": busy,
+            "device_idle_share": prof["device_idle_share"],
+            **per_step, "shares_of_busy": {
+                k[:-3]: v / busy for k, v in per_step.items()}},
+            split_per_layer={"decode": step, "prefill_chunk": chunk})
+        emit(phase="profile", gpu=smi, model=cfg.name, what="decode step",
+             batch=4, **prof)
+    emit(**out)
+    del eng, model
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def _state_rows_bytes(eng) -> list:
+    """Recurrent state bytes each worker holds."""
+    return [sum(layer.cache[w].nbytes for layer in eng.layers)
+            for w in range(eng.W)]
+
+
+def _mixer_bytes(eng) -> list:
+    """Mixer weight bytes each worker holds."""
+    return [sum(t.numel() * t.element_size() for layer in eng.layers
+                for t in layer.attn[w].values()) for w in range(eng.W)]
+
+
+def xl_exact_moves(eng, gen, vocab: int, new: int = 8) -> dict:
+    """TP1x2 -> TP2 -> TP1x2 on a worker engine whose four slots hold
+    decoding requests, each session run step by step with no decode
+    between its steps: after each, every worker's state equals
+    ``split_cache`` of the global state taken before it, bit for bit (at
+    TP2 both workers hold every row).  Returns the sessions' state bytes
+    copied."""
+    from repro_torch.core import instance as I
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.serving import ServeRequest
+    reqs = [ServeRequest(p, max_new_tokens=new)
+            for p in _prompts(gen, (64, 96, 128, 80), vocab)]
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) < 2 for r in reqs):
+        eng.step()
+    moved = []
+    for tp in (2, 1):
+        before = eng.global_caches()
+        eng.transform(tp, layers_per_step=eng.cfg.num_layers)
+        while not eng._session.done:
+            eng._session.step()
+        eng._finish_transform()
+        moved.append(eng.transform_log[-1]["kv_bytes"])
+        for layer, g in zip(eng.layers, before):
+            want = I.split_cache(g, Layout(1, tp), layer.mesh.devices)
+            for got, w in zip(layer.cache, want):
+                for k in got.leaves:
+                    assert torch.equal(got.leaves[k], w.leaves[k]), (
+                        "moved state", tp, layer.kind, k)
+    eng.run_until_done()
+    return {"sessions": ["TP1x2 -> TP2", "TP2 -> TP1x2"],
+            "state_bytes_copied": moved, "bit_equal": True}
+
+
+def phase_xl_transform(smi: str, dev: str = "cuda", cfg=None,
+                       max_seq: int = 4096, lens=(256, 600, 1300, 2500),
+                       new: int = 48, page_tokens: int = 64,
+                       layers_per_step: int = 8, budget: int = 1024,
+                       fp32_layers: int = XL_FP32_LAYERS):
+    """Full-size xlstm-1.3b in bf16 on two workers of the card, prompts
+    prefilled in chunks of ``budget`` tokens: TP1x2 -> TP2 -> TP1x2
+    mid-decode (``layers_per_step`` layers a schedule step: the
+    reference's schedule, whose MLP steps move nothing here), every
+    decode row recorded teacher forced beside an engine at the same
+    degree throughout (``teacher_forced_change``): the rows before the
+    first change take every token of the engine that stays at TP1x2
+    with the same logits, bit for bit; the rest are printed beside the
+    agreement of two engines that never change (see the note above
+    ``XL_FP32_LAYERS``).  Before it, the same run in fp32 at
+    ``fp32_layers`` layers, where every row must agree (within
+    ``XL_FP32_TOL``).  At TP2 the state is replicated over the pair, as
+    the reference places it, and the two copies must be the same bits;
+    after the run, ``xl_exact_moves``.  Prints each session's steps,
+    walls and blocked time, the state bytes its kv ops copied against
+    the least (each worker's missing rows read and written once), the
+    state and mixer-weight bytes each worker holds at each degree.
+    Kernels 1-6 stay at 0 launches."""
+    from repro_torch.core.scheduler import PrefillPolicy
+
+    base = cfg or _xl_cfg()
+    gen = torch.Generator().manual_seed(83)
+    shorts = _prompts(gen, lens, base.vocab_size)
+    kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens,
+              prefill_policy=PrefillPolicy(token_budget=budget,
+                                           mode="mixed"))
+    c32 = dataclasses.replace(base, dtype="float32",
+                              num_layers=min(fp32_layers, base.num_layers))
+    eng, _, held32, _, _, _ = teacher_forced_change(
+        c32, dev, shorts, new, kw, layers_per_step, same_degree=True)
+    del eng
+    if dev == "cuda":
+        free_card()
+    for where, h in held32.items():
+        assert h["argmax_flips"] == 0, ("fp32 rows part", where, held32)
+        assert h["logit_max_abs_diff"] <= XL_FP32_TOL, (where, held32)
+    held_at = {}
+
+    def watch(e):
+        # the bytes each worker holds at each degree, and the TP2 pair's
+        # state copies, read once the engine lands at TP2
+        if e.tp == 2 and not e.transforming and "TP2" not in held_at:
+            held_at["TP2"] = {"state": _state_rows_bytes(e),
+                              "mixer": _mixer_bytes(e)}
+            for layer in e.layers:
+                a, b = layer.cache
+                for k in a.leaves:
+                    assert torch.equal(a.leaves[k], b.leaves[k]), (
+                        "replicated state parts", layer.kind, k)
+        return stage_of(e)
+
+    floor = {}
+    eng, reqs, held, (ups, downs), wall, launches = teacher_forced_change(
+        base, dev, shorts, new, kw, layers_per_step, same_degree=True,
+        where=watch, floor=floor)
+    assert set(held) == {"TP1x2", "session", "TP2", "TP1x2 again"}, held
+    assert held["TP1x2"]["argmax_flips"] == 0, held
+    assert held["TP1x2"]["logit_max_abs_diff"] == 0.0, held
+    for r in reqs:
+        assert r.done and all(0 <= t < base.vocab_size for t in r.generated)
+    assert not any(launches.values()), launches
+    assert "TP2" in held_at, "no decode step at TP2"
+    held_at["TP1x2"] = {"state": _state_rows_bytes(eng),
+                        "mixer": _mixer_bytes(eng)}
+    exact = xl_exact_moves(eng, gen, base.vocab_size)
+    global_state = sum(held_at["TP1x2"]["state"])
+    sessions = []
+    for log, reps in zip(eng.transform_log, (ups, downs)):
+        up = log["tp_to"] > log["tp_from"]
+        sessions.append({
+            "tp_from": log["tp_from"], "tp_to": log["tp_to"],
+            "steps": log["steps"],
+            "mlp_steps": sum(1 for r in reps if r.ops[0].component == "mlp"
+                             and len({o.component for o in r.ops}) == 1),
+            "wall_s": log["wall_s"], "sum_seconds": log["measured_s"],
+            "sum_blocked_s": log["exposed_s"],
+            "sum_modeled_s": log["modeled_s"],
+            "state_bytes_copied": log["kv_bytes"],
+            # a scale-up: each of the two workers reads and writes the
+            # half of the state it lacks; a scale-down keeps a slice of
+            # its own
+            "state_bytes_least": 2 * global_state if up else 0,
+            "weight_bytes_across_workers": log["weight_bytes"],
+            "step_seconds_max": max(r.seconds for r in reps),
+            "step_blocked_s_max": max(r.blocked_s for r in reps)})
+    emit(phase="xlstm-transform", model=base.name, dtype=base.dtype,
+         layers=base.num_layers, workers=eng.W, prompts=list(lens),
+         chunk=budget, new_tokens=new, layers_per_step=layers_per_step,
+         wall_s=wall, sessions=sessions, bytes_held_per_worker=held_at,
+         bf16_held=held, bf16_floor=floor,
+         exact_moves=exact,
+         fp32_layers=c32.num_layers, fp32_held=held32, fp32_tol=XL_FP32_TOL,
+         ttft_s=[r.ttft for r in reqs], tpot_s=[r.tpot for r in reqs],
+         launches=launches,
+         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None), gpu=smi)
+    del eng
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+#: the serve CLI on xLSTM: xlstm-1.3b at published widths and depth in
+#: bf16, one instance of one worker of the card
+XL_CLI = ("--model", XL_MODEL, "--no-smoke", "--instances", "1",
+          "--workers", "1", "--max-seq", "2048", "--requests", "4",
+          "--long-every", "2")
+
+
+# ---------------------------------------------------------------------------
 # Shape census: every kernel shape the phases launch was held against its
 # plain version
 # ---------------------------------------------------------------------------
@@ -5015,7 +5560,7 @@ CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
 #: checked there, the rest only by the kernels phase
 PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
                  "spill-parity", "ladder-parity", "layout-parity",
-                 "moe-parity", "rg-parity")
+                 "moe-parity", "rg-parity", "xlstm-parity")
 
 
 class ShapeCensus:
@@ -5466,6 +6011,12 @@ def main():
     rg = {"rg-serve": run("rg-serve", phase_rg_serve, smi),
           "rg-transform": run("rg-transform", phase_rg_transform, smi)}
     phase_serve_cli(RG_CLI)
+    # slice 12: xlstm-1.3b (no attention, no MLP: no kernel launches)
+    run("xlstm-parity", phase_xl_parity)
+    xl = {"xlstm-serve": run("xlstm-serve", phase_xl_serve, smi),
+          "xlstm-transform": run("xlstm-transform", phase_xl_transform,
+                                 smi)}
+    phase_serve_cli(XL_CLI)
     emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []
@@ -5494,7 +6045,8 @@ def main():
                 "layout-serve": layout[name],
                 "cluster-layout": clayout[name],
                 **{k: v.get(name, 0) for k, v in moe.items()},
-                **{k: v.get(name, 0) for k, v in rg.items()}}})
+                **{k: v.get(name, 0) for k, v in rg.items()},
+                **{k: v.get(name, 0) for k, v in xl.items()}}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

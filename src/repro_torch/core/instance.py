@@ -52,18 +52,22 @@ the padding plan (``plan.max_tp``: the engine's own W, or the whole
 pool's in a cluster), and a TP-t shard is ``S/t`` consecutive of them
 (``mlp_shards``).
 
-A recurrent (RGLRU) layer keeps the reference's spec
+A recurrent (RGLRU, MLSTM, SLSTM) layer keeps the reference's spec
 (``repro/core/instance.py:67-84``, ``:117-122``) in ``attn`` and
-``cache``: ``w_in (d, 2d)`` by column and ``w_out (d, d)`` by row over
-tp, the conv, the gates and ``a_param`` replicated, and its state rows
-(``paged.recurrent.RecState``) over the replicas, replicated over sp and
-tp.  ``w_in`` is ``[x | y]``, so at TP2 one worker holds the x branch
-and the other the y branch: each worker multiplies by its column shard,
-the TP group all-gathers ``u``, the conv, gates and scan run on every
-worker of the group, and each worker multiplies its row slice of ``y``
+``cache``, by leaf name: ``w_in``, ``wq``, ``wk``, ``wv``, ``w_og`` and
+``w_zifo`` by column and ``w_out`` by row over tp, every other leaf
+(the conv, RGLRU's gates and ``a_param``, ``w_if``, ``r_diag``)
+replicated, and its state rows (``paged.recurrent.RecState``) over the
+replicas, replicated over sp and tp (mLSTM's ``C`` too: not split by
+head).  At TP2 each worker multiplies by its column shards, the TP group
+all-gathers the products, the whole cell runs on every worker of the
+group, and each worker multiplies its own columns of the cell's output
 by its ``w_out`` shard before the all-reduce (``models.model.
 rec_workers``).  Its weights and state move in the layer's ``kv`` op
-(``move_rec``), as attention weights move with their pages.
+(``move_rec``), as attention weights move with their pages.  An MLSTM or
+SLSTM layer has no MLP: its ``mlp`` and ``ln2`` entries are None, its
+``ln1`` is the block's ``ln``, and ``move_mlp`` only flips its
+``mlp_layout``.
 
 ``InstanceGroup`` is the counterpart of the reference's owner of the
 same name: a thin transformable owner of ``WorkerLayer`` lists that
@@ -76,12 +80,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import RGLRU
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.core.weight_transform import MLP_PAIRS
 from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import pool as pp
-from repro_torch.paged.recurrent import cat_rows, make_rec_state
+from repro_torch.paged.recurrent import cat_rows
 
 Params = Dict[str, torch.Tensor]
 
@@ -97,7 +100,8 @@ class WorkerLayer:
     together, in the ``kv`` op of a transform); ``mlp_layout`` that of
     the MLP weights (the ``mlp`` op); an int TP degree given here is
     turned into its ``Layout``.  Every list has one entry a worker of
-    ``mesh``."""
+    ``mesh``; ``mlp`` and ``ln2`` entries are None in a layer without
+    an MLP."""
     kind: str
     attn_layout: Layout
     mlp_layout: Layout
@@ -111,6 +115,10 @@ class WorkerLayer:
     def __post_init__(self):
         self.attn_layout = Layout.of(self.attn_layout)
         self.mlp_layout = Layout.of(self.mlp_layout)
+
+    @property
+    def has_mlp(self) -> bool:
+        return self.mlp[0] is not None
 
 
 def rows_of(layout: Layout, batch: int, W: int, w: int) -> Tuple[int, int]:
@@ -195,17 +203,20 @@ def _runs(lo: int, hi: int, per: int) -> List[Tuple[int, int, int]]:
 
 def replicas_across(xs: List, src, dst) -> List:
     """A replicated value (a tensor or a dict of tensors, one a worker
-    of ``src``) on the workers of ``dst``: a worker of both keeps its
-    own, an adopted worker receives a copy."""
+    of ``src``; None stays None) on the workers of ``dst``: a worker of
+    both keeps its own, an adopted worker receives a copy."""
     out = []
     for w, wk in enumerate(dst.workers):
         if wk in src.workers:
             out.append(xs[src.workers.index(wk)])
             continue
         x = xs[w % src.W]
-        out.append({k: None if v is None else v.to(wk.device, copy=True)
-                    for k, v in x.items()} if isinstance(x, dict)
-                   else x.to(wk.device, copy=True))
+        if isinstance(x, dict):
+            x = {k: None if v is None else v.to(wk.device, copy=True)
+                 for k, v in x.items()}
+        elif x is not None:
+            x = x.to(wk.device, copy=True)
+        out.append(x)
     return out
 
 
@@ -321,7 +332,11 @@ def shard_mlp(p: Params, t: int, pos: int, S: int, device=None) -> Params:
 def move_mlp(layer: WorkerLayer, dst, lb: Layout, S: int) -> None:
     """The layer's MLP at layout ``lb`` on the workers of ``dst`` (its
     ``mesh`` still names the source assembly).  A MoE router follows as
-    a replicated value."""
+    a replicated value.  A layer without an MLP only takes the layout."""
+    if not layer.has_mlp:
+        layer.mlp = [None] * dst.W
+        layer.mlp_layout = lb
+        return
     new = reshard(
         layer.mlp, layer.mesh, layer.mlp_layout, dst, lb,
         lambda g, ta, b, p, dev: reshard_mlp(g, ta, b, p, S, dev))
@@ -339,22 +354,30 @@ def pages_per_slot(layer: WorkerLayer) -> int:
     return layer.cache[0].page_table.shape[1] * layer.attn_layout.sp
 
 
+#: recurrent-mixer leaves split by column and by row over tp (the
+#: reference's ``_leaf_pspec`` by name); every other leaf is replicated
+REC_COLUMN_LEAVES = ("w_in", "wq", "wk", "wv", "w_og", "w_zifo")
+REC_ROW_LEAVES = ("w_out",)
+
+
 def reshard_rec(group: List[Params], ta: int, tb: int, p: int, device
                 ) -> Params:
     """Position p's recurrent-mixer shard at degree ``tb`` from the
-    ``ta`` shards of one source TP group: columns ``[p*2d/tb,
-    (p+1)*2d/tb)`` of ``w_in`` and rows ``[p*d/tb, (p+1)*d/tb)`` of
-    ``w_out``, each a compact tensor of its own on ``device``; the conv,
-    gates and ``a_param`` copied (replicated)."""
-    d = group[0]["w_out"].shape[1]
-    cols = _runs(p * 2 * d // tb, (p + 1) * 2 * d // tb, 2 * d // ta)
-    rows = _runs(p * d // tb, (p + 1) * d // tb, d // ta)
-    out = {"w_in": _join([group[i]["w_in"][:, a:b] for i, a, b in cols], 1,
-                         device),
-           "w_out": _join([group[i]["w_out"][a:b] for i, a, b in rows], 0,
-                          device)}
-    for k in ("conv_w", "conv_b", "w_gx", "w_ga", "a_param"):
-        out[k] = _compact(group[p % ta][k], device)
+    ``ta`` shards of one source TP group: columns ``[p*n/tb,
+    (p+1)*n/tb)`` of each column leaf (``REC_COLUMN_LEAVES``, ``n``
+    columns in all) and rows ``[p*n/tb, (p+1)*n/tb)`` of ``w_out``, each
+    a compact tensor of its own on ``device``; the other leaves copied
+    (replicated)."""
+    out = {}
+    for k, x in group[0].items():
+        if k in REC_COLUMN_LEAVES or k in REC_ROW_LEAVES:
+            dim = 1 if k in REC_COLUMN_LEAVES else 0
+            n = x.shape[dim] * ta
+            runs = _runs(p * n // tb, (p + 1) * n // tb, n // ta)
+            out[k] = _join([group[i][k].narrow(dim, a, b - a)
+                            for i, a, b in runs], dim, device)
+        else:
+            out[k] = _compact(group[p % ta][k], device)
     return out
 
 
@@ -396,40 +419,36 @@ def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
 # ---------------------------------------------------------------------------
 
 def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
-                   share: bool, kvs: int, page_tokens: int, dh: int,
-                   batch: int, mps: Callable[[str], int]
+                   share: bool, batch: int, cache_of: Callable
                    ) -> Tuple[List[WorkerLayer], List[Dict]]:
     """Layers at TP1 x W on ``mesh``: every worker a replica of
-    ``blocks`` (``(kind, ln1, ln2, attn, mlp)`` a layer) and an empty
-    pool of ``batch/W`` slots of ``mps(kind)`` pages (a window's ring
-    holds fewer), or a zero recurrent
-    state of ``batch/W`` rows, and the replicated
-    ``static`` weights (embed, final_ln, lm_head).  With ``share`` worker
-    0 takes the given tensors and every other worker a copy; without it
-    every worker copies."""
+    ``blocks`` (``(kind, ln1, ln2, attn, mlp)`` a layer, ``ln2`` and
+    ``mlp`` None without an MLP) and its own empty cache of ``batch/W``
+    slots, ``cache_of(kind, rows, device)`` (a paged pool, a window's
+    ring, or a fresh recurrent state), and the replicated ``static``
+    weights (embed, final_ln, lm_head).  With ``share`` worker 0 takes
+    the given tensors and every other worker a copy; without it every
+    worker copies."""
     devs = mesh.devices
 
     def per_worker(t):
+        if t is None:
+            return [None] * len(devs)
         return [own_copy(t.detach(), d, w) if share
                 else t.detach().to(d, copy=True)
                 for w, d in enumerate(devs)]
 
     def dicts(p):
+        if p is None:
+            return [None] * len(devs)
         cols = {k: per_worker(v) for k, v in p.items()}
         return [{k: v[w] for k, v in cols.items()} for w in range(len(devs))]
 
     tp1 = Layout(1, 1)
-    dt, d = static["embed"].dtype, static["embed"].shape[1]
-
-    def caches(kind):
-        if kind == RGLRU:
-            return [make_rec_state(batch // len(devs), d, dt, page_tokens,
-                                   device=dev) for dev in devs]
-        return init_worker_caches(kvs, page_tokens, dh, batch, mps(kind),
-                                  dt, devs)
-
+    rows = batch // len(devs)
     layers = [WorkerLayer(kind, tp1, tp1, per_worker(ln1), per_worker(ln2),
-                          dicts(attn), dicts(mlp), caches(kind), mesh)
+                          dicts(attn), dicts(mlp),
+                          [cache_of(kind, rows, dev) for dev in devs], mesh)
               for kind, ln1, ln2, attn, mlp in blocks]
     cols = {k: None if v is None else per_worker(v)
             for k, v in static.items()}
@@ -450,7 +469,7 @@ def join_cache(states: List, layout):
     recurrent layer's: the state rows of every replica, in slot order."""
     lay = Layout.of(layout)
     if states[0].recurrent:
-        return cat_rows(states[::lay.degree], states[0].h.device)
+        return cat_rows(states[::lay.degree], states[0].device)
     dev = states[0].pool.device
     d, t = lay.degree, lay.tp
     pools, seqs, poss = [], [], []
@@ -499,16 +518,6 @@ def split_cache(state, layout, devices: Sequence) -> List:
             _compact(state.positions[lo:hi, s * ns * P:(s + 1) * ns * P],
                      dev)))
     return out
-
-
-def init_worker_caches(kvs: int, page_tokens: int, dh: int, batch: int,
-                       mps: int, dtype, devices) -> List[pp.PagedState]:
-    """Empty slot-partitioned caches at TP1: each worker's B/W slots
-    under local page ids."""
-    W = len(devices)
-    per = batch // W
-    return [pp.make_state(per * mps, kvs, page_tokens, dh, per, mps, dtype,
-                          device=d) for d in devices]
 
 
 def cache_to(states: List[pp.PagedState], pools: List[torch.Tensor],
@@ -562,7 +571,7 @@ class InstanceGroup:
         from repro_torch.core.weight_transform import relayout_block_mlp
         from repro_torch.launch.mesh import InstanceMesh
         from repro_torch.models import model as M
-        from repro_torch.models.blocks import slot_pages
+        from repro_torch.models.blocks import init_block_cache
 
         self.mesh = InstanceMesh(devices, 1)
         self.devices, self.W = self.mesh.workers, self.mesh.W
@@ -578,12 +587,12 @@ class InstanceGroup:
                              device=self.mesh.devices[0])
             for blk in params.layers:
                 relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp)
-        blocks = [(b.kind, b.ln1, b.ln2, dict(b.mixer), dict(b.mlp))
-                  for b in params.layers]
         self.layers, self.static = place_replicas(
-            blocks, params.static(), self.mesh, True, self.plan.kv_slots,
-            page_tokens, cfg.resolved_head_dim, self.batch,
-            lambda kind: slot_pages(kind, cfg, max_seq, page_tokens))
+            [b.parts() for b in params.layers], params.static(), self.mesh,
+            True, self.batch,
+            lambda kind, rows, dev: init_block_cache(
+                kind, cfg, self.plan, rows, max_seq, page_tokens,
+                device=dev))
 
     # -- the paper's §4: the transformation -----------------------------
     def transform(self, new_tp: int) -> None:

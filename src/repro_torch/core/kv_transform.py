@@ -29,7 +29,9 @@ A recurrent layer's state has no pages: its rows follow the replicas
 (``regroup_rec``).  A worker whose rows at the old layout cover its new
 ones keeps a slice of them; the others receive their rows copied from
 the workers that hold them (TP1 x 2 -> TP2 gathers each replica's rows
-onto both workers, TP2 -> TP1 x 2 splits them).
+onto both workers, TP2 -> TP1 x 2 splits them), every leaf of them
+(RG-LRU's ``conv`` and ``h``, mLSTM's ``C``, ``n``, ``m``, sLSTM's
+``c``, ``n``, ``m``, ``h``) and every byte counted.
 """
 from __future__ import annotations
 

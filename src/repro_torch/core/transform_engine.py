@@ -357,7 +357,7 @@ class TransformSession:
         the layer leaves (a split's).  0 in place."""
         def nbytes(pairs, keep):
             return sum(t.numel() * t.element_size() for wk, p in pairs
-                       if wk not in keep.workers
+                       if wk not in keep.workers and p is not None
                        for t in p.values() if t is not None)
 
         return (nbytes(zip(self.mesh_to.workers, new), src)
@@ -365,7 +365,10 @@ class TransformSession:
 
     def _run_mlp(self, layer: I.WorkerLayer) -> int:
         """Re-split the layer's MLP weights; returns the bytes that
-        crossed assemblies."""
+        crossed assemblies.  A layer without an MLP (an MLSTM or SLSTM
+        block) moves nothing here: the op keeps its place in the
+        reference's schedule, and the layer's mixer and state move
+        together in its ``kv`` op."""
         src, old = layer.mesh, layer.mlp
         I.move_mlp(layer, self.mesh_to, self.target_layout, self.plan.max_tp)
         return self._crossed_bytes(src, old, layer.mlp)

@@ -82,7 +82,10 @@ MLP_PAIRS = (("wi", "wo"), ("shared_wi", "shared_wo"))
 def relayout_block_mlp(mlp, ff: int, tp: int) -> None:
     """Re-lay, in place, every gated weight pair of one layer's ``mlp``
     (a dict or ``nn.ParameterDict`` of the reference's layout) for ``tp``
-    Eq. 2 shards (``relayout_mlp_for_tp``); a router stays as it is."""
+    Eq. 2 shards (``relayout_mlp_for_tp``); a router stays as it is.
+    A layer without an MLP (``mlp`` None) has nothing to re-lay."""
+    if mlp is None:
+        return
     for a, b in MLP_PAIRS:
         if a in mlp:
             mlp[a].data, mlp[b].data = relayout_mlp_for_tp(

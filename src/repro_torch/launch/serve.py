@@ -24,7 +24,9 @@ By default the model is the reduced config in float32.  ``--no-smoke``
 serves the published config at full width and depth in its own dtype
 (random weights), e.g. the paper's own qwen2.5-32b (62.3 GB in bf16),
 which fits one H100 as one instance of one worker: ``--arch qwen2.5-32b
---no-smoke --instances 1 --workers 1 --max-seq 8192``.
+--no-smoke --instances 1 --workers 1 --max-seq 8192``.  ``--model`` is
+another name for ``--arch``: ``--model xlstm-1.3b --no-smoke`` serves
+xLSTM[7:1] (42 mLSTM and 6 sLSTM blocks, no MLP) the same way.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def _action_line(act) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b",
+    ap.add_argument("--arch", "--model", default="llama3-8b",
                     choices=sorted(all_configs(include_paper_model=True)))
     ap.add_argument("--instances", type=int, default=2)
     ap.add_argument("--scheduler", default="gyges",

@@ -2,7 +2,8 @@
 
 The counterpart of ``repro.models.blocks`` for the ATTN and SLIDING
 kinds (attention + dense MLP), MOE (attention + a capacity-routed
-mixture of experts) and RGLRU (Griffin's recurrent mixer + dense MLP).
+mixture of experts), RGLRU (Griffin's recurrent mixer + dense MLP) and
+xLSTM's MLSTM and SLSTM (a recurrent mixer alone).
 Parameters are plain dicts of tensors
 (``nn.ParameterDict`` inside the model); padded slots (heads, d_ff,
 experts) carry zero weights so the padded model equals the unpadded one.
@@ -18,14 +19,18 @@ plain ``torch.matmul``; so is the single-device engine's MLP
 (``torch.bmm`` over the capacity buffer) and combine are plain PyTorch,
 as the reference's are plain ``jnp``.
 
-A recurrent block's mixer (``rglru_mix``) is the reference's
-``apply_block_seq`` / ``apply_block_decode`` RGLRU branch
-(``repro/models/blocks.py:443-459``, ``:551-563``): input projection
+A recurrent block's mixer is the reference's ``apply_block_seq`` /
+``apply_block_decode`` branch of its kind: RGLRU's (``rglru_mix``,
+``repro/models/blocks.py:443-459``, ``:551-563``: input projection
 ``w_in`` to ``[x | y]``, the causal conv and the two gates on x, the
-RG-LRU scan (``layers.rglru``), ``y`` gated by gelu, and ``w_out``.  Its
-per-slot state is a ``paged.recurrent.RecState`` updated in place.  It
-is plain PyTorch, as the reference's is plain ``jnp``: no TPU kernel
-computes it.
+RG-LRU scan, ``y`` gated by gelu, ``w_out``), MLSTM's (``mlstm_mix``,
+``:461-477``, ``:566-580``: ``q/k/v`` and the gates from the normed
+input, the chunkwise mLSTM or its step, the output gate, ``w_out``) and
+SLSTM's (``slstm_mix``, ``:479-485``, ``:582-587``: ``zifo``, the sLSTM
+scan, ``w_out``).  Its per-slot state is a ``paged.recurrent.RecState``
+updated in place.  It is plain PyTorch, as the reference's is plain
+``jnp``: no TPU kernel computes it.  The xLSTM kinds have no MLP: a
+block is ``ln``, the mixer and its residual.
 
 Sequence-parallel layouts (``attention_decode_sp``, ``attention_chunk_sp``:
 the counterparts of the reference's ``attention_decode`` /
@@ -54,27 +59,33 @@ from repro_torch.kernels import ref as KR
 from repro_torch.launch.mesh import Layout
 from repro_torch.models import layers as Lyr
 from repro_torch.paged import pool as pp
-from repro_torch.paged.recurrent import CONV_K, RecState, make_rec_state
+from repro_torch.paged.recurrent import CONV_K, RecState, make_state_of
 
 Params = Dict[str, torch.Tensor]
 
-#: block kinds of other architectures, and the ROADMAP item that ports them
-NOT_PORTED = {
-    MLSTM: "ROADMAP queue 1 item 10 (xLSTM)",
-    SLSTM: "ROADMAP queue 1 item 10 (xLSTM)",
-}
-
 #: the block kinds whose mixer is attention over a paged KV cache
 ATTENTION_KINDS = (ATTN, SLIDING, MOE)
-#: the block kinds the port runs: a mixer and an MLP each
-PORTED_KINDS = ATTENTION_KINDS + (RGLRU,)
+#: the block kinds whose mixer keeps a per-slot recurrent state
+RECURRENT_KINDS = (RGLRU, MLSTM, SLSTM)
+#: the block kinds with no MLP: ``ln``, the mixer and its residual
+MIXER_ONLY_KINDS = (MLSTM, SLSTM)
+#: the block kinds the port runs (every kind the registry names)
+PORTED_KINDS = ATTENTION_KINDS + RECURRENT_KINDS
+#: block kinds of other architectures the port does not run yet, and the
+#: ROADMAP item that ports them (none since the xLSTM kinds)
+NOT_PORTED: Dict[str, str] = {}
 
 
 def check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: "
+            f"block kind {kind!r} is not ported: "
             f"{NOT_PORTED.get(kind, 'unknown kind')}")
+
+
+def has_mlp(kind: str) -> bool:
+    """Whether a block of ``kind`` has an MLP (and ``ln1`` / ``ln2``)."""
+    return kind not in MIXER_ONLY_KINDS
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -499,6 +510,109 @@ def rglru_mix(p: Params, u: torch.Tensor, state: RecState, mode: str,
 
 
 # ===========================================================================
+# Recurrent mixers without an MLP (xLSTM's mLSTM and sLSTM blocks)
+# ===========================================================================
+
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """The reference's MLSTM mixer leaves (``repro/models/blocks.py:
+    360-371``), ``up = 2 * d``: ``wq`` / ``wk`` / ``wv`` / ``w_og (d,
+    up)``, the input and forget gates ``w_if (d, 2H)``, ``w_out (up,
+    d)``."""
+    d, dt, H = cfg.d_model, dtype_of(cfg), cfg.num_heads
+    up = 2 * d
+    return {"wq": _dense(gen, d, (d, up), dt, device),
+            "wk": _dense(gen, d, (d, up), dt, device),
+            "wv": _dense(gen, d, (d, up), dt, device),
+            "w_if": _dense(gen, d, (d, 2 * H), dt, device),
+            "w_og": _dense(gen, d, (d, up), dt, device),
+            "w_out": _dense(gen, up, (up, d), dt, device)}
+
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """The reference's SLSTM mixer leaves (``:372-377``): ``w_zifo (d,
+    4d)``, the diagonal recurrent weights ``r_diag (4, d)`` (zero) and
+    ``w_out (d, d)``."""
+    d, dt = cfg.d_model, dtype_of(cfg)
+    return {"w_zifo": _dense(gen, d, (d, 4 * d), dt, device),
+            "r_diag": torch.zeros((4, d), dtype=dt, device=device),
+            "w_out": _dense(gen, d, (d, d), dt, device)}
+
+
+def mlstm_mix(p: Params, u: torch.Tensor, h: torch.Tensor, state: RecState,
+              mode: str, part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """The mLSTM mixer after its input products: ``u`` (B, S, 3, up) is
+    ``[q; k; v]`` (``rec_project``), ``h`` (B, S, d) the normed input,
+    from which the gates ``h @ w_if`` (replicated) and the output gate
+    ``sigmoid(h @ w_og)`` are taken.  ``mode`` as ``rglru_mix``'s: the
+    chunkwise form in blocks of ``state.block`` tokens from a fresh
+    state (``seq``) or the carry (``chunk``), or one step (``decode``,
+    updating ``C`` and ``n`` in place); the final state lands in
+    ``state``.  ``part = (p, t)``: the caller holds column shard p of t
+    of ``w_og`` and row shard p of ``w_out``, and the result is that
+    shard's partial product."""
+    B, S, _, up = u.shape
+    H = p["w_if"].shape[1] // 2
+    q, k, v = (u[..., j, :].reshape(B, S, H, up // H) for j in range(3))
+    gif = h @ p["w_if"]
+    ig, fg = gif[..., :H], gif[..., H:]
+    leaves = (state.C, state.n, state.m)
+    if mode == "decode":
+        y, _ = Lyr.mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0],
+                              leaves, out=leaves)
+        y = y[:, None]
+    else:
+        y, new = Lyr.mlstm_chunkwise(
+            q, k, v, ig, fg, state=None if mode == "seq" else leaves,
+            block=state.block)
+        for dst, src in zip(leaves, new):
+            dst.copy_(src)
+    w, t = part
+    y = y.reshape(B, S, up)[..., w * up // t:(w + 1) * up // t]
+    return (y * torch.sigmoid(h @ p["w_og"])) @ p["w_out"]
+
+
+def slstm_mix(p: Params, u: torch.Tensor, state: RecState, mode: str,
+              part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """The sLSTM mixer after its input product ``u = h @ w_zifo`` (B, S,
+    4d): the sLSTM scan from a fresh state (``seq``) or the carry, token
+    by token (a decode is a one-token scan), the final state into
+    ``state``; then row shard p of t of ``w_out`` (``part``)."""
+    B, S, d4 = u.shape
+    d = d4 // 4
+    leaves = tuple(state.leaves[k] for k in "cnmh")
+    y, new = Lyr.slstm_seq(u.reshape(B, S, 4, d), p["r_diag"],
+                           state=None if mode == "seq" else leaves)
+    for dst, src in zip(leaves, new):
+        dst.copy_(src)
+    w, t = part
+    return y[..., w * d // t:(w + 1) * d // t] @ p["w_out"]
+
+
+def rec_project(kind: str, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """A recurrent mixer's input product(s) over its column-sharded
+    weights, their columns on the last axis (a TP group all-gathers it):
+    RGLRU ``h @ w_in`` (B, S, 2d), MLSTM ``[h @ wq; h @ wk; h @ wv]``
+    (B, S, 3, up), SLSTM ``h @ w_zifo`` (B, S, 4d)."""
+    if kind == RGLRU:
+        return h @ p["w_in"]
+    if kind == MLSTM:
+        return torch.stack([h @ p["wq"], h @ p["wk"], h @ p["wv"]], dim=-2)
+    return h @ p["w_zifo"]
+
+
+def rec_mix(kind: str, p: Params, u: torch.Tensor, h: torch.Tensor,
+            state: RecState, mode: str, part: Tuple[int, int] = (0, 1)
+            ) -> torch.Tensor:
+    """A recurrent mixer of ``kind`` on its gathered input products ``u``
+    (``rec_project``) and normed input ``h``: its (partial) output."""
+    if kind == RGLRU:
+        return rglru_mix(p, u, state, mode, part)
+    if kind == MLSTM:
+        return mlstm_mix(p, u, h, state, mode, part)
+    return slstm_mix(p, u, state, mode, part)
+
+
+# ===========================================================================
 # Block apply
 # ===========================================================================
 
@@ -528,8 +642,10 @@ def _mixer(kind: str, p, h: torch.Tensor, cfg: ModelConfig,
     over the paged cache, or the recurrent mixer over its state (both
     updated in place).  Returns (out, (k, v) of a whole prompt's
     attention or None)."""
-    if kind == RGLRU:
-        return rglru_mix(p["rec"], h @ p["rec"]["w_in"], cache, mode), None
+    if kind in RECURRENT_KINDS:
+        p = p["rec"]
+        return rec_mix(kind, p, rec_project(kind, p, h), h, cache,
+                       mode), None
     window = _window_of(kind, cfg)
     if mode == "seq":
         return attention_seq(p["attn"], h, cfg, plan, positions,
@@ -546,6 +662,10 @@ def _apply_block(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
                  x: torch.Tensor, positions: torch.Tensor, cache, mode: str,
                  first_chunk: bool = False):
     check_kind(kind)
+    if not has_mlp(kind):
+        h = Lyr.rmsnorm(x, p["ln"], cfg.norm_eps)
+        return x + _mixer(kind, p, h, cfg, plan, positions, cache, mode)[0], \
+            None
     h = Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps)
     out, kv = _mixer(kind, p, h, cfg, plan, positions, cache, mode,
                      first_chunk)
@@ -596,12 +716,11 @@ def init_block_cache(kind: str, cfg: ModelConfig, plan: PaddingPlan,
     """The block's slot-partitioned header-centric paged cache (the
     kernels' canonical layout): full attention holds
     ``max_seq`` tokens per slot, a window holds ``min(max_seq, window)``
-    (a ring), page-rounded.  A recurrent block's is its zero state
+    (a ring), page-rounded.  A recurrent block's is its fresh state
     (``RecState``), scanned in blocks of the page size."""
     check_kind(kind)
-    if kind == RGLRU:
-        return make_rec_state(batch, cfg.d_model, dtype_of(cfg),
-                              page_tokens, device=device)
+    if kind in RECURRENT_KINDS:
+        return make_state_of(kind, cfg, batch, page_tokens, device=device)
     mps = slot_pages(kind, cfg, max_seq, page_tokens)
     return pp.make_state(batch * mps, plan.kv_slots, page_tokens,
                          cfg.resolved_head_dim, batch, mps, dtype_of(cfg),

@@ -20,9 +20,10 @@ layouts are one.  A MoE layer's ``mlp`` carries ``router`` as it is,
 its expert tensors ``wi (Ep, d, 2*ffp)`` / ``wo (Ep, ffp, d)`` re-laid
 expert by expert, and its shared expert (the reference's
 ``mlp/shared/{wi,wo}``) as ``mlp.shared_wi`` / ``mlp.shared_wo``.  A
-RGLRU layer's mixer leaves, which the reference keeps at the layer's
-top level, go under ``rec``; ``a_param`` stays fp32 in every model
-dtype, as the reference's init makes it.
+recurrent layer's mixer leaves, which the reference keeps at the
+layer's top level, go under ``rec``: RGLRU's (``a_param`` stays fp32 in
+every model dtype, as the reference's init makes it), MLSTM's and
+SLSTM's; an MLSTM or SLSTM layer has one norm, ``ln``, and no MLP.
 """
 from __future__ import annotations
 
@@ -31,13 +32,17 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RGLRU, ModelConfig
+from repro_torch.configs.base import MLSTM, RGLRU, SLSTM, ModelConfig
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.core.weight_transform import relayout_block_mlp
 from repro_torch.models.blocks import dtype_of
 
-#: the mixer leaves of a RGLRU layer
-REC_KEYS = ("w_in", "conv_w", "conv_b", "w_gx", "w_ga", "a_param", "w_out")
+#: the mixer leaves of each recurrent kind
+REC_KEYS = {
+    RGLRU: ("w_in", "conv_w", "conv_b", "w_gx", "w_ga", "a_param", "w_out"),
+    MLSTM: ("wq", "wk", "wv", "w_if", "w_og", "w_out"),
+    SLSTM: ("w_zifo", "r_diag", "w_out"),
+}
 
 
 def _unit_len(cfg: ModelConfig) -> int:
@@ -74,13 +79,17 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
         state["lm_head"] = t(np_tree["lm_head"])
     for li, p in enumerate(layers):
         pre = f"layers.{li}."
-        state[pre + "ln1"] = t(p["ln1"])
-        state[pre + "ln2"] = t(p["ln2"])
-        if kinds[li] == RGLRU:
-            for k in REC_KEYS:
+        kind = kinds[li]
+        if kind in REC_KEYS:
+            for k in REC_KEYS[kind]:
                 state[pre + "rec." + k] = t(
                     p[k], torch.float32 if k == "a_param" else dt)
-        else:
+        if kind in (MLSTM, SLSTM):
+            state[pre + "ln"] = t(p["ln"])
+            continue
+        state[pre + "ln1"] = t(p["ln1"])
+        state[pre + "ln2"] = t(p["ln2"])
+        if kind not in REC_KEYS:
             for k in ("wq", "wk", "wv", "wo"):
                 state[pre + "attn." + k] = t(p["attn"][k])
         mlp = {k: t(v) for k, v in p["mlp"].items() if k != "shared"}

@@ -371,3 +371,201 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         y = y + xp[:, i:i + S].float() * w[i].float()
     y = (y + b.float()).to(x.dtype)
     return y, xp[:, S:]
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM's matrix-memory cell)  [arXiv:2405.04517]
+# ---------------------------------------------------------------------------
+#
+# The reference's ``mlstm_chunkwise`` / ``mlstm_step``
+# (``repro/models/layers.py:328-431``): fp32 inside with the stabiliser
+# ``m`` (``NEG_INF`` when fresh) and the floor ``max(|den|, 1)``, the
+# output in q's dtype.  The reference runs chunks of ``min(256, S)``
+# tokens and refuses a call longer than 256 tokens that 256 does not
+# divide; the chunkwise form is exact for any blocking, so here the
+# blocks are ``block`` tokens (the engine's page size) and the last may
+# be shorter: it is padded with tokens whose input gate is ``NEG_INF``
+# and whose forget gate is 1, which add nothing to the state.  Every
+# block's state-free work (gates, decay matrix, the within-block
+# attention-like products) runs for all blocks at once; a loop over the
+# blocks carries ``m`` and, in place in one buffer, ``C`` and ``n``
+# (each block's own ``k^T (w v)`` written there first, then the carried
+# state times its decay added on).  Per-block quantities of ``(B, H)``
+# shape are computed inside that loop, so a call that starts on a
+# block boundary carrying the state there runs every block's
+# operations on tensors of the same shapes as one call over the whole
+# sequence: in fp32 chunked prefill equals whole-prompt prefill bit for
+# bit (on the CPU at test widths).  The state stays fp32 at any model
+# dtype, so the carry between chunks is never rounded.
+
+
+def _mlstm_fresh(B: int, H: int, dh: int, device):
+    f32 = torch.float32
+    return (torch.zeros((B, H, dh, dh), dtype=f32, device=device),
+            torch.zeros((B, H, dh), dtype=f32, device=device),
+            torch.full((B, H), NEG_INF, dtype=f32, device=device))
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    i_gate: torch.Tensor, f_gate: torch.Tensor,
+                    state: Optional[Tuple[torch.Tensor, ...]] = None,
+                    block: int = 64
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Stabilised chunkwise mLSTM over a sequence.  q, k, v: (B, S, H,
+    dh); i_gate, f_gate: (B, S, H) pre-activations; state: (C (B, H, dh,
+    dh), n (B, H, dh), m (B, H)) carried in (fresh when None).  Returns
+    (h (B, S, H, dh) in q's dtype, (C, n, m) fp32)."""
+    B, S, H, dh = q.shape
+    L = block
+    nb = -(-S // L)
+    pad = nb * L - S
+    scale = 1.0 / math.sqrt(dh)
+
+    def blocks(t: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        """(B, S, H, ...) -> (nb, B, H, L, ...) fp32, padded at the end."""
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad), value=fill)
+        t = t.reshape(B, nb, L, *t.shape[2:]).transpose(0, 1)
+        return t.transpose(2, 3).contiguous()
+
+    qb = blocks(q) * scale                              # (nb,B,H,L,dh)
+    kb, vb = blocks(k), blocks(v)
+    ig = blocks(i_gate, NEG_INF)                        # (nb,B,H,L)
+    fcum = torch.cumsum(blocks(F.logsigmoid(f_gate.float())), dim=-1)
+    ftot = fcum[..., -1]                                # (nb,B,H)
+    # D[t, s] = sum_{r=s+1..t} log f + i_s, causal
+    dmat = fcum[..., :, None] - fcum[..., None, :] + ig[..., None, :]
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    dmat = torch.where(causal, dmat, NEG_INF)           # (nb,B,H,L,L)
+    m_intra = dmat.amax(dim=-1)                         # (nb,B,H,L)
+    tail = ftot[..., None] - fcum + ig                  # (nb,B,H,L)
+    tail_max = tail.amax(dim=-1)                        # (nb,B,H)
+
+    C0, n0, m0 = (_mlstm_fresh(B, H, dh, q.device) if state is None
+                  else tuple(s.float() for s in state))
+    # Cs[j] / ns[j]: the state entering block j; each block's own
+    # increment lands in slot j + 1 first, the carried part is added on
+    Cs = torch.empty((nb + 1, B, H, dh, dh), dtype=torch.float32,
+                     device=q.device)
+    ns = torch.empty((nb + 1, B, H, dh), dtype=torch.float32,
+                     device=q.device)
+    Cs[0].copy_(C0)
+    ns[0].copy_(n0)
+    m_in, m_out = [], []
+    m = m0
+    for j in range(nb):
+        m_in.append(m)
+        m = torch.maximum(m + ftot[j], tail_max[j])
+        m_out.append(m)
+    m_in, m_out = torch.stack(m_in), torch.stack(m_out)  # (nb,B,H)
+    wgt = torch.exp(tail - m_out[..., None])            # (nb,B,H,L)
+    kw = kb * wgt[..., None]
+    torch.matmul(kw.transpose(-1, -2), vb, out=Cs[1:])
+    torch.sum(kw, dim=-2, out=ns[1:])
+    for j in range(nb):
+        decay = torch.exp(m_in[j] + ftot[j] - m_out[j])  # (B,H)
+        Cs[j + 1].add_(Cs[j] * decay[..., None, None])
+        ns[j + 1].add_(ns[j] * decay[..., None])
+    m_inter = m_in[..., None] + fcum                    # (nb,B,H,L)
+    m_t = torch.maximum(m_inter, m_intra)
+    w_inter = torch.exp(m_inter - m_t)
+    h_inter = torch.matmul(qb, Cs[:nb]) * w_inter[..., None]
+    qn = torch.matmul(qb, ns[:nb, ..., None])[..., 0] * w_inter
+    pw = torch.exp(dmat - m_t[..., None]) * torch.matmul(
+        qb, kb.transpose(-1, -2))                       # (nb,B,H,t,s)
+    num = h_inter + torch.matmul(pw, vb)
+    den = qn + pw.sum(dim=-1)
+    h = num / torch.clamp_min(den.abs(), 1.0)[..., None]
+    h = h.transpose(2, 3).transpose(0, 1).reshape(B, nb * L, H, dh)[:, :S]
+    return h.to(q.dtype), (Cs[nb], ns[nb], m)
+
+
+def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               i_gate: torch.Tensor, f_gate: torch.Tensor,
+               state: Tuple[torch.Tensor, ...],
+               out: Optional[Tuple[torch.Tensor, ...]] = None
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One decode token.  q, k, v: (B, H, dh); gates: (B, H); state (C,
+    n, m).  ``out``: fp32 tensors (C, n, m) the new state is written
+    into (they may be ``state``'s own: an update in place, reading and
+    writing ``C`` once each for its decay and once for the new outer
+    product).  Returns (h (B, H, dh) in q's dtype, the new state)."""
+    C, n, m = (s.float() for s in state)
+    dh = q.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    logf = F.logsigmoid(f_gate.float())
+    i = i_gate.float()
+    lm = logf + m
+    m_new = torch.maximum(lm, i)
+    fw = torch.exp(lm - m_new)
+    iw = torch.exp(i - m_new)
+    kf, vf, qf = k.float(), v.float(), q.float() * scale
+    Co, no, mo = out if out is not None else (None, None, None)
+    C_new = torch.mul(C, fw[..., None, None], out=Co)
+    C_new.addcmul_((iw[..., None] * kf)[..., :, None], vf[..., None, :])
+    n_new = torch.mul(n, fw[..., None], out=no)
+    n_new.add_(iw[..., None] * kf)
+    if mo is not None:
+        m_new = mo.copy_(m_new)
+    num = torch.matmul(qf[..., None, :], C_new)[..., 0, :]
+    den = torch.clamp_min(torch.matmul(
+        qf[..., None, :], n_new[..., None])[..., 0, 0].abs(), 1.0)
+    h = num / den[..., None]
+    return h.to(q.dtype), (C_new, n_new, m_new)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory, exponential gating, diagonal recurrent weights)
+# ---------------------------------------------------------------------------
+#
+# The reference's ``slstm_seq`` (``repro/models/layers.py:434-469``): a
+# true nonlinear recurrence (each token's gates read the previous h), so
+# it runs token by token, fp32 inside, the state fp32.  The step is cut
+# to 15 launches (fused multiply-adds where the reference's sums are
+# products plus a term, one exp for both gate weights).
+
+
+def _slstm_fresh(B: int, D: int, device):
+    f32 = torch.float32
+    z = torch.zeros((B, D), dtype=f32, device=device)
+    return z, torch.ones((B, D), dtype=f32, device=device), z.clone(), \
+        z.clone()
+
+
+def slstm_step(zt: torch.Tensor, r: torch.Tensor,
+               state: Tuple[torch.Tensor, ...],
+               out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, ...]:
+    """One token: zt (B, 4, D) fp32 pre-activations of z, i, f, o; r (4,
+    D) fp32 diagonal recurrent weights; state (c, n, m, h) fp32.  The new
+    h is written into ``out`` when given.  Returns the new (c, n, m,
+    h)."""
+    c, n, m, h = state
+    pre = torch.addcmul(zt, r, h[:, None])             # (B,4,D)
+    z = torch.tanh(pre[:, 0])
+    lm = F.logsigmoid(pre[:, 2]) + m
+    m_new = torch.maximum(lm, pre[:, 1])
+    w = torch.exp(torch.stack((pre[:, 1], lm)) - m_new)  # i_w, f_w
+    c_new = torch.addcmul(w[1] * c, w[0], z)
+    n_new = torch.addcmul(w[0], w[1], n)
+    h_new = torch.div(torch.sigmoid(pre[:, 3]) * c_new,
+                      torch.clamp_min(n_new, 1.0), out=out)
+    return c_new, n_new, m_new, h_new
+
+
+def slstm_seq(zifo: torch.Tensor, r_diag: torch.Tensor,
+              state: Optional[Tuple[torch.Tensor, ...]] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """zifo: (B, S, 4, D) pre-activations; r_diag: (4, D); state (c, n,
+    m, h) (fresh when None: n = 1, the rest 0).  Returns (h (B, S, D) in
+    zifo's dtype, the final state, fp32)."""
+    B, S, _, D = zifo.shape
+    st = (_slstm_fresh(B, D, zifo.device) if state is None
+          else tuple(s.float() for s in state))
+    zs = zifo.float().transpose(0, 1)                   # (S,B,4,D)
+    r = r_diag.float()
+    hs = torch.empty((S, B, D), dtype=torch.float32, device=zifo.device)
+    for t in range(S):
+        st = slstm_step(zs[t], r, st, out=hs[t])
+    return hs.transpose(0, 1).to(zifo.dtype), st

@@ -1,9 +1,10 @@
 """Model assembly: embedding -> per-layer blocks -> final norm -> head.
 
 The counterpart of ``repro.models.model`` for decoder-only models of
-ATTN / SLIDING / MOE / RGLRU layers (a pattern unit such as ``(ATTN,
-MOE)`` or Griffin's ``(RGLRU, RGLRU, SLIDING)`` tiles over the depth,
-and the remainder layers of a depth the unit does not divide follow:
+ATTN / SLIDING / MOE / RGLRU / MLSTM / SLSTM layers (a pattern unit
+such as ``(ATTN, MOE)``, Griffin's ``(RGLRU, RGLRU, SLIDING)`` or
+xLSTM[7:1]'s seven MLSTM and one SLSTM tiles over the depth, and the
+remainder layers of a depth the unit does not divide follow:
 recurrentgemma's 38 = 12 * 3 + 2).  The reference stacks the layers of
 each pattern position and runs them with ``lax.scan``; here layers are
 a ``ModuleList`` walked by a Python loop, and the decode caches are a
@@ -24,7 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import MOE, RGLRU, ModelConfig
+from repro_torch.configs.base import MLSTM, MOE, RGLRU, SLSTM, ModelConfig
 from repro_torch.core import instance as I
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.launch.mesh import Layout
@@ -47,29 +48,49 @@ def _params(d) -> nn.ParameterDict:
 class Block(nn.Module):
     """One decoder layer: ``ln1``, ``ln2``, its mixer and ``mlp``, named
     as in the reference's parameter tree.  The mixer of an attention
-    layer is ``attn`` {wq, wk, wv, wo}; that of a RGLRU layer ``rec``
-    {w_in, conv_w, conv_b, w_gx, w_ga, a_param, w_out} (the reference
-    keeps these at the layer's top level).  ``mlp``: {wi, wo} dense, or
-    for a MOE layer {router (d, Ep), wi (Ep, d, 2*ffp), wo (Ep, ffp, d)}
-    and, with a shared expert, ``shared_wi`` / ``shared_wo`` (the
-    reference's ``shared/wi``, ``shared/wo``)."""
+    layer is ``attn`` {wq, wk, wv, wo}; that of a recurrent layer
+    ``rec`` (the reference keeps these at the layer's top level): RGLRU
+    {w_in, conv_w, conv_b, w_gx, w_ga, a_param, w_out}, MLSTM {wq, wk,
+    wv, w_if, w_og, w_out}, SLSTM {w_zifo, r_diag, w_out}.  ``mlp``:
+    {wi, wo} dense, or for a MOE layer {router (d, Ep), wi (Ep, d,
+    2*ffp), wo (Ep, ffp, d)} and, with a shared expert, ``shared_wi`` /
+    ``shared_wo`` (the reference's ``shared/wi``, ``shared/wo``).  An
+    MLSTM or SLSTM layer has no MLP: one norm ``ln`` before its mixer,
+    and ``mlp`` / ``ln2`` are None."""
 
-    def __init__(self, kind: str, mixer, mlp, ln1, ln2):
+    def __init__(self, kind: str, mixer, mlp, ln1, ln2=None):
         super().__init__()
         B.check_kind(kind)
         self.kind = kind
-        if kind == RGLRU:
+        if kind in B.RECURRENT_KINDS:
             self.rec = _params(mixer)
         else:
             self.attn = _params(mixer)
-        self.mlp = _params(mlp)
-        self.ln1 = _param(ln1)
-        self.ln2 = _param(ln2)
+        if B.has_mlp(kind):
+            self.mlp = _params(mlp)
+            self.ln1 = _param(ln1)
+            self.ln2 = _param(ln2)
+        else:
+            self.ln = _param(ln1)
+            self.mlp = self.ln2 = None
 
     @property
     def mixer(self) -> nn.ParameterDict:
         """The mixer's weights: ``rec`` or ``attn``."""
-        return self.rec if self.kind == RGLRU else self.attn
+        return self.rec if self.kind in B.RECURRENT_KINDS else self.attn
+
+    @property
+    def norm(self) -> nn.Parameter:
+        """The norm before the mixer: ``ln1``, or ``ln`` without an
+        MLP."""
+        return self.ln1 if B.has_mlp(self.kind) else self.ln
+
+    def parts(self) -> Tuple:
+        """``(kind, norm, ln2, mixer, mlp)`` as plain dicts (None where
+        the layer has no MLP): what ``core.instance.place_replicas``
+        spreads over workers."""
+        return (self.kind, self.norm, self.ln2, dict(self.mixer),
+                None if self.mlp is None else dict(self.mlp))
 
     def __getitem__(self, name):      # the block functions take p["..."]
         return getattr(self, name)
@@ -110,6 +131,8 @@ class Model(nn.Module):
         zeros = torch.zeros((d,), dtype=dt, device=device)
 
         def mlp(kind):
+            if not B.has_mlp(kind):
+                return None
             if kind == MOE:
                 return B.init_moe_mlp(gen, cfg, plan, device)
             return B.init_mlp(gen, cfg, plan, device)
@@ -117,10 +140,14 @@ class Model(nn.Module):
         def mixer(kind):
             if kind == RGLRU:
                 return B.init_rglru(gen, cfg, device)
+            if kind == MLSTM:
+                return B.init_mlstm(gen, cfg, device)
+            if kind == SLSTM:
+                return B.init_slstm(gen, cfg, device)
             return B.init_attention(gen, cfg, plan, device)
 
         blocks = [Block(kind, mixer(kind), mlp(kind), zeros.clone(),
-                        zeros.clone())
+                        zeros.clone() if B.has_mlp(kind) else None)
                   for kind in cfg.pattern]
         head = None
         if not cfg.tie_embeddings:
@@ -140,6 +167,8 @@ class Model(nn.Module):
             return torch.empty(shape, dtype=dt, device=device)
 
         def mlp(kind):
+            if not B.has_mlp(kind):
+                return None
             if kind != MOE:
                 return {"wi": e(d, ncol), "wo": e(ffp, d)}
             Ep = plan.experts_padded
@@ -156,12 +185,21 @@ class Model(nn.Module):
                         "a_param": torch.empty((d,), dtype=torch.float32,
                                                device=device),
                         "w_out": e(d, d)}
+            if kind == MLSTM:
+                up, H = 2 * d, cfg.num_heads
+                return {"wq": e(d, up), "wk": e(d, up), "wv": e(d, up),
+                        "w_if": e(d, 2 * H), "w_og": e(d, up),
+                        "w_out": e(up, d)}
+            if kind == SLSTM:
+                return {"w_zifo": e(d, 4 * d), "r_diag": e(4, d),
+                        "w_out": e(d, d)}
             return {"wq": e(d, plan.q_heads_padded * dh),
                     "wk": e(d, plan.kv_padded * dh),
                     "wv": e(d, plan.kv_padded * dh),
                     "wo": e(plan.q_heads_padded * dh, d)}
 
-        blocks = [Block(kind, mixer(kind), mlp(kind), e(d), e(d))
+        blocks = [Block(kind, mixer(kind), mlp(kind), e(d),
+                        e(d) if B.has_mlp(kind) else None)
                   for kind in cfg.pattern]
         head = None if cfg.tie_embeddings else e(d, plan.vocab_padded)
         return cls(cfg, plan, e(plan.vocab_padded, d), blocks, e(d), head)
@@ -174,7 +212,7 @@ class Model(nn.Module):
     def init_decode_caches(self, batch: int, max_seq: int,
                            page_tokens: int = PAGE_TOKENS) -> List:
         """One slot-partitioned header-centric cache per attention layer,
-        one zero ``RecState`` per recurrent layer."""
+        one fresh ``RecState`` per recurrent layer."""
         return [B.init_block_cache(blk.kind, self.cfg, self.plan, batch,
                                    max_seq, page_tokens, device=self.device)
                 for blk in self.layers]
@@ -393,7 +431,7 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
               for w, v in enumerate(views)]
         poss = [None if v is None else part(positions, lay, mesh, w)
                 for w, v in enumerate(views)]
-        if layer.kind == RGLRU:
+        if layer.kind in B.RECURRENT_KINDS:
             outs = rec_workers(layer, hs, views, mode, mesh)
         elif lay.sp > 1 and mode == "decode":
             outs = B.attention_decode_sp(layer.attn, hs, cfg, plan, poss,
@@ -423,6 +461,10 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                                              first_chunk=first_chunk)
                 outs.append(o)
         xs = _residual(xs, outs, lay.tp, mesh)
+        if not layer.has_mlp:
+            if on_layer is not None:
+                on_layer(i)
+            continue
         xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
         here = (layer.mlp_layout, mesh)
         tp, ff = I.mlp_shards(layer.mlp_layout.tp, S, cfg.d_ff)
@@ -499,19 +541,24 @@ def rec_workers(layer: "I.WorkerLayer", hs: List[Optional[torch.Tensor]],
     """A recurrent layer's mixer on every worker of its assembly (hs:
     each worker's normed rows, None where it holds none; views: their
     state rows, updated in place).  Each worker multiplies by its column
-    shard of ``w_in``, the TP group all-gathers ``u = [x | y]``, and
-    every worker of the group runs the conv, the gates and the scan on
-    it (its own copy of the state stays equal to its peers'); each then
-    multiplies its row slice of ``y`` by its ``w_out`` shard.  Returns
-    the partial outputs (before the TP all-reduce)."""
+    shards of the input weights (``blocks.rec_project``: RGLRU's
+    ``w_in``, MLSTM's ``wq`` / ``wk`` / ``wv``, SLSTM's ``w_zifo``), the
+    TP group all-gathers the products, and every worker of the group
+    runs the whole cell on them (RGLRU's conv, gates and scan; the
+    mLSTM or sLSTM recurrence over every head), so its own copy of the
+    state stays equal to its peers'; each then takes its own columns of
+    the cell's output (gated by its ``w_og`` shard in an mLSTM) times its
+    ``w_out`` row shard.  Returns the partial outputs (before the TP
+    all-reduce)."""
     lay = layer.attn_layout
-    us = [None if v is None else hs[w] @ layer.attn[w]["w_in"]
+    us = [None if v is None else B.rec_project(layer.kind, layer.attn[w],
+                                               hs[w])
           for w, v in enumerate(views)]
     if lay.tp > 1:
         us = mesh.group_all_gather(us, lay.tp, dim=-1)
     return [None if v is None
-            else B.rglru_mix(layer.attn[w], us[w], v, mode,
-                             part=(w % lay.tp, lay.tp))
+            else B.rec_mix(layer.kind, layer.attn[w], us[w], hs[w], v, mode,
+                           part=(w % lay.tp, lay.tp))
             for w, v in enumerate(views)]
 
 

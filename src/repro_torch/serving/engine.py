@@ -59,11 +59,13 @@ a guest's overflow pages (``host_spilled``), and the guest serves the
 request on an extended view of its slot and the hosted pages
 (``admit_spilled``).
 
-A recurrent (RGLRU) layer keeps each slot's state in a ``RecState``
-instead of pages.  A chunked prefill carries it from chunk to chunk in
-its progress record (``"rec"``, the reference's carry): a fresh state
-at the first chunk, the last chunk's state restored over the batched
-decode's filler before each later one, as the reference's
+A recurrent (RGLRU, MLSTM, SLSTM) layer keeps each slot's state in a
+``RecState`` instead of pages; an MLSTM or SLSTM layer has no MLP, so a
+worker engine places, relays out and moves none for it.  A chunked
+prefill carries the state from chunk to chunk in its progress record
+(``"rec"``, the reference's carry): a fresh state at the first chunk,
+the last chunk's state restored over the batched decode's filler
+before each later one, as the reference's
 ``_sanitize_tree`` does; an export mid-prefill takes the carry along.
 Spill never moves recurrent state (the slot's own rows serve the
 extended view).
@@ -101,7 +103,8 @@ from repro_torch.core.scheduler import PrefillPolicy
 from repro_torch.launch.mesh import (InstanceMesh, Layout, Worker,
                                      resolve_device, workers_of)
 from repro_torch.models import model as M
-from repro_torch.models.blocks import ATTENTION_KINDS, slot_pages
+from repro_torch.models.blocks import (ATTENTION_KINDS, init_block_cache,
+                                      slot_pages)
 from repro_torch.paged import pool as pp
 from repro_torch.paged.recurrent import RecState
 from repro_torch.serving.request import ServeRequest, State
@@ -252,14 +255,14 @@ class Engine:
                       for l in source.layers]
             static, share = source.static[0], False
         else:
-            blocks = [(b.kind, b.ln1, b.ln2, dict(b.mixer), dict(b.mlp))
-                      for b in source.layers]
+            blocks = [b.parts() for b in source.layers]
             static, share = source.static(), True
 
         self.layers, self.static = I.place_replicas(
-            blocks, static, self.mesh, share, self.plan.kv_slots,
-            self.page_tokens, self.cfg.resolved_head_dim, self.max_batch,
-            self._slot_pages)
+            blocks, static, self.mesh, share, self.max_batch,
+            lambda kind, rows, dev: init_block_cache(
+                kind, self.cfg, self.plan, rows, self.max_seq_alloc,
+                self.page_tokens, device=dev))
 
     def _slot_pages(self, kind: str) -> int:
         """Pages a slot of a layer of ``kind`` holds at the current
@@ -549,15 +552,16 @@ class Engine:
                 for layer in self.layers if layer.cache[0].recurrent]
 
     def _restore_carry(self, slot: int, prog: Dict) -> None:
-        """Before a chunk: a fresh recurrent state at the first chunk,
-        else the last chunk's carry restored over whatever the batched
-        decode's filler left in the slot's rows (the reference's
-        ``_sanitize_tree``)."""
+        """Before a chunk: a fresh recurrent state at the first chunk
+        (each leaf at its start value: mLSTM's ``m`` at ``NEG_INF``,
+        sLSTM's ``n`` at 1), else the last chunk's carry restored over
+        whatever the batched decode's filler left in the slot's rows
+        (the reference's ``_sanitize_tree``)."""
         rec = prog.get("rec")
         for i, views in enumerate(self._slot_rec_views(slot)):
             for v in views:
                 if prog["done"] == 0 or rec is None:
-                    v.zero_()
+                    v.fresh_()
                 else:
                     v.copy_(rec[i])
 

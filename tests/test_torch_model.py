@@ -112,8 +112,10 @@ def test_random_init_is_seeded_and_padded():
     assert not a.lm_head[:, plan.vocab:].any()
     B.check_kind("moe")                             # ported: no raise
     B.check_kind("rglru")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        B.check_kind("mlstm")
+    B.check_kind("mlstm")
+    B.check_kind("slstm")
+    with pytest.raises(NotImplementedError, match="unknown kind"):
+        B.check_kind("mamba")
 
 
 @pytest.mark.parametrize("builder", ["build", "random", "empty",

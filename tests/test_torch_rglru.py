@@ -430,8 +430,10 @@ def test_rglru_is_ported_and_a_param_stays_fp32():
     model = Model.empty(cfg, tplan(cfg, 1), device="cpu")
     assert model.layers[0].rec.a_param.dtype == torch.float32
     assert model.layers[0].rec.w_in.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        B.check_kind("mlstm")
+    B.check_kind("mlstm")
+    B.check_kind("slstm")
+    with pytest.raises(NotImplementedError, match="unknown kind"):
+        B.check_kind("mamba")
 
 
 # ---------------------------------------------------------------------------
