@@ -233,13 +233,34 @@ exits non-zero:
               to ``split_cache`` (``xl_exact_moves``); sessions' walls,
               state and weight bytes; then the serve CLI on it
               (``XL_CLI``).
+23. enc-parity — whisper-tiny at full width and depth (4 encoder and 4
+              decoder layers, 1500 frames) and phi-3-vision-4.2b at full
+              width, 3 layers, fp32, card against CPU engines: 3
+              requests (whisper's each with its own frames, two of
+              phi-3-vision's with 576 patches), 16 greedy tokens each:
+              equal streams, first-token logits within ``ENC_TOL``.
+24. whisper-serve — full-size whisper-tiny in bf16 on one device: 4
+              slots of 448 tokens, 8 requests of 1500 frames and 4-224
+              tokens, 64 new; kernel 3's bidirectional branch (the
+              encoder) and kernels 1 and 3 (the decoder) must launch.
+              Weights, cross K/V bytes a slot, TTFT, TPOT, a profiled
+              decode step, one request's encoding against its bound
+              and a step's cross-attention (plain PyTorch).
+25. vlm-serve — full-size phi-3-vision-4.2b (32 layers) in bf16 on one
+              device: 4 slots of 4096, 8 requests of 64-2048 tokens,
+              half with 576 patches; the same numbers and peak memory.
+26. enc-workers — both models on two workers at TP1x2 in fp32 at 2
+              layers: the card's streams equal the CPU's and the
+              one-device engine's; ``transform(2)`` is refused.
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
 shape phases 12-14 give the kernels (``slice7_cases``: each engine's
 FFN, decode, chunk and flash shapes at each of its degrees, and each
-KV migration, phase 4a's included), and granite's shapes on phases
-16-18 (``moe_cases``).  A shape census (``ShapeCensus``)
+KV migration, phase 4a's included), granite's shapes on phases
+16-18 (``moe_cases``) and whisper's on phases 23-26 (``enc_cases``:
+the flash kernel's bidirectional branch at 1500 frames, whose census
+key carries ``causal``).  A shape census (``ShapeCensus``)
 records the shape key of every kernel launch, phase by phase; its
 ``shape-census`` line
 fails the run if a phase launched a shape that neither the kernels
@@ -250,8 +271,10 @@ on phase 9's path, and by path: serve / transform-serve, cluster-serve,
 serve-shapes, cluster-spill, ladder-serve, replicated-serve,
 cluster-partial, calibrate, cluster-calibrated, layout-serve,
 cluster-layout, moe-serve, moe-transform, moe-cluster, moe-spill,
-rg-serve, rg-transform, xlstm-serve and xlstm-transform: 0 on the last
-two, which launch none of the six), and the last line
+rg-serve, rg-transform, xlstm-serve and xlstm-transform: 0 on those
+two, which launch none of the six; whisper-serve and vlm-serve, and
+the flash row whisper-serve's bidirectional launches), and the last
+line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
 """
@@ -388,12 +411,13 @@ def bound_ms(nbytes: float, flops: float, dtype):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def visible_pairs(qpos, kpos, window: int) -> int:
+def visible_pairs(qpos, kpos, window: int, causal: bool = True) -> int:
     """(query, key) pairs the mask lets through, from this run's
-    positions: (B, Sq) and (B, Sk) int tensors."""
+    positions: (B, Sq) and (B, Sk) int tensors (every stored key of a
+    bidirectional call)."""
     q = qpos[:, :, None].long()
     k = kpos[:, None, :].long()
-    ok = (k >= 0) & (k <= q)
+    ok = (k >= 0) & ((k <= q) | (not causal))
     if window > 0:
         ok &= k > q - window
     return int(ok.sum())
@@ -630,15 +654,22 @@ def case_chunk(dtype, S=512, done=3584, cap=4096, window=0, pad=0, Hq=32,
         library_ms=lib, bound_ms=bms, bound_by=by)
 
 
-def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128):
+def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128,
+               causal=True):
+    """Flash prefill over one S-token sequence; ``causal=False`` is the
+    bidirectional branch an encoder runs (every key visible, the last
+    key tile ragged where 64 does not divide S: its keys past S are
+    masked by position alone), held against SDPA with
+    ``is_causal=False``."""
     from repro_torch.kernels import flash_attention as FA
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(3)
     q = torch.randn((1, S, Hq, dh), generator=g, device=dev).to(dtype)
     k = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
     v = torch.randn((1, S, kvs, dh), generator=g, device=dev).to(dtype)
-    out = FA.flash_attention(q, k, v, window=window)
-    want = FA.plain(q, k, v, window=window)
+    kw = dict(window=window, causal=causal)
+    out = FA.flash_attention(q, k, v, **kw)
+    want = FA.plain(q, k, v, **kw)
     row_tol = FA.BF16_ROW_TOL if dtype == torch.bfloat16 else 0.0
     err = max_err("flash", out, want, dtype, row_tol=row_tol)
     rep = Hq // kvs
@@ -653,18 +684,19 @@ def case_flash(dtype, S=4096, window=0, Hq=32, kvs=8, dh=128):
     else:
         lib = time_ms(lambda: torch.nn.functional.
                       scaled_dot_product_attention(qd, kd, vd,
-                                                   is_causal=True), 20)
+                                                   is_causal=causal), 20)
     pos = pos[None]
-    pairs = visible_pairs(pos, pos, window)
+    pairs = visible_pairs(pos, pos, window, causal)
     bms, by = bound_ms(nbytes(q, k, v, out), 4 * pairs * Hq * dh, dtype)
     return dict(
         kernel="flash_attention",
-        case=f"S={S} window={window}" + heads_text(Hq, kvs, dh),
+        case=f"S={S} window={window}" + ("" if causal else " bidirectional")
+        + heads_text(Hq, kvs, dh),
         max_abs_err=err,
         tol=tol_text(dtype) + (f" + {row_tol:g}*rms(row)" if row_tol
                                else ""),
-        ms=time_ms(lambda: FA.flash_attention(q, k, v, window=window), 20),
-        plain_ms=time_ms(lambda: FA.plain(q, k, v, window=window), 3),
+        ms=time_ms(lambda: FA.flash_attention(q, k, v, **kw), 20),
+        plain_ms=time_ms(lambda: FA.plain(q, k, v, **kw), 3),
         library_ms=lib, bound_ms=bms, bound_by=by)
 
 
@@ -1067,7 +1099,7 @@ def phase_kernels():
         # slice 7's shapes: its engines' degrees and KV migrations; slice
         # 8's: the partial entries and the combine at its shard shapes
         cases += (slice7_cases() + slice8_cases() + moe_cases()
-                  + rg_cases())
+                  + rg_cases() + enc_cases())
         for model, fn, kw in cases + head_shape_cases():
             got = fn(dtype, **kw)
             for r in got if isinstance(got, list) else [got]:
@@ -3964,7 +3996,7 @@ def _moe_model(cfg, plan, seed: int, dev: str, on: str = "cpu"):
     from repro_torch.models.model import build
     model = build(cfg, plan, seed=seed, device=on)
     for blk in model.layers:
-        relayout_block_mlp(blk.mlp, cfg.d_ff, plan.max_tp)
+        relayout_block_mlp(blk.mlp, cfg.d_ff, plan.max_tp, cfg.activation)
     return model.to(dev)
 
 
@@ -4572,7 +4604,7 @@ def phase_rg_parity(dev: str = "cuda", cfg=None, layers: int = 3,
         m = Model.empty(c, plan, device=d)
         m.load_state_dict(src)
         for blk in m.layers:
-            relayout_block_mlp(blk.mlp, c.d_ff, plan.max_tp)
+            relayout_block_mlp(blk.mlp, c.d_ff, plan.max_tp, c.activation)
         return m
 
     streams, logits, bits = {}, {}, {}
@@ -5473,6 +5505,425 @@ XL_CLI = ("--model", XL_MODEL, "--no-smoke", "--instances", "1",
 
 
 # ---------------------------------------------------------------------------
+# Slice 13: whisper-tiny (encoder, cross-attention), phi-3-vision (patches)
+# ---------------------------------------------------------------------------
+
+ENC_MODEL = "whisper-tiny"
+VLM_MODEL = "phi-3-vision-4.2b"
+#: first-token logits of the card against the CPU in fp32 (full width)
+ENC_TOL = 1e-4
+#: whisper's decoder holds 448 positions (its text context)
+WHISPER_CTX = 448
+
+
+def enc_cases():
+    """The kernel shapes of slice 13's phases: whisper's encoder (the
+    flash kernel's bidirectional branch over 1500 frames, Hq 6, kvs 6,
+    dh 64: 1500 = 23 * 64 + 28, so the last key tile is ragged), its
+    decoder's causal flash at the longest whisper-serve prompt and its
+    paged decode at whisper-serve's shape.  phi-3-vision's (dh 96) are
+    ``head_shape_cases``' flash and decode."""
+    h = dict(Hq=6, kvs=6, dh=64)
+    return [(ENC_MODEL, case_flash, dict(S=1500, causal=False, **h)),
+            (ENC_MODEL, case_flash, dict(S=224, **h)),
+            (ENC_MODEL, case_decode, dict(B=4, ctx=288, cap=WHISPER_CTX,
+                                          **h))]
+
+
+def _front_requests(cfg, gen, lens, new):
+    """Requests of ``lens`` tokens with their stub inputs (float32 host
+    tensors from ``gen``): every whisper request its frames (F, d),
+    every other phi-3-vision request (from the first) its patches (P,
+    d), the rest text only."""
+    from repro_torch.serving import ServeRequest
+    reqs = []
+    for i, p in enumerate(_prompts(gen, lens, cfg.vocab_size)):
+        kw = {}
+        if cfg.encoder is not None:
+            kw["frames"] = torch.randn((cfg.encoder.num_frames, cfg.d_model),
+                                       generator=gen)
+        if cfg.vision is not None and i % 2 == 0:
+            kw["patches"] = torch.randn((cfg.vision.num_patches,
+                                         cfg.d_model), generator=gen)
+        reqs.append(ServeRequest(p, max_new_tokens=new, **kw))
+    return reqs
+
+
+def _first_logits(model, req, max_seq: int, page_tokens: int):
+    """The first token's logits of one request, prefilled whole on a
+    fresh batch-1 cache of ``model``'s device."""
+    d = model.device
+    with torch.no_grad():
+        return model.prefill(
+            torch.tensor(req.prompt, device=d)[None],
+            model.init_decode_caches(1, max_seq, page_tokens),
+            frames=None if req.frames is None else req.frames.to(d)[None],
+            patches=None if req.patches is None
+            else req.patches.to(d)[None],
+            cross=model.init_cross_cache(1)).float().cpu()
+
+
+def _enc_models(c, plan, dev: str):
+    """One set of weights from seed 0, built on ``dev`` (the card) and
+    copied to the CPU: (model on dev, model on the CPU)."""
+    from repro_torch.models.model import Model, build
+    m = build(c, plan, seed=0, device=dev)
+    cpu = Model.empty(c, plan, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    return m, cpu
+
+
+def phase_enc_parity(dev: str = "cuda", cfgs=None, lens=(4, 60, 200),
+                     new: int = 16, vlm_layers: int = 3,
+                     page_tokens: int = 64):
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers, 1500 frames) and phi-3-vision-4.2b at full width and
+    ``vlm_layers`` layers (or ``cfgs``), fp32, the same weights and
+    requests on ``dev`` and on the CPU through ``Engine``: 3 requests of
+    ``lens`` tokens, each whisper request with its own frames, the first
+    and third phi-3-vision requests with 576 patches and the second text
+    only; ``new`` greedy tokens each.  Streams must be equal and every
+    request's first-token logits within ``ENC_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.serving import Engine
+
+    t0 = time.monotonic()
+    out = {}
+    cfgs = cfgs or (get_config(ENC_MODEL), dataclasses.replace(
+        get_config(VLM_MODEL), num_layers=vlm_layers))
+    for c in cfgs:
+        c, name = dataclasses.replace(c, dtype="float32"), c.name
+        plan = make_plan(c, 1)
+        max_seq = WHISPER_CTX if c.encoder is not None else 1024
+        models = dict(zip((dev, "cpu"), _enc_models(c, plan, dev)))
+        reqs = {d: _front_requests(c, torch.Generator().manual_seed(83),
+                                   lens, new) for d in (dev, "cpu")}
+        streams, firsts = {}, {}
+        for d, model in models.items():
+            eng = Engine(c, params=model, max_batch=4, max_seq=max_seq,
+                         page_tokens=page_tokens, device=d)
+            streams[d] = _drive(eng, reqs[d])
+            firsts[d] = [_first_logits(model, r, max_seq, page_tokens)
+                         for r in reqs[d]]
+            del eng
+        assert streams[dev] == streams["cpu"], (name, streams)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(firsts[dev], firsts["cpu"]))
+        assert err <= ENC_TOL, (name, "first-token logits", err)
+        out[name] = {"layers": c.num_layers, "d_model": c.d_model,
+                     "patches": [r.n_patches for r in reqs[dev]],
+                     "frames": (None if c.encoder is None
+                                else c.encoder.num_frames),
+                     "streams_equal": True,
+                     "first_token_logit_max_abs_err": err}
+        del models
+        if dev == "cuda":
+            free_card()
+    emit(phase="enc-parity", dtype="float32", prompts=list(lens),
+         new_tokens=new, tol=ENC_TOL, models=out,
+         seconds=time.monotonic() - t0)
+
+
+def encoder_cost(cfg, plan) -> tuple:
+    """(bytes, FLOPs) of encoding one request: the frontend, the
+    encoder's weights and the cross K/V weights read once, the frames
+    read and every group's K/V written once; the products of
+    ``frame_proj``, each layer's q/k/v/o, bidirectional attention over
+    every frame pair and MLP, and the cross K/V."""
+    F, d, ff = cfg.encoder.num_frames, cfg.d_model, plan.d_ff_padded
+    Hq, kvs, dh = plan.q_heads_padded, plan.kv_slots, cfg.resolved_head_dim
+    L, G = cfg.encoder.num_layers, cfg.num_layers
+    layer_w = d * (Hq + 2 * kvs) * dh + Hq * dh * d + 2 * d * ff
+    weights = d * d + L * layer_w + G * 2 * d * kvs * dh
+    flops = (2 * F * d * d + L * (2 * F * layer_w + 4 * F * F * Hq * dh)
+             + G * 2 * F * d * 2 * kvs * dh)
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    byt = weights * el + F * d * 4 + G * 2 * F * kvs * dh * el
+    return byt, flops
+
+
+def held_ms(fn, iters: int = 2) -> tuple:
+    """(device ms, host ms) of a call of ``fn``, a chain of a hundred or
+    more small launches: the host time of one call is measured first,
+    and the card is held (``hold_card``) well past the host's time to
+    enqueue ``iters`` calls, so the events time the card's own work.
+    ``iters`` stays small: CUDA queues about a thousand launches ahead
+    of the card and then makes the host wait, so longer chains would
+    time the host's launch rate again."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    host_ms = (time.monotonic() - t0) * 1e3
+    torch.cuda.synchronize()
+    # hold_card(n) sleeps about 0.11 ms a unit on an H100's clock
+    return time_ms(fn, iters, hold=int(30 * host_ms) + 1), host_ms
+
+
+def enc_split(model, frames, rows: int, dev: str) -> dict:
+    """Device time (CUDA events, the card held ahead of the host:
+    ``held_ms``) and host time of one request's encoding
+    (``run_encoder`` and ``encode_cross_kv``) beside its bound, and of
+    every group's cross-attention at a decode step of ``rows`` rows
+    (plain PyTorch: no TPU kernel computes it)."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    cfg, plan = model.cfg, model.plan
+    st = model.static()
+    f = frames.to(dev)[None]
+
+    def encode():
+        return M.encode_cross_kv(st["cross"], cfg, plan,
+                                 M.run_encoder(st["encoder"], cfg, plan, f))
+
+    cross = model.init_cross_cache(rows)
+    x = torch.randn((rows, 1, cfg.d_model), device=dev).to(model.embed.dtype)
+
+    def cross_step():
+        for g, p in enumerate(st["cross"]):
+            B.cross_attention(p, x, cfg, plan, cross.k[g], cross.v[g])
+
+    with torch.no_grad():
+        ms, host = held_ms(encode)
+        cross_ms, cross_host = held_ms(cross_step)
+    byt, flops = encoder_cost(cfg, plan)
+    bms, by = bound_ms(byt, flops, model.embed.dtype)
+    return {"encoder_ms_a_request": ms, "encoder_host_ms": host,
+            "encoder_bound_ms": bms, "encoder_bound_by": by,
+            "encoder_gflop": flops / 1e9,
+            "cross_attention_ms_a_decode_step": cross_ms,
+            "cross_attention_host_ms": cross_host,
+            "cross_attention_rows": rows}
+
+
+def enc_launch_counts() -> dict:
+    """``launch_counts`` and, of the flash launches, the bidirectional
+    branch's (an encoder's)."""
+    from repro_torch.kernels import flash_attention as FA
+    return {**launch_counts(),
+            "flash_attention_bidirectional": FA.bidirectional_launches}
+
+
+def _serve_run(eng, reqs, dev: str) -> float:
+    """Submit ``reqs``, run the engine until it drains; the wall."""
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    sync(dev)
+    return time.monotonic() - t0
+
+
+def _front_profile(eng, cfg, gen, lens, steps: int = 8) -> dict:
+    """``profile_steps`` over a full batch (one request a slot, with
+    its stub inputs), decoding after every prompt's first token."""
+    reqs = _front_requests(cfg, gen, lens, 2 * steps + 4)
+    for r in reqs:
+        eng.submit(r)
+    while any(len(r.generated) == 0 for r in reqs):
+        eng.step()
+    out = profile_steps(eng, steps)
+    eng.run_until_done()
+    return out
+
+
+def _front_serve(smi: str, dev: str, cfg, phase: str, lens, new: int,
+                 max_seq: int, page_tokens: int, seed: int, prof_len: int,
+                 check, fields) -> dict:
+    """One frontend model at full size in bf16 with random weights on
+    one device through ``Engine.step``: 4 slots of ``max_seq`` tokens,
+    a warm-up request, then one request a prompt length of ``lens``
+    (whole prompts with their stub inputs; more requests than slots, so
+    slots are reused), ``new`` greedy tokens each.  On the card
+    ``check(launches)`` holds the launches, and a profiled decode step
+    of 4 rows (prompts of ``prof_len``) is printed beside its bound (the
+    weights read once).  ``fields(eng, model, reqs)`` adds the model's
+    own numbers.  Prints weights, TTFT, TPOT, tokens/s, peak memory and
+    the launches; returns the launches."""
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models.model import build
+    from repro_torch.serving import Engine
+
+    plan = make_plan(cfg, 1)
+    t0 = time.monotonic()
+    model = build(cfg, plan, seed=0, device=dev)
+    sync(dev)
+    t_init = time.monotonic() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in model.parameters()) / 1e9
+    eng = Engine(cfg, params=model, max_batch=4, max_seq=max_seq,
+                 page_tokens=page_tokens, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    eng.submit(_front_requests(cfg, gen, (16,), 2)[0])
+    eng.run_until_done()
+    reqs = _front_requests(cfg, gen, lens, new)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    wall = _serve_run(eng, reqs, dev)
+    launches = enc_launch_counts()
+    for r in reqs:
+        assert len(r.generated) == new, (len(r.prompt), len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    if dev == "cuda":
+        check(launches)
+    out = {"phase": phase, "model": cfg.name, "dtype": cfg.dtype,
+           "prompts": list(lens), "new_tokens": new,
+           "slots": eng.max_batch, "max_seq": max_seq,
+           "weights_gb": weights_gb, "weights_init_s": t_init,
+           "wall_s": wall,
+           "ttft_s": [r.ttft for r in reqs], "tpot_s": [r.tpot for r in reqs],
+           "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+           "launches": launches, "gpu": smi}
+    if dev == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        prof = _front_profile(eng, cfg, gen, (prof_len,) * 4)
+        out["decode_step"] = {
+            "rows": 4, "unprofiled_wall_ms": prof["unprofiled_wall_ms"],
+            "profiled_wall_ms": prof["wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "weights_read_bound_ms": weights_gb * 1e9 / HBM_BPS * 1e3}
+        emit(phase="profile", gpu=smi, model=cfg.name, what="decode step",
+             batch=4, **prof)
+    out.update(fields(eng, model, reqs))
+    emit(**out)
+    del eng, model
+    if dev == "cuda":
+        free_card()
+    return launches
+
+
+def phase_whisper_serve(smi: str, dev: str = "cuda", cfg=None,
+                        lens=(4, 32, 64, 96, 128, 160, 192, 224),
+                        new: int = 64, page_tokens: int = 64):
+    """Full-size whisper-tiny (4 encoder and 4 decoder layers, d 384,
+    vocab 51865) through ``_front_serve``: slots of ``WHISPER_CTX``
+    tokens, 8 requests with 1500 frames each and prompts of 4-224
+    tokens.  Each request's encoder runs the flash kernel's
+    bidirectional branch, its decoder prefill the causal one and its
+    decode the paged decode kernel: those launches must rise.  Adds
+    cross K/V bytes a slot and, on the card, one request's encoding
+    against its bound and a decode step's cross-attention
+    (``enc_split``)."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config(ENC_MODEL)
+    L = cfg.encoder.num_layers
+
+    def check(launches):
+        assert launches["flash_attention_bidirectional"] == L * len(lens), (
+            launches)
+        assert launches["flash_attention"] == (L + cfg.num_layers) * len(
+            lens), launches
+        assert launches["paged_attention"] > 0, launches
+
+    def fields(eng, model, reqs):
+        out = {"encoder_layers": L, "decoder_layers": cfg.num_layers,
+               "frames": cfg.encoder.num_frames,
+               "cross_kv_bytes_a_slot": eng.cross.nbytes // eng.max_batch}
+        if dev == "cuda":
+            out["split"] = enc_split(model, reqs[0].frames, 4, dev)
+        return out
+
+    return _front_serve(smi, dev, cfg, "whisper-serve", lens, new,
+                        WHISPER_CTX, page_tokens, 89, 64, check, fields)
+
+
+def phase_vlm_serve(smi: str, dev: str = "cuda", cfg=None,
+                    lens=(64, 2048, 512, 1024, 1536, 256, 768, 128),
+                    new: int = 64, max_seq: int = 4096,
+                    page_tokens: int = 64):
+    """Full-size phi-3-vision-4.2b (32 layers, d 3072, 32 heads of 96,
+    vocab 32064, an untied head) through ``_front_serve``: slots of
+    ``max_seq`` tokens, 8 requests of 64-2048 tokens, the first, third,
+    fifth and seventh with 576 patches before their prompt, the rest
+    text only (the reference's engine never chunks such a model).
+    Kernels 1 and 3 must launch, the bidirectional branch never.  Adds
+    KV bytes a token and the pools' bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import kv_bytes_per_token
+
+    cfg = cfg or get_config(VLM_MODEL)
+
+    def check(launches):
+        assert launches["flash_attention"] == cfg.num_layers * len(lens), (
+            launches)
+        assert launches["paged_attention"] > 0, launches
+        assert launches["flash_attention_bidirectional"] == 0, launches
+
+    def fields(eng, model, reqs):
+        return {"layers": cfg.num_layers,
+                "patches": [r.n_patches for r in reqs],
+                "kv_bytes_a_token": kv_bytes_per_token(cfg),
+                "kv_gb_4_slots": sum(c.nbytes for c in eng.caches) / 1e9}
+
+    return _front_serve(smi, dev, cfg, "vlm-serve", lens, new, max_seq,
+                        page_tokens, 97, 512, check, fields)
+
+
+def phase_enc_workers(dev: str = "cuda", cfgs=None, lens=(4, 60, 200),
+                      new: int = 8, layers: int = 2, page_tokens: int = 64):
+    """Both models on two workers at TP1x2 (each worker its own slots,
+    the encoder, cross-attention weights and ``vision_proj`` whole on
+    both, each worker's cross memory its own slots'), fp32 at full width
+    and ``layers`` layers (whisper also ``layers`` encoder layers): the
+    streams of the card's worker engine equal the CPU's worker engine
+    and the card's one-device engine on the same weights, and
+    ``transform(2)`` raises ``NotImplementedError`` (the reference has
+    no per-layer path for these models).  ``cfgs``: other configs (a dry
+    run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import EncoderConfig
+    from repro_torch.core.padding import make_plan
+    from repro_torch.serving import Engine
+
+    t0 = time.monotonic()
+    out = {}
+    for base in cfgs or (get_config(ENC_MODEL), get_config(VLM_MODEL)):
+        name = base.name
+        over = dict(num_layers=layers, dtype="float32")
+        if base.encoder is not None:
+            over["encoder"] = EncoderConfig(layers, base.encoder.num_frames)
+        c = dataclasses.replace(base, **over)
+        plan = make_plan(c, 2, mode="page")
+        # no d_ff padding at 2 shards: the weights' MLP layout is the
+        # padded FFN's and the one device's alike
+        assert plan.d_ff_padded == c.d_ff, plan
+        max_seq = WHISPER_CTX + 64 if c.encoder is not None else 1024
+        models = dict(zip((dev, "cpu"), _enc_models(c, plan, dev)))
+        streams = {}
+        for where, d, kw in (("TP1x2", dev, dict(devices=[dev] * 2)),
+                             ("TP1x2", "cpu", dict(devices=["cpu"] * 2)),
+                             ("one device", dev, dict(device=dev))):
+            eng = Engine(c, params=models[d], max_batch=4, max_seq=max_seq,
+                         page_tokens=page_tokens, plan=plan, **kw)
+            streams[where, d] = _drive(eng, _front_requests(
+                c, torch.Generator().manual_seed(101), lens, new))
+            if where == "TP1x2":
+                try:
+                    eng.transform(2)
+                except NotImplementedError as e:
+                    refusal = str(e)
+                else:
+                    raise AssertionError(f"{name}: transform(2) ran")
+            del eng
+        want = streams["TP1x2", "cpu"]
+        assert all(s == want for s in streams.values()), (name, streams)
+        out[name] = {"layers": c.num_layers, "d_model": c.d_model,
+                     "streams_equal": sorted(f"{w} on {d}"
+                                             for w, d in streams),
+                     "transform_refused": refusal}
+        del models
+        if dev == "cuda":
+            free_card()
+    emit(phase="enc-workers", dtype="float32", prompts=list(lens),
+         new_tokens=new, models=out, seconds=time.monotonic() - t0)
+
+
+# ---------------------------------------------------------------------------
 # Shape census: every kernel shape the phases launch was held against its
 # plain version
 # ---------------------------------------------------------------------------
@@ -5511,7 +5962,7 @@ def _combine_key(parts, rows, kvs, splits, rep, dh, dtype):
 
 def _flash_key(q, k, v, causal=True, window=0):
     return (("Hq", q.shape[2]), ("kvs", k.shape[2]), ("dh", q.shape[3]),
-            ("windowed", window > 0))
+            ("windowed", window > 0), ("causal", bool(causal)))
 
 
 def _ffn_key(x, wi, wo, *, tp, ff, activation="swiglu", decode=None):
@@ -5560,7 +6011,8 @@ CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
 #: checked there, the rest only by the kernels phase
 PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
                  "spill-parity", "ladder-parity", "layout-parity",
-                 "moe-parity", "rg-parity", "xlstm-parity")
+                 "moe-parity", "rg-parity", "xlstm-parity", "enc-parity",
+                 "enc-workers")
 
 
 class ShapeCensus:
@@ -5627,6 +6079,7 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels import page_migrate as PM
     from repro_torch.kernels import paged_attention as PA
     PA.launches = CP.launches = FA.launches = PF.launches = 0
+    FA.bidirectional_launches = 0
     PM.copy_launches = PM.gather_launches = 0
     PA.partial_launches = CP.partial_launches = PA.combine_launches = 0
 
@@ -6017,6 +6470,11 @@ def main():
           "xlstm-transform": run("xlstm-transform", phase_xl_transform,
                                  smi)}
     phase_serve_cli(XL_CLI)
+    # slice 13: whisper-tiny (encoder, cross-attention), phi-3-vision
+    run("enc-parity", phase_enc_parity)
+    enc = {"whisper-serve": run("whisper-serve", phase_whisper_serve, smi),
+           "vlm-serve": run("vlm-serve", phase_vlm_serve, smi)}
+    run("enc-workers", phase_enc_workers)
     emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []
@@ -6046,7 +6504,11 @@ def main():
                 "cluster-layout": clayout[name],
                 **{k: v.get(name, 0) for k, v in moe.items()},
                 **{k: v.get(name, 0) for k, v in rg.items()},
-                **{k: v.get(name, 0) for k, v in xl.items()}}})
+                **{k: v.get(name, 0) for k, v in xl.items()},
+                **{k: v.get(name, 0) for k, v in enc.items()}}})
+        if name == "flash_attention":
+            kernels[-1]["launches_by_path"]["whisper-serve, bidirectional"] \
+                = enc["whisper-serve"]["flash_attention_bidirectional"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

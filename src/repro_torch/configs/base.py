@@ -91,6 +91,13 @@ class ModelConfig:
         return self.encoder is not None
 
     @property
+    def has_frontend(self) -> bool:
+        """An encoder or a vision frontend: such a model prefills whole
+        prompts and keeps its degree (no chunking, no per-layer
+        transformation), as in the reference."""
+        return self.encoder is not None or self.vision is not None
+
+    @property
     def pattern(self) -> Tuple[str, ...]:
         """The per-layer pattern, tiled/truncated to exactly num_layers."""
         if not self.layer_pattern:

@@ -426,34 +426,34 @@ def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
     ``mlp`` None without an MLP) and its own empty cache of ``batch/W``
     slots, ``cache_of(kind, rows, device)`` (a paged pool, a window's
     ring, or a fresh recurrent state), and the replicated ``static``
-    weights (embed, final_ln, lm_head).  With ``share`` worker 0 takes
-    the given tensors and every other worker a copy; without it every
-    worker copies."""
+    weights (embed, final_ln, lm_head; a vision model's
+    ``vision_proj``; an encoder-decoder's ``encoder`` and ``cross``
+    trees, dicts and lists of tensors, placed whole on every worker).
+    With ``share`` worker 0 takes the given tensors and every other
+    worker a copy; without it every worker copies."""
     devs = mesh.devices
 
     def per_worker(t):
         if t is None:
             return [None] * len(devs)
+        if isinstance(t, dict):
+            cols = {k: per_worker(v) for k, v in t.items()}
+            return [{k: v[w] for k, v in cols.items()}
+                    for w in range(len(devs))]
+        if isinstance(t, list):
+            cols = [per_worker(v) for v in t]
+            return [[c[w] for c in cols] for w in range(len(devs))]
         return [own_copy(t.detach(), d, w) if share
                 else t.detach().to(d, copy=True)
                 for w, d in enumerate(devs)]
 
-    def dicts(p):
-        if p is None:
-            return [None] * len(devs)
-        cols = {k: per_worker(v) for k, v in p.items()}
-        return [{k: v[w] for k, v in cols.items()} for w in range(len(devs))]
-
     tp1 = Layout(1, 1)
     rows = batch // len(devs)
     layers = [WorkerLayer(kind, tp1, tp1, per_worker(ln1), per_worker(ln2),
-                          dicts(attn), dicts(mlp),
+                          per_worker(attn), per_worker(mlp),
                           [cache_of(kind, rows, dev) for dev in devs], mesh)
               for kind, ln1, ln2, attn, mlp in blocks]
-    cols = {k: None if v is None else per_worker(v)
-            for k, v in static.items()}
-    return layers, [{k: None if v is None else v[w]
-                     for k, v in cols.items()} for w in range(len(devs))]
+    return layers, per_worker(static)
 
 
 def identity_page_table(batch: int, mps: int, device) -> torch.Tensor:
@@ -586,7 +586,8 @@ class InstanceGroup:
             params = M.build(cfg, self.plan, seed,
                              device=self.mesh.devices[0])
             for blk in params.layers:
-                relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp)
+                relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp,
+                                   cfg.activation)
         self.layers, self.static = place_replicas(
             [b.parts() for b in params.layers], params.static(), self.mesh,
             True, self.batch,

@@ -79,12 +79,13 @@ def relayout_mlp_for_tp(wi: torch.Tensor, wo: torch.Tensor, ff: int,
 MLP_PAIRS = (("wi", "wo"), ("shared_wi", "shared_wo"))
 
 
-def relayout_block_mlp(mlp, ff: int, tp: int) -> None:
-    """Re-lay, in place, every gated weight pair of one layer's ``mlp``
+def relayout_block_mlp(mlp, ff: int, tp: int, activation: str) -> None:
+    """Re-lay, in place, every weight pair of one layer's gated ``mlp``
     (a dict or ``nn.ParameterDict`` of the reference's layout) for ``tp``
     Eq. 2 shards (``relayout_mlp_for_tp``); a router stays as it is.
-    A layer without an MLP (``mlp`` None) has nothing to re-lay."""
-    if mlp is None:
+    A layer without an MLP (``mlp`` None) has nothing to re-lay, nor has
+    an ungated ``activation`` (a gelu MLP, which no worker shards)."""
+    if mlp is None or activation not in ("swiglu", "geglu"):
         return
     for a, b in MLP_PAIRS:
         if a in mlp:

@@ -10,8 +10,10 @@ import torch
 
 from repro_torch.kernels import _build, ops, ref
 
-#: kernel launches since the last reset (the card only)
+#: kernel launches since the last reset (the card only); of them, those
+#: of the bidirectional branch (``causal=False``: an encoder's)
 launches = 0
+bidirectional_launches = 0
 plain = ref.flash_attention_ref
 
 HEAD_DIMS = (64, 96, 128, 160, 256)
@@ -37,10 +39,13 @@ def supports(Hq: int, kvs: int, dh: int, dtype: torch.dtype) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh), Hq % Hkv == 0; positions
-    are 0..S-1 and S may be any length.  Returns (B, S, Hq, dh)."""
+    are 0..S-1 and S may be any length.  ``causal=False`` lets every
+    query see every key (an encoder's self-attention; the kernel's keys
+    past S are masked by position, not by the causal frontier).
+    Returns (B, S, Hq, dh)."""
     if not ops.on_card(q, k, v):
         return plain(q, k, v, causal=causal, window=window)
-    global launches
+    global launches, bidirectional_launches
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
@@ -62,4 +67,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ops.stream(q.device))
     _build.check(err, "flash attention launch")
     launches += 1
+    bidirectional_launches += not causal
     return out

@@ -27,6 +27,13 @@ which fits one H100 as one instance of one worker: ``--arch qwen2.5-32b
 --no-smoke --instances 1 --workers 1 --max-seq 8192``.  ``--model`` is
 another name for ``--arch``: ``--model xlstm-1.3b --no-smoke`` serves
 xLSTM[7:1] (42 mLSTM and 6 sLSTM blocks, no MLP) the same way.
+
+An encoder-decoder (``--arch whisper-tiny``) or a vision model (``--arch
+phi-3-vision-4.2b``) serves with stub frontend inputs drawn from
+``--seed``: every request's frames, every other request's patches (the
+rest text only).  Such a model never changes degree (the reference's
+per-layer paths refuse it), so a trace with long requests, which makes
+the scheduler transform, is refused at start: pass ``--long-every 0``.
 """
 from __future__ import annotations
 
@@ -40,26 +47,40 @@ from repro_torch.configs.registry import all_configs
 from repro_torch.core.scheduler import SCHEDULERS, PrefillPolicy, ScaleUp
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.serving.cluster import ClusterEngine
+from repro_torch.serving.engine import live_change_refusal
 from repro_torch.serving.request import ServeRequest
 
 
 def build_trace(n: int, long_every: int, cluster: ClusterEngine,
                 gen_tokens: int, seed: int = 0) -> list:
     """Mixed short/long ServeRequests sized against the cluster's
-    admission ceilings: shorts fit a TP1 instance, longs need max TP."""
+    admission ceilings: shorts fit a TP1 instance, longs need max TP.
+    An encoder-decoder's requests carry frames, every other request of
+    a vision model patches (stub embeddings from a generator of their
+    own, seeded by ``seed``); the patches count in a request's
+    context."""
+    cfg = cluster.cfg
     rng = np.random.default_rng(seed)
+    stub = np.random.default_rng([seed, 1])
     base = cluster.engines[0].max_seq_at(1)
     full = cluster.engines[0].max_seq_at(cluster.engines[0].max_tp)
-    vocab = cluster.cfg.vocab_size
     reqs = []
     for i in range(n):
+        patches = None
+        if cfg.vision is not None and i % 2 == 0:
+            patches = stub.standard_normal(
+                (cfg.vision.num_patches, cfg.d_model), dtype=np.float32)
+        room = gen_tokens + (0 if patches is None else len(patches))
         if long_every and (i + 1) % long_every == 0:
-            plen = max(1, full - gen_tokens - 1)
+            plen = max(1, full - room - 1)
         else:
-            plen = int(rng.integers(2, max(3, base - gen_tokens)))
-        prompt = rng.integers(0, vocab, size=plen).tolist()
+            plen = int(rng.integers(2, max(3, base - room)))
+        prompt = rng.integers(0, cfg.vocab_size, size=plen).tolist()
+        frames = None if cfg.encoder is None else stub.standard_normal(
+            (cfg.encoder.num_frames, cfg.d_model), dtype=np.float32)
         reqs.append(ServeRequest(rid=i, prompt=prompt,
-                                 max_new_tokens=gen_tokens))
+                                 max_new_tokens=gen_tokens, frames=frames,
+                                 patches=patches))
     return reqs
 
 
@@ -97,11 +118,19 @@ def main(argv=None) -> None:
                     help="device of every worker (default the card)")
     ap.add_argument("--workers", type=int, default=8,
                     help="workers of --device in the pool")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the trace and of its stub frames and "
+                         "patches")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    reason = live_change_refusal(cfg)
+    if reason is not None and args.long_every:
+        ap.error(f"{cfg.name} serves at a static degree ({reason}): long "
+                 "requests would make the scheduler transform it; pass "
+                 "--long-every 0")
     devs = [resolve_device(args.device)] * args.workers
     w = len(devs) // args.instances
     policy = (PrefillPolicy(token_budget=args.prefill_budget,
@@ -121,7 +150,7 @@ def main(argv=None) -> None:
           f"TP{w} ceiling {cluster.engines[0].max_seq_at(w)} tok")
 
     trace = build_trace(args.requests, args.long_every, cluster,
-                        args.gen_tokens)
+                        args.gen_tokens, seed=args.seed)
     n_long = sum(1 for r in trace
                  if cluster.scheduler.is_long(r.total_tokens))
     print(f"[serve] trace: {len(trace)} requests ({n_long} long)")

@@ -19,6 +19,13 @@ plain ``torch.matmul``; so is the single-device engine's MLP
 (``torch.bmm`` over the capacity buffer) and combine are plain PyTorch,
 as the reference's are plain ``jnp``.
 
+An encoder-decoder's encoder layers are ATTN blocks whose attention is
+bidirectional (``attention_seq(..., causal=False)``: the flash kernel's
+non-causal branch), and each decoder layer group ends in a
+cross-attention sub-layer over the encoder's output (``cross_kv``,
+``cross_attention``: plain PyTorch, as the reference's is plain
+``jnp``).
+
 A recurrent block's mixer is the reference's ``apply_block_seq`` /
 ``apply_block_decode`` branch of its kind: RGLRU's (``rglru_mix``,
 ``repro/models/blocks.py:443-459``, ``:551-563``: input projection
@@ -149,14 +156,15 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   plan: PaddingPlan, positions: torch.Tensor,
-                  window: int = 0
+                  window: int = 0, causal: bool = True
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Whole-prompt self-attention (positions 0..S-1) through the flash
-    prefill kernel.  Returns (out, (k, v)) with k, v: (B, S, kv_slots,
+    prefill kernel: causal for a decoder, bidirectional (``causal=False``)
+    for an encoder.  Returns (out, (k, v)) with k, v: (B, S, kv_slots,
     dh) for the cache fill."""
     B, S, d = x.shape
     q, k, v = _project_qkv(p, x, cfg, plan, positions)
-    attn = FA.flash_attention(q, k, v, causal=True, window=window)
+    attn = FA.flash_attention(q, k, v, causal=causal, window=window)
     out = attn.reshape(B, S, -1) @ p["wo"]
     return out, (k, v)
 
@@ -297,6 +305,59 @@ def attention_chunk_sp(ps: List[Params], xs: List[Optional[torch.Tensor]],
         pp.adopt_chunk_pool(cache, positions[w], (s, sp))
         bufs[w], geo[w] = buf, g
     return _combine_sp(bufs, geo, ps, xs, mesh, lay)
+
+
+# ===========================================================================
+# Cross-attention sub-layer (an encoder-decoder's decoder)
+# ===========================================================================
+#
+# The reference's ``cross_attention`` and ``encode_cross_kv``
+# (``repro/models/model.py:188-214``): the decoder's queries attend over
+# the encoder's output, bidirectionally, with no rope on either side
+# (query and key positions all 0).  The reference computes it in plain
+# ``jnp`` and no TPU kernel takes it; the flash kernel needs as many keys
+# as queries.  So it is the plain ``layers.chunked_attention`` here.
+
+
+def init_cross(gen: torch.Generator, cfg: ModelConfig, plan: PaddingPlan,
+               device) -> Params:
+    """One decoder layer group's cross-attention: ``ln_x`` and the
+    attention weights {wq, wk, wv, wo} (the reference's
+    ``init_attention`` beside ``ln_x``)."""
+    return {"ln_x": torch.zeros((cfg.d_model,), dtype=dtype_of(cfg),
+                                device=device),
+            **init_attention(gen, cfg, plan, device)}
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig,
+             plan: PaddingPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The memory keys and values of one group: enc_out (B, F, d) ->
+    (B, F, kv_slots, dh) each, replicated kv heads repeated as the
+    reference's ``encode_cross_kv`` repeats them."""
+    dh = cfg.resolved_head_dim
+    B, F = enc_out.shape[:2]
+    k = (enc_out @ p["wk"]).reshape(B, F, plan.kv_padded, dh)
+    v = (enc_out @ p["wv"]).reshape(B, F, plan.kv_padded, dh)
+    if plan.kv_replication > 1:
+        k = torch.repeat_interleave(k, plan.kv_replication, dim=2)
+        v = torch.repeat_interleave(v, plan.kv_replication, dim=2)
+    return k, v
+
+
+def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    plan: PaddingPlan, mem_k: torch.Tensor,
+                    mem_v: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); mem_k, mem_v: (B, F, kv_slots, dh).  Returns the
+    sub-layer's output (B, S, d), before the residual."""
+    B, S, d = x.shape
+    h = Lyr.rmsnorm(x, p["ln_x"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(B, S, plan.q_heads_padded,
+                              cfg.resolved_head_dim)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((B, mem_k.shape[1]), dtype=torch.int32,
+                       device=x.device)
+    attn = Lyr.chunked_attention(q, mem_k, mem_v, qpos, kpos, causal=False)
+    return attn.reshape(B, S, -1) @ p["wo"]
 
 
 # ===========================================================================

@@ -24,6 +24,13 @@ recurrent layer's mixer leaves, which the reference keeps at the
 layer's top level, go under ``rec``: RGLRU's (``a_param`` stays fp32 in
 every model dtype, as the reference's init makes it), MLSTM's and
 SLSTM's; an MLSTM or SLSTM layer has one norm, ``ln``, and no MLP.
+
+A vision model's ``vision_proj`` comes across as it is.  An
+encoder-decoder's ``encoder`` (``frame_proj``, its ATTN blocks stacked
+over its depth by the reference's ``vmap``, ``final_ln``) becomes
+``encoder.*`` with one ``encoder.layers.{l}`` a block, and its
+per-group ``cross`` weights (stacked over the groups) ``cross.{g}.*``.
+The encoder's MLP is never sharded, so it keeps the reference's layout.
 """
 from __future__ import annotations
 
@@ -96,9 +103,25 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
         if "shared" in p["mlp"]:
             mlp["shared_wi"] = t(p["mlp"]["shared"]["wi"])
             mlp["shared_wo"] = t(p["mlp"]["shared"]["wo"])
-        if cfg.activation in ("swiglu", "geglu"):
-            relayout_block_mlp(mlp, cfg.d_ff, plan.max_tp)
+        relayout_block_mlp(mlp, cfg.d_ff, plan.max_tp, cfg.activation)
         state.update({pre + "mlp." + k: v for k, v in mlp.items()})
+    if "vision_proj" in np_tree:
+        state["vision_proj"] = t(np_tree["vision_proj"])
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        state["encoder.frame_proj"] = t(enc["frame_proj"])
+        state["encoder.final_ln"] = t(enc["final_ln"])
+        for li in range(cfg.encoder.num_layers):
+            p = _index(enc["blocks"][0], li)
+            pre = f"encoder.layers.{li}."
+            state[pre + "ln1"] = t(p["ln1"])
+            state[pre + "ln2"] = t(p["ln2"])
+            for part in ("attn", "mlp"):
+                state.update({f"{pre}{part}.{k}": t(v)
+                              for k, v in p[part].items()})
+        for g in range(cfg.num_layers // unit):
+            state.update({f"cross.{g}.{k}": t(v) for k, v in
+                          _index(np_tree["cross"], g).items()})
     return state
 
 

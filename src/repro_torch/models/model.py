@@ -1,6 +1,6 @@
 """Model assembly: embedding -> per-layer blocks -> final norm -> head.
 
-The counterpart of ``repro.models.model`` for decoder-only models of
+The counterpart of ``repro.models.model`` for models of
 ATTN / SLIDING / MOE / RGLRU / MLSTM / SLSTM layers (a pattern unit
 such as ``(ATTN, MOE)``, Griffin's ``(RGLRU, RGLRU, SLIDING)`` or
 xLSTM[7:1]'s seven MLSTM and one SLSTM tiles over the depth, and the
@@ -11,12 +11,34 @@ a ``ModuleList`` walked by a Python loop, and the decode caches are a
 list with one state per layer, updated in place: a ``PagedState`` for an
 attention layer, a ``RecState`` for a recurrent one.
 
+Two frontends, both stub inputs as in the reference's configs:
+
+* a vision model (phi-3-vision) projects patch embeddings (``patches``,
+  (B, P, d)) with ``vision_proj`` and puts them before the prompt's
+  tokens (``embed_inputs``): positions 0..P+S-1 over the joined
+  sequence;
+* an encoder-decoder (whisper) runs frame embeddings (``frames``, (B, F,
+  d)) through ``frame_proj`` and an ``Encoder`` of ATTN blocks whose
+  attention is bidirectional (``run_encoder``: the flash kernel with
+  ``causal=False``), turns the output into each decoder layer group's
+  cross-attention keys and values (``encode_cross_kv``), held in a
+  dense ``CrossKV`` cache whose batch axis is the slot, and ends each
+  decoder group with a cross-attention sub-layer over them, after the
+  whole block, MLP included, as the reference's group body does.
+  Neither side of the cross-attention gets rope.
+
+Such models prefill whole prompts only (the reference's
+``prefill_chunk`` refuses them: their memory is not causal).
+
 Entry points (methods of ``Model``):
-    prefill(tokens, caches)                    -> logits of the last token
+    prefill(tokens, caches, frames=None, patches=None, cross=None)
+                                               -> logits of the last token
     prefill_chunk(tokens, start_pos, caches)   -> logits of the last token
-    decode_step(caches, tokens, positions)     -> logits (B, vocab_padded)
+    decode_step(caches, tokens, positions, cross=None)
+                                               -> logits (B, vocab_padded)
     lm_logits(x)
     init_decode_caches(batch, max_seq, page_tokens)
+    init_cross_cache(batch)
 """
 from __future__ import annotations
 
@@ -25,7 +47,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import MLSTM, MOE, RGLRU, SLSTM, ModelConfig
+from repro_torch.configs.base import (ATTN, MLSTM, MOE, RGLRU, SLSTM,
+                                      ModelConfig)
 from repro_torch.core import instance as I
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.launch.mesh import Layout
@@ -96,24 +119,104 @@ class Block(nn.Module):
         return getattr(self, name)
 
 
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder, the reference's
+    ``params["encoder"]``: ``frame_proj`` (d, d), ATTN ``Block``s whose
+    attention is bidirectional, and ``final_ln``."""
+
+    def __init__(self, frame_proj, blocks: List[Block], final_ln):
+        super().__init__()
+        self.frame_proj = _param(frame_proj)
+        self.layers = nn.ModuleList(blocks)
+        self.final_ln = _param(final_ln)
+
+    def tree(self) -> Dict:
+        """The weights as plain dicts and lists (what ``run_encoder``
+        reads and ``core.instance.place_replicas`` copies)."""
+        return {"frame_proj": self.frame_proj, "final_ln": self.final_ln,
+                "layers": [{"ln1": b.ln1, "ln2": b.ln2,
+                            "attn": dict(b.attn), "mlp": dict(b.mlp)}
+                           for b in self.layers]}
+
+
+def cross_after(cfg: ModelConfig) -> Dict[int, int]:
+    """Decoder layer index -> cross-attention group: an encoder-decoder
+    ends each repetition of its pattern unit with group g's
+    cross-attention (the reference's ``group_body``); remainder layers
+    have none.  Empty without an encoder."""
+    if cfg.encoder is None:
+        return {}
+    u = len(cfg.layer_pattern) if cfg.layer_pattern else 1
+    return {(g + 1) * u - 1: g for g in range(cfg.num_layers // u)}
+
+
+class CrossKV:
+    """An encoder-decoder's cross-attention memory: each decoder group's
+    keys ``k[g]`` and values ``v[g]``, (B, F, kv_slots, dh), dense and
+    not paged; the batch axis is the slot.  A request's prefill writes
+    its slot whole (``write_``), every decode step reads all of it."""
+
+    def __init__(self, k: List[torch.Tensor], v: List[torch.Tensor]):
+        self.k, self.v = k, v
+
+    @classmethod
+    def make(cls, cfg: ModelConfig, plan: PaddingPlan, batch: int, *,
+             device) -> "CrossKV":
+        shape = (batch, cfg.encoder.num_frames, plan.kv_slots,
+                 cfg.resolved_head_dim)
+        n = len(cross_after(cfg))
+
+        def zeros():
+            return [torch.zeros(shape, dtype=B.dtype_of(cfg), device=device)
+                    for _ in range(n)]
+
+        return cls(zeros(), zeros())
+
+    def slot(self, i: int) -> "CrossKV":
+        """Batch-1 in-place views of slot ``i``."""
+        return CrossKV([k[i:i + 1] for k in self.k],
+                       [v[i:i + 1] for v in self.v])
+
+    def write_(self, ks: List[torch.Tensor], vs: List[torch.Tensor]
+               ) -> None:
+        for dst, src in zip(self.k + self.v, ks + vs):
+            dst.copy_(src)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+
+
 class Model(nn.Module):
-    """Inference-only decoder.  Build with ``Model.random`` (weights from
-    an explicit ``torch.Generator``, on a given device) or with
-    ``Model.empty`` and ``load_state_dict`` (e.g. from
-    ``models.convert.params_from_jax``)."""
+    """Inference-only decoder, with a vision model's ``vision_proj`` or
+    an encoder-decoder's ``encoder`` and per-group ``cross`` weights
+    ({ln_x, wq, wk, wv, wo}) where its config has them.  Build with
+    ``Model.random`` (weights from an explicit ``torch.Generator``, on a
+    given device) or with ``Model.empty`` and ``load_state_dict`` (e.g.
+    from ``models.convert.params_from_jax``)."""
 
     def __init__(self, cfg: ModelConfig, plan: PaddingPlan, embed,
-                 blocks: List[Block], final_ln, lm_head=None):
+                 blocks: List[Block], final_ln, lm_head=None,
+                 vision_proj=None, encoder: Optional[Encoder] = None,
+                 cross: Optional[List[Dict]] = None):
         super().__init__()
-        if cfg.encoder is not None or cfg.vision is not None:
-            raise NotImplementedError(
-                "encoder / vision models are not ported yet: ROADMAP "
-                "queue 1 item 10")
+        if (cfg.vision is None) != (vision_proj is None):
+            raise ValueError(f"{cfg.name}: vision_proj is given exactly "
+                             "when the config has a vision frontend")
+        if (cfg.encoder is None) != (encoder is None) \
+                or (encoder is None) != (cross is None):
+            raise ValueError(f"{cfg.name}: encoder and cross are given "
+                             "exactly when the config has an encoder")
         self.cfg, self.plan = cfg, plan
         self.embed = _param(embed)
         self.layers = nn.ModuleList(blocks)
         self.final_ln = _param(final_ln)
         self.lm_head = None if lm_head is None else _param(lm_head)
+        self.vision_proj = (None if vision_proj is None
+                            else _param(vision_proj))
+        self.encoder = encoder
+        self.cross = (None if cross is None
+                      else nn.ModuleList(_params(c) for c in cross))
 
     @classmethod
     def random(cls, cfg: ModelConfig, plan: PaddingPlan,
@@ -152,7 +255,19 @@ class Model(nn.Module):
         head = None
         if not cfg.tie_embeddings:
             head = normal((d, plan.vocab_padded)).to(dt) * vmask[None, :]
-        return cls(cfg, plan, embed, blocks, zeros.clone(), head)
+        vision = encoder = cross = None
+        if cfg.vision is not None:
+            vision = B._dense(gen, d, (d, d), dt, device)
+        if cfg.encoder is not None:
+            frame_proj = B._dense(gen, d, (d, d), dt, device)
+            enc = [Block(ATTN, mixer(ATTN), mlp(ATTN), zeros.clone(),
+                         zeros.clone())
+                   for _ in range(cfg.encoder.num_layers)]
+            encoder = Encoder(frame_proj, enc, zeros.clone())
+            cross = [B.init_cross(gen, cfg, plan, device)
+                     for _ in cross_after(cfg)]
+        return cls(cfg, plan, embed, blocks, zeros.clone(), head, vision,
+                   encoder, cross)
 
     @classmethod
     def empty(cls, cfg: ModelConfig, plan: PaddingPlan, *, device
@@ -202,7 +317,16 @@ class Model(nn.Module):
                         e(d) if B.has_mlp(kind) else None)
                   for kind in cfg.pattern]
         head = None if cfg.tie_embeddings else e(d, plan.vocab_padded)
-        return cls(cfg, plan, e(plan.vocab_padded, d), blocks, e(d), head)
+        vision = None if cfg.vision is None else e(d, d)
+        encoder = cross = None
+        if cfg.encoder is not None:
+            encoder = Encoder(e(d, d), [
+                Block(ATTN, mixer(ATTN), mlp(ATTN), e(d), e(d))
+                for _ in range(cfg.encoder.num_layers)], e(d))
+            cross = [{"ln_x": e(d), **mixer(ATTN)}
+                     for _ in cross_after(cfg)]
+        return cls(cfg, plan, e(plan.vocab_padded, d), blocks, e(d), head,
+                   vision, encoder, cross)
 
     @property
     def device(self) -> torch.device:
@@ -217,31 +341,63 @@ class Model(nn.Module):
                                    max_seq, page_tokens, device=self.device)
                 for blk in self.layers]
 
+    def init_cross_cache(self, batch: int) -> Optional[CrossKV]:
+        """An encoder-decoder's cross-attention memory of ``batch``
+        slots (None for other models)."""
+        if self.cfg.encoder is None:
+            return None
+        return CrossKV.make(self.cfg, self.plan, batch, device=self.device)
+
     # -- head -------------------------------------------------------------
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
-        return lm_logits(self.static(), self.plan, self.cfg, x)
+        return lm_logits({"embed": self.embed, "final_ln": self.final_ln,
+                          "lm_head": self.lm_head}, self.plan, self.cfg, x)
 
-    def static(self) -> Dict[str, torch.Tensor]:
+    def static(self) -> Dict:
         """The non-layer weights: embed, final_ln and lm_head (None when
-        tied to the embedding)."""
-        return {"embed": self.embed, "final_ln": self.final_ln,
-                "lm_head": self.lm_head}
+        tied to the embedding); a vision model's ``vision_proj``; an
+        encoder-decoder's ``encoder`` (``Encoder.tree``) and ``cross``
+        (one dict a group)."""
+        out = {"embed": self.embed, "final_ln": self.final_ln,
+               "lm_head": self.lm_head}
+        if self.vision_proj is not None:
+            out["vision_proj"] = self.vision_proj
+        if self.encoder is not None:
+            out["encoder"] = self.encoder.tree()
+            out["cross"] = [dict(c) for c in self.cross]
+        return out
 
     # -- forward passes ---------------------------------------------------
-    def prefill(self, tokens: torch.Tensor, caches: List) -> torch.Tensor:
-        """Whole prompt(s) from position 0. tokens: (B, S).  Fills every
-        layer's cache (``write_prefill``; a recurrent layer's final
-        state) and returns the last token's logits (B, 1,
-        vocab_padded)."""
-        Bt, S = tokens.shape
-        x = self.embed[tokens]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(Bt, S)
-        for blk, cache in zip(self.layers, caches):
-            x, kv = B.apply_block_seq(blk.kind, blk, self.cfg, self.plan,
-                                      x, positions, cache)
+    def prefill(self, tokens: torch.Tensor, caches: List,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None,
+                cross: Optional[CrossKV] = None) -> torch.Tensor:
+        """Whole prompt(s) from position 0. tokens: (B, S); a vision
+        model's optional ``patches`` (B, P, d) go first (positions
+        0..P+S-1); an encoder-decoder's ``frames`` (B, F, d) run through
+        the encoder into ``cross`` (written in place), which the decoder
+        then reads.  Fills every layer's cache (``write_prefill``; a
+        recurrent layer's final state) and returns the last token's
+        logits (B, 1, vocab_padded)."""
+        cfg, plan = self.cfg, self.plan
+        st = self.static()
+        x, positions = embed_inputs(st, cfg, tokens, patches)
+        if cfg.encoder is not None:
+            if frames is None or cross is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder's "
+                                 "prefill takes frames and a cross cache")
+            cross.write_(*encode_cross_kv(
+                st["cross"], cfg, plan,
+                run_encoder(st["encoder"], cfg, plan, frames)))
+        after = cross_after(cfg)
+        for i, (blk, cache) in enumerate(zip(self.layers, caches)):
+            x, kv = B.apply_block_seq(blk.kind, blk, cfg, plan, x,
+                                      positions, cache)
             if kv is not None:
                 pp.write_prefill(cache, *kv)
+            if i in after:
+                x = _cross(st["cross"][after[i]], cfg, plan, x, cross,
+                           after[i])
         return self.lm_logits(x[:, -1:, :])
 
     def prefill_chunk(self, tokens: torch.Tensor, start_pos: torch.Tensor,
@@ -249,7 +405,12 @@ class Model(nn.Module):
                       first_chunk: bool = False) -> torch.Tensor:
         """ONE page-aligned prefill chunk folded into the caches.
         tokens: (B, S); start_pos: (B,) global position of the chunk's
-        first token.  Returns the last token's logits (B, 1, Vp)."""
+        first token.  Returns the last token's logits (B, 1, Vp).
+        Encoder and vision models do not chunk (their memory is not
+        causal), as in the reference."""
+        if self.cfg.has_frontend:
+            raise NotImplementedError(
+                "chunked prefill covers causal decoder-only models")
         S = tokens.shape[1]
         x = self.embed[tokens]
         positions = (start_pos[:, None].to(torch.int32)
@@ -262,16 +423,80 @@ class Model(nn.Module):
         return self.lm_logits(x[:, -1:, :])
 
     def decode_step(self, caches: List,
-                    tokens: torch.Tensor, positions: torch.Tensor
-                    ) -> torch.Tensor:
-        """tokens: (B,) int; positions: (B,) int32 global positions.
+                    tokens: torch.Tensor, positions: torch.Tensor,
+                    cross: Optional[CrossKV] = None) -> torch.Tensor:
+        """tokens: (B,) int; positions: (B,) int32 global positions; an
+        encoder-decoder's ``cross``: the batch's cross-attention memory.
         Returns logits (B, vocab_padded)."""
+        cfg, plan = self.cfg, self.plan
+        after = cross_after(cfg)
+        if after and cross is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder's decode "
+                             "step reads a cross cache")
         x = self.embed[tokens][:, None, :]           # (B,1,d)
         pos2 = positions.to(torch.int32)[:, None]
-        for blk, cache in zip(self.layers, caches):
-            x, _ = B.apply_block_decode(blk.kind, blk, self.cfg, self.plan,
-                                        x, pos2, cache)
+        for i, (blk, cache) in enumerate(zip(self.layers, caches)):
+            x, _ = B.apply_block_decode(blk.kind, blk, cfg, plan, x, pos2,
+                                        cache)
+            if i in after:
+                x = _cross(self.cross[after[i]], cfg, plan, x, cross,
+                           after[i])
         return self.lm_logits(x)[:, 0, :]
+
+
+def embed_inputs(static: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 patches: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x (B, P+S, d), positions (B, P+S)): the tokens' embeddings,
+    after a vision model's projected ``patches`` (B, P, d) when given
+    (cast to the model's dtype first, as the reference casts them)."""
+    x = static["embed"][tokens]
+    if patches is not None:
+        if cfg.vision is None:
+            raise ValueError(f"{cfg.name} has no vision frontend: no "
+                             "patches")
+        img = patches.to(x.dtype) @ static["vision_proj"]
+        x = torch.cat([img, x], dim=1)
+    Bt, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(Bt, S)
+    return x, positions
+
+
+def run_encoder(enc: Dict, cfg: ModelConfig, plan: PaddingPlan,
+                frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings (B, F, d): ``frame_proj``, then
+    each block's bidirectional self-attention (rope at positions
+    0..F-1; the flash kernel's non-causal branch on the card) and MLP,
+    then ``final_ln``.  Returns (B, F, d)."""
+    x = frames.to(B.dtype_of(cfg)) @ enc["frame_proj"]
+    Bt, F = x.shape[:2]
+    positions = torch.arange(F, dtype=torch.int32,
+                             device=x.device)[None].expand(Bt, F)
+    eps = cfg.norm_eps
+    for p in enc["layers"]:
+        h = Lyr.rmsnorm(x, p["ln1"], eps)
+        x = x + B.attention_seq(p["attn"], h, cfg, plan, positions,
+                                causal=False)[0]
+        h = Lyr.rmsnorm(x, p["ln2"], eps)
+        x = x + B.apply_mlp(p["mlp"], h, cfg)
+    return Lyr.rmsnorm(x, enc["final_ln"], eps)
+
+
+def encode_cross_kv(cross: List[Dict], cfg: ModelConfig, plan: PaddingPlan,
+                    enc_out: torch.Tensor
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Each decoder group's cross-attention keys and values from the
+    encoder's output: two lists of (B, F, kv_slots, dh)."""
+    kv = [B.cross_kv(p, enc_out, cfg, plan) for p in cross]
+    return [k for k, _ in kv], [v for _, v in kv]
+
+
+def _cross(p: Dict, cfg: ModelConfig, plan: PaddingPlan,
+           x: torch.Tensor, cross: CrossKV, g: int) -> torch.Tensor:
+    """x plus group g's cross-attention (weights ``p``) over
+    ``cross``."""
+    return x + B.cross_attention(p, x, cfg, plan, cross.k[g], cross.v[g])
 
 
 def lm_logits(static: Dict[str, torch.Tensor], plan: PaddingPlan,
@@ -342,16 +567,20 @@ class RowSet:
         batch, else a batch-1 in-place view of the one slot (None when
         worker w holds none of the rows); a recurrent layer's state
         rows alike."""
-        W, lay = layer.mesh.W, layer.attn_layout
+        return self.view_of(layer.cache[w], layer.attn_layout,
+                            layer.mesh.W, w)
+
+    def view_of(self, cache, lay: Layout, W: int, w: int):
+        """``views`` of worker w's ``cache`` (anything with
+        ``slot(i)``: a pool, a recurrent state, a ``CrossKV``) holding
+        its replica's slots at ``lay`` on a W-worker assembly."""
         lo, hi = self.span(lay, W, w)
         if hi == lo:
             return None
-        cache = layer.cache[w]
         if len(self.rows) == self.batch:
             return cache
         assert len(self.rows) == 1, "row sets are one slot or the batch"
-        i = self.rows[0] - I.rows_of(lay, self.batch, W, w)[0]
-        return cache.slot(i)
+        return cache.slot(self.rows[0] - I.rows_of(lay, self.batch, W, w)[0])
 
 
 def relayout(xs: List[torch.Tensor], src: Tuple, dst: Tuple,
@@ -387,22 +616,31 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                 rows: RowSet, tokens: torch.Tensor, positions: torch.Tensor,
                 mode: str, first_chunk: bool = False,
                 on_layer: Optional[Callable[[int], None]] = None,
-                caches: Optional[List[pp.PagedState]] = None
-                ) -> torch.Tensor:
+                caches: Optional[List[pp.PagedState]] = None,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None,
+                cross: Optional[List[CrossKV]] = None) -> torch.Tensor:
     """One forward pass of a row set over per-worker layers.
 
-    ``static``: the embedding, final norm and head, one dict a worker of
-    ``static_mesh``.  tokens, positions: (R, S) for the R rows (host
-    tensors).  ``mode``: ``decode`` (S = 1: append at the cursor, paged
-    decode kernel), ``seq`` (a whole prompt from position 0: flash
-    kernel, then the cache fill) or ``chunk`` (the chunk-prefill kernel
-    with its scatter); at sp > 1 each through its sharded form.
-    ``on_layer(i)`` runs after layer i has been issued (the transform
-    session's hook).  ``caches``: one batch-1
+    ``static``: the embedding, final norm and head (and a vision or
+    encoder-decoder model's frontend weights, ``Model.static``), one
+    dict a worker of ``static_mesh``.  tokens: (R, S), positions: (R,
+    P+S) for the R rows (host tensors).  ``mode``: ``decode`` (S = 1:
+    append at the cursor, paged decode kernel), ``seq`` (a whole prompt
+    from position 0: flash kernel, then the cache fill) or ``chunk``
+    (the chunk-prefill kernel with its scatter); at sp > 1 each through
+    its sharded form.  ``on_layer(i)`` runs after layer i has been
+    issued (the transform session's hook).  ``caches``: one batch-1
     state a layer that replaces the worker's view of a one-row set (a
     spilled slot's extended view, the layers at TP1).  The MLP replicas
-    are in the Eq. 2 layout of ``plan.max_tp`` shards.  Returns the last token's
-    logits (R, vocab_padded) on ``static_mesh``'s worker 0."""
+    are in the Eq. 2 layout of ``plan.max_tp`` shards (an ungated MLP is
+    held whole: TP1 only).  A vision model's ``seq`` rows take their
+    ``patches`` (R, P, d) first; an encoder-decoder's ``seq`` rows run
+    their ``frames`` (R, F, d) through the encoder on the worker that
+    holds them, into that worker's ``cross`` memory (one ``CrossKV`` a
+    worker, of its own slots), which every group's cross-attention
+    reads; both models sit at TP1 x W.  Returns the last token's logits
+    (R, vocab_padded) on ``static_mesh``'s worker 0."""
     eps = cfg.norm_eps
     S = plan.max_tp
 
@@ -416,8 +654,28 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
         static_tp, static_mesh)
     here = (first[0] if static_mesh.same_workers(first[1])
             else static_tp, static_mesh)
-    xs = [static[w]["embed"][part(tokens, here[0], static_mesh, w)]
+    xs = [embed_inputs(static[w], cfg, part(tokens, here[0], static_mesh, w),
+                       None if patches is None
+                       else part(patches, here[0], static_mesh, w))[0]
           for w in range(static_mesh.W)]
+    after = cross_after(cfg)
+    mems: List[Optional[CrossKV]] = []
+    if after:
+        # the frontend and the cross memory live with each worker's own
+        # slots: TP1 x W on the static workers
+        assert here[0].degree == 1 and all(
+            l.attn_layout.degree == 1 and l.mlp_layout.degree == 1
+            and l.mesh.same_workers(static_mesh) for l in layers), (
+            "an encoder-decoder serves at TP1 x W")
+        mems = [rows.view_of(cross[w], here[0], static_mesh.W, w)
+                for w in range(static_mesh.W)]
+        if mode == "seq":
+            for w, mem in enumerate(mems):
+                if mem is not None:
+                    enc = run_encoder(static[w]["encoder"], cfg, plan,
+                                      part(frames, here[0], static_mesh, w))
+                    mem.write_(*encode_cross_kv(static[w]["cross"], cfg,
+                                                plan, enc))
     for i, layer in enumerate(layers):
         window = B._window_of(layer.kind, cfg)
         mesh = layer.mesh
@@ -461,22 +719,32 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                                              first_chunk=first_chunk)
                 outs.append(o)
         xs = _residual(xs, outs, lay.tp, mesh)
-        if not layer.has_mlp:
-            if on_layer is not None:
-                on_layer(i)
-            continue
-        xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
-        here = (layer.mlp_layout, mesh)
-        tp, ff = I.mlp_shards(layer.mlp_layout.tp, S, cfg.d_ff)
-        hs = [None if x.shape[0] == 0 else Lyr.rmsnorm(x, layer.ln2[w], eps)
-              for w, x in enumerate(xs)]
-        if layer.kind == MOE:
-            outs = moe_workers(layer, hs, cfg, plan, tp, ff)
-        else:
-            outs = [None if h is None
-                    else B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff)
-                    for w, h in enumerate(hs)]
-        xs = _residual(xs, outs, layer.mlp_layout.tp, mesh)
+        if layer.has_mlp:
+            xs = relayout(xs, here, (layer.mlp_layout, mesh), rows)
+            here = (layer.mlp_layout, mesh)
+            tp, ff = I.mlp_shards(layer.mlp_layout.tp, S, cfg.d_ff)
+            hs = [None if x.shape[0] == 0
+                  else Lyr.rmsnorm(x, layer.ln2[w], eps)
+                  for w, x in enumerate(xs)]
+            if layer.kind == MOE:
+                outs = moe_workers(layer, hs, cfg, plan, tp, ff)
+            elif cfg.activation in ("swiglu", "geglu"):
+                outs = [None if h is None
+                        else B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff)
+                        for w, h in enumerate(hs)]
+            else:
+                # an ungated MLP, whole on every worker (TP1 x W): the
+                # padded FFN kernel is gated only, as the reference's is
+                assert layer.mlp_layout.tp == 1, layer.mlp_layout
+                outs = [None if h is None
+                        else B.apply_mlp(layer.mlp[w], h, cfg)
+                        for w, h in enumerate(hs)]
+            xs = _residual(xs, outs, layer.mlp_layout.tp, mesh)
+        if i in after:
+            xs = [x if mem is None
+                  else _cross(static[w]["cross"][after[i]], cfg, plan, x,
+                              mem, after[i])
+                  for w, (x, mem) in enumerate(zip(xs, mems))]
         if on_layer is not None:
             on_layer(i)
     if not here[1].same_workers(static_mesh):

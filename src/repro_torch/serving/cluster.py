@@ -71,7 +71,7 @@ from repro_torch.core.scheduler import (Action, BaseScheduler,
 from repro_torch.core.weight_transform import relayout_block_mlp
 from repro_torch.launch.mesh import Worker, workers_of
 from repro_torch.models import model as M
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, live_change_refusal
 from repro_torch.serving.metrics import summarize
 from repro_torch.serving.request import ServeRequest, State
 
@@ -120,7 +120,8 @@ class ClusterEngine:
         if params is None:
             params = M.build(cfg, self.plan, seed, device=workers[0].device)
             for blk in params.layers:
-                relayout_block_mlp(blk.mlp, cfg.d_ff, self.total_width)
+                relayout_block_mlp(blk.mlp, cfg.d_ff, self.total_width,
+                                   cfg.activation)
         self.prefill_policy = prefill_policy or PrefillPolicy()
         self.engines: List[Engine] = []
         for k in range(n_instances):
@@ -269,9 +270,20 @@ class ClusterEngine:
         return False
 
     # ---- action execution ---------------------------------------------
+    def _refuse_live_change(self, act: Action) -> None:
+        """A model whose engines keep their degree and slots (an encoder
+        or vision model: ``engine.live_change_refusal``) takes no scale
+        action, merge or spill: it serves on static-degree instances."""
+        reason = live_change_refusal(self.cfg)
+        if reason is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {type(act).__name__} on instance "
+                f"{act.iid}: {reason}")
+
     def _execute(self, act: Action) -> bool:
         """Execute one declarative action.  False when a merge's
         preconditions fail; nothing is mutated then."""
+        self._refuse_live_change(act)
         eng = self._engine(act.iid)
         if isinstance(act, ScaleUp) and act.donor_devices:
             n_steps = self._merge_partial(act, eng)
@@ -400,6 +412,7 @@ class ClusterEngine:
         request on an extended view of both pools.  Returns False
         (nothing mutated) when the host cannot grant the reservation;
         the caller falls back to a merge."""
+        self._refuse_live_change(act)
         guest = self._engine(act.iid)
         host = self._engine(act.host_iid)
         if guest is host or guest.transforming or guest.parked \

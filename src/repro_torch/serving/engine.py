@@ -79,6 +79,24 @@ request's extended calls (its batch-1 decode on the extended view, its
 chunks past the local ceiling) route their own rows alone, as the
 reference's spill path, which has no MoE branch, does.
 
+An encoder-decoder (whisper) or a vision model (phi-3-vision) serves
+with its request's own stub frontend input (``ServeRequest.frames`` /
+``patches``), on one device or on workers at TP1 x W, whole-prompt
+only (``_can_chunk``, as the reference's engine; ``PrefillPolicy``
+chunks are ignored).  The whole prefill runs the frames through the
+encoder into the slot's rows of a dense cross-attention cache
+(``models.model.CrossKV``: ``self.cross``, one a worker with workers),
+which every later decode step reads, and a slot reused by another
+request gets that request's; patches take the context's first
+positions, so admission and the slot ceiling count them
+(``ServeRequest.context_len``).  The reference's engine passes only the
+tokens to its whole prefill, so its whisper raises ``KeyError:
+'frames'`` and its phi-3-vision serves text only; the port passes the
+reference model's own inputs (ROADMAP queue 3).  Neither model changes
+degree live, moves a slot to another engine or spills: the reference's
+per-layer paths refuse them (``live_change_refusal``), and so does
+``transform`` (and the cluster's merge and spill).
+
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
 caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
 every kernel call runs its plain PyTorch version.
@@ -108,6 +126,16 @@ from repro_torch.models.blocks import (ATTENTION_KINDS, init_block_cache,
 from repro_torch.paged import pool as pp
 from repro_torch.paged.recurrent import RecState
 from repro_torch.serving.request import ServeRequest, State
+
+
+def live_change_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why an engine of ``cfg`` keeps its degree and its slots (no
+    transform, merge, slot export or KV spill), or None: the reference's
+    per-layer paths refuse encoder and vision models
+    (``repro/models/model.py:551-553``, ``:668-670``)."""
+    if cfg.has_frontend:
+        return "per-layer transformation does not cover encoder/vision yet"
+    return None
 
 
 class Engine:
@@ -181,6 +209,7 @@ class Engine:
             self.model = params
             self.caches: List[pp.PagedState] = self.model.init_decode_caches(
                 max_batch, max_seq, page_tokens)
+            self.cross = self.model.init_cross_cache(max_batch)
         else:
             if device is not None:
                 raise ValueError("pass device= or devices=, not both")
@@ -194,6 +223,9 @@ class Engine:
         self.slots: List[Optional[ServeRequest]] = [None] * max_batch
         self.waiting: List[ServeRequest] = []
         self.prefill_policy = prefill_policy or PrefillPolicy()
+        # chunk continuation needs causal caches: encoder / vision models
+        # keep whole-prompt prefill, as the reference's engine does
+        self._can_chunk = not cfg.has_frontend
         # slot -> {"req", "chunks", "ci", "done"}: the page-aligned chunk
         # plan and its progress (the KV lives in the slot's pool pages)
         self._prefilling: Dict[int, Dict] = {}
@@ -228,15 +260,11 @@ class Engine:
         assert self.plan.max_tp % W == 0, (
             f"a plan for {self.plan.max_tp} shards cannot split over {W} "
             "workers")
-        if cfg.activation not in ("swiglu", "geglu"):
-            raise NotImplementedError(
-                f"{cfg.name}: the worker engine's MLP shards (the padded "
-                "FFN's, a MoE layer's experts and shared expert) are "
-                "gated [gate | up] layouts only")
         if params is None:
             params = M.build(cfg, self.plan, seed, device=self.device)
             for blk in params.layers:
-                WT.relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp)
+                WT.relayout_block_mlp(blk.mlp, cfg.d_ff, self.plan.max_tp,
+                                      cfg.activation)
         self.mesh = InstanceMesh(workers, 1)
         self.model = self.caches = None
         self._place(params)
@@ -263,6 +291,10 @@ class Engine:
             lambda kind, rows, dev: init_block_cache(
                 kind, self.cfg, self.plan, rows, self.max_seq_alloc,
                 self.page_tokens, device=dev))
+        # an encoder-decoder's cross memory: each worker's own slots
+        self.cross = None if self.cfg.encoder is None else [
+            M.CrossKV.make(self.cfg, self.plan, self.max_batch // self.W,
+                           device=dev) for dev in self.mesh.devices]
 
     def _slot_pages(self, kind: str) -> int:
         """Pages a slot of a layer of ``kind`` holds at the current
@@ -331,7 +363,7 @@ class Engine:
         # consumed capacity as far as admission is concerned
         used += sum(len(h["slots"]) for h in self._hosted.values()) \
             * self.max_seq()
-        return used + sum(len(r.prompt) for r in self.waiting)
+        return used + sum(r.n_patches + len(r.prompt) for r in self.waiting)
 
     def kv_used_fraction(self) -> float:
         return self.kv_used_tokens() / max(self.kv_capacity_tokens(), 1)
@@ -352,7 +384,37 @@ class Engine:
 
     # -- requests -----------------------------------------------------------
     def submit(self, req: ServeRequest) -> None:
+        self._check_inputs(req)
         self.waiting.append(req)
+
+    def _check_inputs(self, req: ServeRequest) -> None:
+        """A request carries the frontend input its model reads: frames
+        (F, d) for an encoder-decoder, optional patches (P, d) for a
+        vision model, neither for any other."""
+        cfg, d = self.cfg, self.cfg.d_model
+        if cfg.encoder is not None:
+            want = (cfg.encoder.num_frames, d)
+            if req.frames is None or tuple(req.frames.shape) != want:
+                raise ValueError(
+                    f"{cfg.name} is an encoder-decoder: request {req.rid} "
+                    f"needs frames of shape {want}, not "
+                    f"{None if req.frames is None else tuple(req.frames.shape)}")
+        elif req.frames is not None:
+            raise ValueError(f"{cfg.name} has no encoder: request "
+                             f"{req.rid} carries frames")
+        if req.patches is not None and (
+                cfg.vision is None or req.patches.ndim != 2
+                or req.patches.shape[1] != d):
+            takes = ("no patches" if cfg.vision is None
+                     else f"patches of shape (P, {d})")
+            raise ValueError(f"{cfg.name} takes {takes}: request "
+                             f"{req.rid} carries patches of shape "
+                             f"{tuple(req.patches.shape)}")
+
+    def _refuse_live_change(self, what: str) -> None:
+        reason = live_change_refusal(self.cfg)
+        if reason is not None:
+            raise NotImplementedError(f"{self.cfg.name}: {what}: {reason}")
 
     def _free_slot(self) -> Optional[int]:
         hosted = self._hosted_slots()
@@ -400,8 +462,9 @@ class Engine:
         plan = self._spill_plans.pop(req.rid, None)
         if plan is not None:
             self._spills[slot] = {"req": req, **plan}
-        chunks = self.prefill_policy.chunk_sizes(len(req.prompt),
-                                                 self.page_tokens)
+        chunks = (self.prefill_policy.chunk_sizes(len(req.prompt),
+                                                  self.page_tokens)
+                  if self._can_chunk else [len(req.prompt)])
         if (plan is not None and len(chunks) == 1
                 and chunks[0] > self._min_chunk_cap()):
             # a spilled prompt longer than the local pool MUST chunk: the
@@ -510,14 +573,16 @@ class Engine:
 
     def _walk(self, rows: List[int], tokens: torch.Tensor,
               positions: torch.Tensor, mode: str, first_chunk: bool = False,
-              caches: Optional[List[pp.PagedState]] = None
-              ) -> torch.Tensor:
+              caches: Optional[List[pp.PagedState]] = None,
+              frames: Optional[torch.Tensor] = None,
+              patches: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One pass of ``rows`` through the per-worker layers (an engine
         with workers); mid-session the decode walk streams the session's
         staged layer groups, and the static weights are the session's
         (a cross-assembly session moves them in its final step).
         ``caches``: a one-row set's per-layer states in place of its
-        slot views (a spilled slot's extended view)."""
+        slot views (a spilled slot's extended view); ``frames`` /
+        ``patches``: a whole prompt's frontend input."""
         s = self._session
         hook = s.on_decode_layer if s is not None and mode == "decode" \
             else None
@@ -526,7 +591,8 @@ class Engine:
         return M.walk_layers(self.layers, static, self.cfg, self.plan,
                              smesh, M.RowSet(rows, self.max_batch), tokens,
                              positions, mode, first_chunk=first_chunk,
-                             on_layer=hook, caches=caches)
+                             on_layer=hook, caches=caches, frames=frames,
+                             patches=patches, cross=self.cross)
 
     def _pin_prefill_cursors(self) -> None:
         """Decode iterations append masked filler for EVERY slot at its
@@ -607,15 +673,23 @@ class Engine:
     def _prefill_whole(self, req: ServeRequest, slot: int) -> None:
         """Single-call prefill straight into the slot's pages: every page
         of the slot's range is rewritten, exactly what the reference's
-        fresh batch-1 cache + page-range adopt leaves there."""
+        fresh batch-1 cache + page-range adopt leaves there.  A vision
+        request's patches go first; an encoder-decoder request's frames
+        fill the slot's cross-attention memory."""
         prompt = torch.tensor(req.prompt, dtype=torch.long)[None]
+        frames, patches = (None if a is None
+                           else torch.as_tensor(a)[None].to(self.device)
+                           for a in (req.frames, req.patches))
         if self.mesh is None:
-            logits = self.model.prefill(prompt.to(self.device),
-                                        self._slot_caches(slot))
+            logits = self.model.prefill(
+                prompt.to(self.device), self._slot_caches(slot),
+                frames=frames, patches=patches,
+                cross=None if self.cross is None else self.cross.slot(slot))
         else:
-            positions = torch.arange(len(req.prompt),
+            positions = torch.arange(req.n_patches + len(req.prompt),
                                      dtype=torch.int32)[None]
-            logits = self._walk([slot], prompt, positions, "seq")[:, None]
+            logits = self._walk([slot], prompt, positions, "seq",
+                                frames=frames, patches=patches)[:, None]
         self._finish_prefill(req, slot, logits)
 
     # -- §4.3 live transformation -------------------------------------------
@@ -647,6 +721,7 @@ class Engine:
         shedding workers, or widening back onto returned ones) there is
         no session: the whole state moves in one synchronous re-shard
         between steps (``_move_workers``), and this returns 0."""
+        self._refuse_live_change("transform")
         assert self.mesh is not None, "transform requires devices="
         assert self._session is None, "transformation already in progress"
         assert not self._spills and not self._hosted, (
@@ -837,6 +912,7 @@ class Engine:
         workers = list(self.devices)
         self.parked = True
         self.layers, self.static, self.mesh = [], None, None
+        self.cross = None
         self.devices = []
         return workers
 
@@ -875,6 +951,7 @@ class Engine:
         for ``import_request`` on the merge target; slots are freed.  A
         slot mid-chunked-prefill exports its chunk plan and progress, so
         the target resumes the prefill where the donor stopped."""
+        self._refuse_live_change("slot export")
         assert self.mesh is not None and not self.transforming
         out = []
         for slot, r in enumerate(self.slots):
@@ -896,6 +973,7 @@ class Engine:
         """Target-side KV import: land a donor request's states in a free
         slot (on the worker that owns it, through the scatter kernel) and
         resume it here: decoding, or its chunked prefill at ``progress``."""
+        self._refuse_live_change("slot import")
         assert self.mesh is not None and not self.transforming
         slot = self._free_slot()
         assert slot is not None, "no free slot for donor import"
@@ -942,6 +1020,7 @@ class Engine:
         descriptor (handle, reserved slots, granted page count), or None
         when the pool lacks the free slots: the control plane then falls
         back down the capacity ladder."""
+        self._refuse_live_change("KV spill")
         if self.parked or self.transforming or n_pages <= 0:
             return None
         mps = self._local_page_cap() // self.page_tokens
@@ -971,6 +1050,7 @@ class Engine:
                       hosting: Dict) -> None:
         """Guest side: queue a request whose overflow KV will live in
         ``host``'s pool (the reservation from ``host.host_spilled``)."""
+        self._refuse_live_change("KV spill")
         assert hosting["page_tokens"] == self.page_tokens, (
             "KV spill requires a uniform page size across the cluster")
         ext_tokens = self._local_page_cap() \
@@ -1188,7 +1268,8 @@ class Engine:
         if self.mesh is None:
             return self.model.decode_step(self.caches,
                                           tokens.to(self.device),
-                                          positions.to(self.device))
+                                          positions.to(self.device),
+                                          cross=self.cross)
         logits = self._walk(list(range(self.max_batch)), tokens[:, None],
                             positions[:, None], "decode")
         if self._session is not None:

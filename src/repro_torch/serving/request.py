@@ -3,8 +3,9 @@
 Two request shapes, one metrics contract:
 
 * ``ServeRequest`` — a live token-level request (prompt ids, sampling
-  params, generated ids) served by ``serving.engine.Engine`` /
-  ``serving.cluster.ClusterEngine``;
+  params, generated ids, and the stub frontend inputs of an
+  encoder-decoder or a vision model: ``frames`` or ``patches``) served
+  by ``serving.engine.Engine`` / ``serving.cluster.ClusterEngine``;
 * ``Request`` — a trace record (arrival time + input/output lengths)
   consumed by ``core.cluster_sim.Cluster`` and produced by the trace
   generators.
@@ -19,7 +20,7 @@ import itertools
 import time
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import TYPE_CHECKING, List, Optional
+from typing import TYPE_CHECKING, Any, List, Optional
 
 if TYPE_CHECKING:   # typing only; no runtime import cycle
     from repro_torch.core.events import SLO
@@ -51,10 +52,22 @@ class ServeRequest:
     #: latency deadlines (core.events.SLO) aggregated into goodput_slo;
     #: None = no deadline, excluded from goodput accounting
     slo: Optional["SLO"] = None
+    #: an encoder-decoder's frame embeddings (F, d_model): the stub
+    #: output of its audio frontend, which the encoder reads
+    frames: Optional[Any] = field(default=None, compare=False, repr=False)
+    #: a vision model's patch embeddings (P, d_model): the stub output of
+    #: its image frontend, projected and put before the prompt's tokens,
+    #: so they take positions 0..P-1 and count in the context
+    patches: Optional[Any] = field(default=None, compare=False, repr=False)
 
     @property
     def done(self) -> bool:
         return self.state == State.DONE
+
+    @property
+    def n_patches(self) -> int:
+        """Positions the patch prefix takes (0 without patches)."""
+        return 0 if self.patches is None else len(self.patches)
 
     @property
     def arrival_s(self) -> float:
@@ -68,13 +81,15 @@ class ServeRequest:
 
     @property
     def context_len(self) -> int:
-        return len(self.prompt) + len(self.generated)
+        """Positions the request holds: its patch prefix, prompt and
+        generated tokens."""
+        return self.n_patches + len(self.prompt) + len(self.generated)
 
     @property
     def total_tokens(self) -> int:
-        """Final context footprint (admission-control unit): the prompt
-        plus the full generation budget."""
-        return len(self.prompt) + self.max_new_tokens
+        """Final context footprint (admission-control unit): the patch
+        prefix and the prompt plus the full generation budget."""
+        return self.n_patches + len(self.prompt) + self.max_new_tokens
 
     @property
     def ttft(self) -> Optional[float]:

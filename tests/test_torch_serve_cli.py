@@ -10,6 +10,13 @@ equal.  The trace is short (6 requests, every third long) to keep the
 reference's compiles few; it still scales an instance up and down.
 Each architecture of ``ARCHS`` runs at its reduced config: the default
 llama3-8b and granite-moe-3b-a800m (MoE layers, 4 experts top-2).
+
+whisper-tiny and phi-3-vision-4.2b (``FRONTEND_ARCHS``) run on the port
+alone, at their reduced configs on 2 CPU workers, with stub frames and
+patches from ``--seed``: the reference's engine cannot serve whisper
+(it never passes the frames) and its phi-3-vision ignores patches.
+They serve every request at TP1, and a trace with long requests, which
+would make the scheduler transform them, is refused at start.
 """
 import os
 import subprocess
@@ -71,3 +78,46 @@ def test_action_lines_equal_reference(outputs, scheduler, arch):
     assert any("scale-up" in l for l in acts)
     assert any(l.startswith("[serve] drain: scale-down") for l in acts)
     assert got[-1] == "[serve] final TPs: [1, 1]"
+
+
+FRONTEND_ARCHS = ("whisper-tiny", "phi-3-vision-4.2b")
+FRONTEND_ARGS = ["--device", "cpu", "--workers", "2", "--instances", "1",
+                 "--requests", "4", "--long-every", "0", "--gen-tokens",
+                 "4", "--max-seq", "64", "--seed", "3"]
+
+
+@pytest.fixture(scope="module")
+def frontend_outputs():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    runs = {a: FRONTEND_ARGS + ["--arch", a] for a in FRONTEND_ARCHS}
+    # the default trace has long requests: refused for these models
+    runs["refused"] = ["--device", "cpu", "--arch", FRONTEND_ARCHS[0]]
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for k, args in runs.items()}
+    out = {}
+    for k, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        out[k] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_arch_serves_at_a_static_degree(frontend_outputs, arch):
+    rc, out, err = frontend_outputs[arch]
+    assert rc == 0, err[-4000:]
+    lines = [l for l in out.splitlines() if l.startswith("[serve]")]
+    assert lines[0].startswith(f"[serve] {arch}-smoke: 1 instances x 2")
+    assert lines[1] == "[serve] trace: 4 requests (0 long)"
+    assert lines[2] == "[serve] final TPs: [1]"
+    assert "finished=4, total=4" in lines[3]
+    assert "n_transforms=0.000" in lines[3]
+
+
+def test_frontend_arch_with_long_requests_is_refused(frontend_outputs):
+    rc, out, err = frontend_outputs["refused"]
+    assert rc == 2 and not out
+    assert "does not cover encoder/vision" in err
+    assert "--long-every 0" in err
