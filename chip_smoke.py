@@ -82,7 +82,8 @@ exits non-zero:
               TP1x2 -> TP2 -> TP1x2 equals an untransformed engine; the
               cache bytes are equal across a migration with no decode
               between.
-6. transform-serve — llama3-8b at full width and depth in bf16 on two
+6. transform-serve — llama3-8b at full width and 16 of its 32 layers
+              (``TRANSFORM_SERVE_LAYERS``) in bf16 on two
               workers of the card serves four prompts at TP1x2,
               transforms to TP2 mid-decode, then serves a 6000-token
               request, longer than TP1's 4096-token ceiling, and
@@ -147,7 +148,7 @@ exits non-zero:
               with no decode between steps leaves every worker's cache
               bit-equal to the layout an engine at that degree holds
               (``core.instance.split_cache``).
-12. ladder-serve — llama3-8b at full width (16 of its 32 layers:
+12. ladder-serve — llama3-8b at full width (8 of its 32 layers:
               ``LLAMA_LAYERS``) in bf16 on 4 workers of the card
               (four replicas): TP1x4 -> TP2x2 -> TP4 mid-decode, a
               6000-token request only TP4 holds, TP4 -> TP2x2 ->
@@ -155,7 +156,7 @@ exits non-zero:
               modeled, KV bytes against their bound, weight bytes),
               stall steps, the long request's TTFT and TPOT, memory at
               TP4 and the peak, and the six kernels' launches.
-13. replicated-serve — gemma-2b at full width (9 of its 18 layers:
+13. replicated-serve — gemma-2b at full width (5 of its 18 layers:
               ``REPLICATED_LAYERS``) in fp32 on 4 workers (its one
               kv head copied into 4 kv slots, dh 256, geglu): TP1x4 ->
               TP2x2 -> TP4 -> TP1x4 mid-decode gives the streams of a
@@ -199,7 +200,8 @@ exits non-zero:
               4096-token chunk.  Kernels 1-3 must launch.
 17. moe-transform — granite on two workers: fp32 at 4 layers, TP1x2 ->
               TP2 mid-decode equals an engine started at TP2 and a round
-              trip an untransformed engine; bf16 at full depth, TP1x2 ->
+              trip an untransformed engine; bf16 at 16 of its 32 layers
+              (``MOE_TRANSFORM_LAYERS``), TP1x2 ->
               TP2 mid-decode, a 6000-token request only TP2 holds, back
               to TP1x2, every decode row held against an engine started
               at TP2 (teacher forced; ``MOE_BF16_AGREE``); sessions' walls,
@@ -218,8 +220,9 @@ exits non-zero:
               reference's ``mlstm_chunkwise`` refuses whole) prefilled
               whole agrees with the same prompt in page chunks and across
               the devices within ``XL_TOL``.
-21. xlstm-serve — full-size xlstm-1.3b (42 mLSTM + 6 sLSTM layers, no
-              MLP) in bf16 on one device: prompts of 256-2500 tokens in
+21. xlstm-serve — xlstm-1.3b at full width, 24 of its 48 layers
+              (``XL_LAYERS``: 21 mLSTM + 3 sLSTM, no MLP) in bf16 on
+              one device: prompts of 256-2500 tokens in
               chunks of 1024; weights, state, TTFT, TPOT, memory, a
               profiled decode step and each mixer's parts a layer at a
               decode step and a 1024-token chunk.  No kernel launches.
@@ -252,6 +255,24 @@ exits non-zero:
 26. enc-workers — both models on two workers at TP1x2 in fp32 at 2
               layers: the card's streams equal the CPU's and the
               one-device engine's; ``transform(2)`` is refused.
+27. train-parity — one train step (``training.train_step.loss_fn``,
+              autograd, AdamW) of reduced llama3-8b, granite-moe, a
+              recurrentgemma hybrid (RG-LRU + sliding) and xlstm (mLSTM
+              + sLSTM) in fp32 on the card and on the CPU from the same
+              weights and batch: the loss within ``TRAIN_LOSS_TOL``,
+              each gradient leaf within ``TRAIN_GRAD_TOL`` in norm, no
+              weight with a CPU gradient lacking one on the card.
+28. train   — ``launch.train.train`` (the CLI's body) on llama3-8b at
+              full width, ``TRAIN_LAYERS`` of its 32 layers, bf16, batch
+              8 x 1024, 16 steps: finite losses, the last below the
+              first; the median step wall, tokens/s, peak memory and
+              model FLOP/s against the dense bf16 peak.
+29. train-cli — ``python -m repro_torch.launch.train --smoke`` cut after
+              step 3 with its checkpoint, then the CLI's ``main``
+              resumed from it to step 5: its losses equal an unbroken
+              run's within ``TRAIN_CLI_TOL``.
+              Training is plain PyTorch autograd: phases 27-29 launch
+              none of the six kernels (27 and 28 check it).
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
@@ -273,7 +294,8 @@ cluster-partial, calibrate, cluster-calibrated, layout-serve,
 cluster-layout, moe-serve, moe-transform, moe-cluster, moe-spill,
 rg-serve, rg-transform, xlstm-serve and xlstm-transform: 0 on those
 two, which launch none of the six; whisper-serve and vlm-serve, and
-the flash row whisper-serve's bidirectional launches), and the last
+the flash row whisper-serve's bidirectional launches; train-parity and
+train, 0), and the last
 line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
@@ -283,6 +305,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2503,11 +2526,12 @@ def ladder_sessions(eng, reports_from: int = 0) -> list:
 
 
 #: the depth of ladder-serve's and layout-serve's llama3-8b and of
-#: replicated-serve's gemma-2b: half of each (32 and 18 layers), to keep
-#: the whole script inside its time limit; their layers are alike, so
-#: each kernel shape is the same
-LLAMA_LAYERS = 16
-REPLICATED_LAYERS = 9
+#: replicated-serve's gemma-2b: a quarter of llama3-8b's 32 layers and 5
+#: of gemma-2b's 18, to keep the whole script inside its time limit
+#: (half of each until the train phases came); their layers are alike,
+#: so each kernel shape is the same
+LLAMA_LAYERS = 8
+REPLICATED_LAYERS = 5
 
 
 def phase_ladder_serve(smi: str, dev: str = "cuda", cfg=None,
@@ -4273,6 +4297,11 @@ def held_rows(got: dict, want: dict, vocab: int) -> dict:
     return held
 
 
+#: moe-transform's bf16 depth: half of granite's 32 layers since the
+#: train phases came, to keep the script inside its time limit
+MOE_TRANSFORM_LAYERS = 16
+
+
 def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
                         parity_layers: int = 4, max_seq: int = 8192,
                         lens=(300, 1200, 2500, 3500), long_len: int = 6000,
@@ -4282,7 +4311,8 @@ def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
     and ``parity_layers`` layers: TP1x2 -> TP2 mid-decode gives the
     streams of an engine started at TP2, a round trip TP1x2 -> TP2 ->
     TP1x2 those of an engine that never transformed.  In bf16 at full
-    width and depth: the same prompts decode at TP1x2, the engine
+    width and ``MOE_TRANSFORM_LAYERS`` layers: the same prompts decode
+    at TP1x2, the engine
     transforms to TP2 mid-decode, serves a 6000-token request only TP2
     holds, and transforms back (``layers_per_step`` layers a schedule
     step); every decode row of the short prompts is held against an
@@ -4295,7 +4325,8 @@ def phase_moe_transform(smi: str, dev: str = "cuda", cfg=None,
     from repro_torch.core.scheduler import PrefillPolicy
     from repro_torch.serving import ServeRequest
 
-    base = cfg or get_config(MOE_MODEL)
+    base = cfg or dataclasses.replace(get_config(MOE_MODEL),
+                                      num_layers=MOE_TRANSFORM_LAYERS)
     t0 = time.monotonic()
     c32 = dataclasses.replace(base, num_layers=parity_layers,
                               dtype="float32")
@@ -4873,12 +4904,19 @@ def teacher_forced_change(base, dev: str, shorts, new: int, kw: dict,
             launch_counts())
 
 
+#: rg-transform's bf16 depth: 20 of recurrentgemma's 38 layers (six
+#: units and the two remainder layers, as the full model ends) since the
+#: train phases came, to keep the script inside its time limit
+RG_TRANSFORM_LAYERS = 20
+
+
 def phase_rg_transform(smi: str, dev: str = "cuda", cfg=None,
                        max_seq: int = 8192, lens=(300, 1200, 2500, 3500),
                        new: int = 48, page_tokens: int = 64,
                        layers_per_step: int = 8, budget: int = 1024,
                        fp32_layers: int = RG_FP32_LAYERS):
-    """Full-size recurrentgemma-9b in bf16 on two workers of the card,
+    """recurrentgemma-9b at full width and ``RG_TRANSFORM_LAYERS`` layers
+    in bf16 on two workers of the card,
     prompts prefilled in chunks of ``budget`` tokens: TP1x2 -> TP2 ->
     TP1x2 mid-decode (``layers_per_step`` layers a schedule step),
     every decode row held teacher forced against an engine at the same
@@ -4895,7 +4933,8 @@ def phase_rg_transform(smi: str, dev: str = "cuda", cfg=None,
     from repro_torch.core import weight_transform as WT
     from repro_torch.core.scheduler import PrefillPolicy
 
-    base = cfg or get_config(RG_MODEL)
+    base = cfg or dataclasses.replace(get_config(RG_MODEL),
+                                      num_layers=RG_TRANSFORM_LAYERS)
     gen = torch.Generator().manual_seed(61)
     shorts = _prompts(gen, lens, base.vocab_size)
     # a prefill budget: the longer prompts chunk on the workers
@@ -5034,6 +5073,10 @@ XL_TOL = 1e-4
 #: the logits' tolerance against the engine at each degree
 XL_FP32_LAYERS = 16
 XL_FP32_TOL = 1e-3
+#: xlstm-serve's and xlstm-transform's bf16 depth: 24 of xlstm-1.3b's 48
+#: layers (three 7:1 units) since the train phases came, to keep
+#: the script inside its time limit
+XL_LAYERS = 24
 
 
 def _xl_cfg(base=None, **kw):
@@ -5236,8 +5279,9 @@ def phase_xl_serve(smi: str, dev: str = "cuda", cfg=None,
                    lens=(256, 600, 1300, 2500), new: int = 32,
                    max_seq: int = 4096, page_tokens: int = 64,
                    budget: int = 1024):
-    """Full-size xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM, no MLP) in
-    bf16 with random weights on one device through ``Engine.step``: 4
+    """xlstm-1.3b at full width and ``XL_LAYERS`` layers (of 48: 42
+    mLSTM, 6 sLSTM, no MLP) in bf16 with random weights on one device
+    through ``Engine.step``: 4
     slots, prompts of 256-2500 tokens (600, 1300 and 2500 are not
     multiples of 256), prefilled in chunks of ``budget`` tokens.  It
     runs none of kernels 1-6 (no attention, no MLP; the mixers are plain
@@ -5251,7 +5295,7 @@ def phase_xl_serve(smi: str, dev: str = "cuda", cfg=None,
     from repro_torch.models.model import build
     from repro_torch.serving import Engine, ServeRequest
 
-    cfg = cfg or _xl_cfg()
+    cfg = cfg or _xl_cfg(num_layers=XL_LAYERS)
     plan = make_plan(cfg, 1)
     t0 = time.monotonic()
     model = build(cfg, plan, seed=0, device=dev)
@@ -5395,7 +5439,8 @@ def phase_xl_transform(smi: str, dev: str = "cuda", cfg=None,
                        new: int = 48, page_tokens: int = 64,
                        layers_per_step: int = 8, budget: int = 1024,
                        fp32_layers: int = XL_FP32_LAYERS):
-    """Full-size xlstm-1.3b in bf16 on two workers of the card, prompts
+    """xlstm-1.3b at full width and ``XL_LAYERS`` layers in bf16 on two
+    workers of the card, prompts
     prefilled in chunks of ``budget`` tokens: TP1x2 -> TP2 -> TP1x2
     mid-decode (``layers_per_step`` layers a schedule step: the
     reference's schedule, whose MLP steps move nothing here), every
@@ -5415,7 +5460,7 @@ def phase_xl_transform(smi: str, dev: str = "cuda", cfg=None,
     Kernels 1-6 stay at 0 launches."""
     from repro_torch.core.scheduler import PrefillPolicy
 
-    base = cfg or _xl_cfg()
+    base = cfg or _xl_cfg(num_layers=XL_LAYERS)
     gen = torch.Generator().manual_seed(83)
     shorts = _prompts(gen, lens, base.vocab_size)
     kw = dict(max_batch=4, max_seq=max_seq, page_tokens=page_tokens,
@@ -5924,6 +5969,272 @@ def phase_enc_workers(dev: str = "cuda", cfgs=None, lens=(4, 60, 200),
 
 
 # ---------------------------------------------------------------------------
+# slice 14: training (plain PyTorch autograd: none of the six kernels)
+
+TRAIN_MODEL = "llama3-8b"
+#: llama3-8b's layers the train phase keeps: 2.80 B parameters, whose
+#: bf16 weights and gradients and fp32 moments (12 B a parameter, 33.5
+#: GB) and fp32 logits (8 x 1024 x 128256) fit the card; 16 layers are
+#: at its edge and 32 (96 GB) do not fit the reference's scheme
+TRAIN_LAYERS = 8
+TRAIN_LOSS_TOL = 1e-4       # train-parity: the loss, relative
+TRAIN_GRAD_TOL = 1e-3       # train-parity: a gradient leaf, relative norm
+TRAIN_CLI_TOL = 1e-6        # train-cli: resumed against unbroken losses
+#: train-parity's families: the reduced configs in fp32, recurrentgemma
+#: cut by hand to RG-LRU + a sliding layer and xlstm to mLSTM + sLSTM
+#: (``reduced()`` keeps the first two kinds of a pattern only)
+TRAIN_FAMILIES = {
+    "llama3-8b": {},
+    "granite-moe-3b-a800m": {},
+    "recurrentgemma-9b": {"num_layers": 3,
+                          "layer_pattern": ("rglru", "rglru", "sliding")},
+    "xlstm-1.3b": {"num_layers": 3, "layer_pattern": ("mlstm", "slstm")},
+}
+
+
+def _train_cfg(name: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name).reduced(), dtype="float32",
+                               **TRAIN_FAMILIES[name])
+
+
+def _grad_step(model, batch):
+    """One loss and backward of ``training.train_step.loss_fn``: (loss,
+    {name: gradient})."""
+    from repro_torch.training.train_step import loss_fn
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad for k, p in
+                                  model.named_parameters()}
+
+
+def phase_train_parity(dev: str = "cuda", names=tuple(TRAIN_FAMILIES),
+                       batch: int = 4, seq: int = 128):
+    """One train step of each family on ``dev`` and on the CPU, from the
+    same weights (built on the CPU from seed 0) and the same batch of
+    the synthetic stream, fp32 with TF32 off: the loss within
+    ``TRAIN_LOSS_TOL``, each gradient leaf within ``TRAIN_GRAD_TOL`` in
+    norm, and every weight with a nonzero gradient on the CPU has one on
+    the card (an attention run through a kernel, which has no backward,
+    would leave ``wq`` / ``wk`` / ``wv`` without).  Then the AdamW
+    update on both, its parameters' distance printed.  None of the six
+    kernels may launch."""
+    from repro_torch.core.padding import make_plan
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.model import build
+    from repro_torch.training import DataConfig, SyntheticStream, adamw
+    t0 = time.monotonic()
+    reset_launch_counts()
+    out = {}
+    for name in names:
+        cfg = _train_cfg(name)
+        cpu = build(cfg, make_plan(cfg, 1), 0, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        data = SyntheticStream(DataConfig(cfg.vocab_size, seq, batch))
+        runs = {}
+        for where, model in (("cpu", cpu), (dev, card)):
+            model.requires_grad_(True)
+            loss, grads = _grad_step(model, batch_on(data, 0, where))
+            init, update = adamw(3e-4)
+            params = dict(model.named_parameters())
+            update(grads, init(params), params)
+            runs[where] = (loss, {k: g.detach().cpu() for k, g in
+                                  grads.items()}, params)
+        (lc, gc_, pc), (ld, gd, pd) = runs["cpu"], runs[dev]
+        rel = {k: float((gd[k] - g).norm() / max(float(g.norm()), 1e-30))
+               for k, g in gc_.items()}
+        lost = sorted(k for k, g in gc_.items()
+                      if bool(g.any()) and not bool(gd[k].any()))
+        upd = max(float((pd[k].detach().cpu() - p.detach()).norm()
+                        / max(float(p.detach().norm()), 1e-30))
+                  for k, p in pc.items())
+        worst = max(rel, key=rel.get)
+        out[name] = {"layers": list(cfg.pattern), "loss_cpu": lc,
+                     "loss_card": ld, "loss_rel": abs(ld - lc) / abs(lc),
+                     "grad_leaves": len(rel), "worst_grad_leaf": worst,
+                     "worst_grad_rel": rel[worst], "lost_grads": lost,
+                     "param_rel_after_update": upd}
+        assert abs(ld - lc) <= TRAIN_LOSS_TOL * abs(lc), out[name]
+        assert rel[worst] <= TRAIN_GRAD_TOL, out[name]
+        assert not lost, out[name]
+        del cpu, card, runs
+    launched = launch_counts()
+    assert not any(launched.values()), launched
+    emit(phase="train-parity", dtype="float32", batch=batch, seq=seq,
+         families=out, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
+         launches=launched, seconds=time.monotonic() - t0)
+    return launched
+
+
+def train_flops(cfg, plan, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward and backward, no
+    recomputation): 6 per weight of a matrix product per token (q, k,
+    v, o, the gated MLP, the head over the real vocabulary) and 12 per
+    head dimension per causal (query, key) pair per head."""
+    d, dh, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
+    Hq, kv = cfg.num_heads, cfg.num_kv_heads
+    per_layer = d * (Hq + 2 * kv) * dh + Hq * dh * d + 3 * d * cfg.d_ff
+    matmul = L * per_layer + d * cfg.vocab_size
+    pairs = seq * (seq + 1) // 2
+    return (6.0 * batch * seq * matmul
+            + 12.0 * batch * L * Hq * dh * pairs)
+
+
+def train_profile(cfg, batch: int, seq: int, dev: str = "cuda") -> dict:
+    """Where a train step's time goes: the train phase's model (built
+    anew from the same seed) and its first batch, one step to warm up,
+    then one step under ``torch.profiler`` (``device_activity``: the
+    card's own events, busy against the unprofiled wall of the warm
+    step)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.padding import make_plan
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.model import build
+    from repro_torch.training import (DataConfig, SyntheticStream, adamw,
+                                      make_train_step)
+    model = build(cfg, make_plan(cfg, 1), 0, device=dev)
+    model.requires_grad_(True)
+    init, update = adamw(3e-4)
+    state = init(dict(model.named_parameters()))
+    step = make_train_step(model, update)
+    b = batch_on(SyntheticStream(DataConfig(cfg.vocab_size, seq, batch)),
+                 0, dev)
+    walls = []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.monotonic()
+        state, m = step(state, b)
+        float(m["loss"])
+        walls.append(time.monotonic() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, m = step(state, b)
+        float(m["loss"])
+        wall = time.monotonic() - t0
+    out = {"unprofiled_wall_ms": walls[-1] * 1e3,
+           **device_activity(prof, wall, 1)}
+    del model, state, step, prof
+    free_card()
+    return out
+
+
+def phase_train(smi: str, dev: str = "cuda", cfg=None, layers: int =
+                TRAIN_LAYERS, batch: int = 8, seq: int = 1024,
+                steps: int = 16):
+    """``launch.train.train`` (the CLI's body) on llama3-8b at full
+    width, ``layers`` of its 32, bf16, random weights from seed 0:
+    ``steps`` steps of ``batch`` x ``seq`` tokens of the synthetic
+    stream under the CLI's WSD schedule at 3e-4.  Every loss must be
+    finite and the last below the first.  Prints each step's loss and
+    wall (host clock to the loss, which syncs), the median wall after
+    the first step, tokens/s, the peak allocated memory and the model
+    FLOP/s against the card's dense bf16 peak; then, on the card, one
+    profiled step of the same model (``train_profile``).  None of the
+    six kernels may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.launch.train import train
+    t0 = time.monotonic()
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                                  num_layers=layers)
+    free_card()
+    sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lines = []
+    steps_out = train(cfg, steps=steps, batch=batch, seq=seq, lr=3e-4,
+                      log_every=1, device=dev, log=lines.append)
+    launched = launch_counts()
+    losses = [l for l, _ in steps_out]
+    walls = sorted(w for _, w in steps_out[1:])
+    med = walls[len(walls) // 2]
+    flops = train_flops(cfg, make_plan(cfg, 1), batch, seq)
+    peak = PEAK_FLOPS[torch.bfloat16]
+    res = {"model": cfg.name, "layers": cfg.num_layers,
+           "params": cfg.param_count(), "dtype": cfg.dtype,
+           "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+           "step_walls_s": [w for _, w in steps_out],
+           "median_step_s": med, "tokens_per_s": batch * seq / med,
+           "max_memory_allocated_gb": (
+               torch.cuda.max_memory_allocated() / 1e9
+               if dev == "cuda" else None),
+           "model_flops_per_step": flops,
+           "model_flops_per_s": flops / med,
+           "mfu_vs_dense_bf16_peak": flops / med / peak,
+           "gpu": smi, "launches": launched, "lines": lines}
+    free_card()
+    if dev == "cuda":
+        res["profile"] = train_profile(cfg, batch, seq, dev)
+    emit(phase="train", **res, seconds=time.monotonic() - t0)
+    assert all(math.isfinite(l) for l in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert not any(launched.values()), launched
+    return launched
+
+
+TRAIN_CLI = ("--smoke", "--steps", "5", "--batch", "8", "--seq", "128",
+             "--log-every", "1")
+
+
+def _cli_losses(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        f = line.split()
+        if len(f) >= 4 and f[0] == "step" and f[2] == "loss":
+            out[int(f[1])] = float(f[3])
+    return out
+
+
+def phase_train_cli(dev: str = "cuda", args=TRAIN_CLI):
+    """The train CLI on ``dev`` (the reduced llama3-8b in bf16): ``python
+    -m repro_torch.launch.train`` cut after step 3 with its checkpoint,
+    while the same CLI (``launch.train.main``) runs 5 steps unbroken in
+    this process; then ``main`` resumes from that checkpoint (a model
+    built anew, every weight, moment and the step read from disk) to
+    step 5.  The cut run's losses and the resumed run's must equal the
+    unbroken run's within ``TRAIN_CLI_TOL``, relative."""
+    import io
+    import shutil
+    from repro_torch.launch.train import main as train_main
+    t0 = time.monotonic()
+    ck = os.path.join(ROOT, "build", "train_cli_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = [*args, "--device", dev]
+
+    def in_process(*extra) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_main([*argv, *extra])
+        return buf.getvalue()
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cut = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--stop-after", "3", "--ckpt-dir", ck], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    whole = in_process()
+    out, err_text = cut.communicate(timeout=600)
+    assert cut.returncode == 0, err_text[-4000:]
+    resumed = in_process("--ckpt-dir", ck)
+    lw, lc, lr = (_cli_losses(t) for t in (whole, out, resumed))
+    assert "[train] resumed from step 3" in resumed, resumed
+    assert sorted(lw) == [0, 1, 2, 3, 4] and sorted(lc) == [0, 1, 2] \
+        and sorted(lr) == [3, 4], (lw, lc, lr)
+    got = {**lc, **lr}
+    err = max(abs(got[i] - lw[i]) / abs(lw[i]) for i in lw)
+    emit(phase="train-cli", args=argv, unbroken=lw, cut=lc, resumed=lr,
+         max_rel_diff=err, tol=TRAIN_CLI_TOL,
+         lines=[l for l in resumed.splitlines() if l.startswith("[train]")],
+         seconds=time.monotonic() - t0)
+    assert err <= TRAIN_CLI_TOL, (lw, got)
+
+
+# ---------------------------------------------------------------------------
 # Shape census: every kernel shape the phases launch was held against its
 # plain version
 # ---------------------------------------------------------------------------
@@ -6130,13 +6441,20 @@ def step_summary(steps) -> dict:
     return out
 
 
+#: transform-serve's depth: half of llama3-8b's 32 layers since the
+#: train phases came, to keep the script inside its time limit
+TRANSFORM_SERVE_LAYERS = 16
+
+
 def phase_transform_serve(smi: str):
-    """Full-size llama3-8b, bf16, two workers on the card: TP1x2 ->
-    TP2 mid-decode, a request only TP2 can hold, TP2 -> TP1x2."""
+    """llama3-8b at full width and ``TRANSFORM_SERVE_LAYERS`` layers,
+    bf16, two workers on the card: TP1x2 -> TP2 mid-decode, a request
+    only TP2 can hold, TP2 -> TP1x2."""
     from repro_torch.configs import get_config
     from repro_torch.serving import ServeRequest
 
-    cfg = get_config("llama3-8b")
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              num_layers=TRANSFORM_SERVE_LAYERS)
     t0 = time.monotonic()
     eng = _worker_engine(cfg, max_batch=4, max_seq=8192, page_tokens=64)
     torch.cuda.synchronize()
@@ -6475,6 +6793,10 @@ def main():
     enc = {"whisper-serve": run("whisper-serve", phase_whisper_serve, smi),
            "vlm-serve": run("vlm-serve", phase_vlm_serve, smi)}
     run("enc-workers", phase_enc_workers)
+    # slice 14: training (plain autograd: none of the six kernels)
+    train = {"train-parity": run("train-parity", phase_train_parity),
+             "train": run("train", phase_train, smi)}
+    run("train-cli", phase_train_cli)
     emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []
@@ -6505,7 +6827,8 @@ def main():
                 **{k: v.get(name, 0) for k, v in moe.items()},
                 **{k: v.get(name, 0) for k, v in rg.items()},
                 **{k: v.get(name, 0) for k, v in xl.items()},
-                **{k: v.get(name, 0) for k, v in enc.items()}}})
+                **{k: v.get(name, 0) for k, v in enc.items()},
+                **{k: v.get(name, 0) for k, v in train.items()}}})
         if name == "flash_attention":
             kernels[-1]["launches_by_path"]["whisper-serve, bidirectional"] \
                 = enc["whisper-serve"]["flash_attention_bidirectional"]

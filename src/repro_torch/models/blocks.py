@@ -39,6 +39,14 @@ updated in place.  It is plain PyTorch, as the reference's is plain
 ``jnp``: no TPU kernel computes it.  The xLSTM kinds have no MLP: a
 block is ``ln``, the mixer and its residual.
 
+Training (``apply_block_train``) runs a block over a whole sequence
+with no cache, through autograd: ``attention_train`` (the plain
+``layers.chunked_attention``, as the reference's ``attention_seq``;
+the kernels have no backward), ``rec_train`` (the recurrent mixers'
+functional forms, which give the serving forms' bits in fp32 on the
+CPU) and ``apply_moe_mlp_train`` (the MoE MLP with the reference's
+load-balance loss, ``moe_aux``).
+
 Sequence-parallel layouts (``attention_decode_sp``, ``attention_chunk_sp``:
 the counterparts of the reference's ``attention_decode`` /
 ``attention_chunk`` with ``sp > 1``) run over every worker of a layer's
@@ -53,6 +61,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import (ATTN, MLSTM, MOE, RGLRU, SLIDING,
                                       SLSTM, ModelConfig)
@@ -167,6 +176,21 @@ def attention_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
     attn = FA.flash_attention(q, k, v, causal=causal, window=window)
     out = attn.reshape(B, S, -1) @ p["wo"]
     return out, (k, v)
+
+
+def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    plan: PaddingPlan, positions: torch.Tensor,
+                    window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Whole-sequence self-attention for training: the plain
+    ``layers.chunked_attention``, as the reference's ``attention_seq``
+    runs it, so autograd reaches ``wq``, ``wk`` and ``wv`` (the flash
+    kernel has no backward).  Returns the sub-layer's output (B, S,
+    d)."""
+    B, S, d = x.shape
+    q, k, v = _project_qkv(p, x, cfg, plan, positions)
+    attn = Lyr.chunked_attention(q, k, v, positions, positions,
+                                 causal=causal, window=window)
+    return attn.reshape(B, S, -1) @ p["wo"]
 
 
 def attention_chunk(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -403,8 +427,8 @@ def apply_padded_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, tp: int,
 # and the positions depend on every row routed together) and then run
 # the experts for its own rows only (``moe_experts``): a token's expert
 # output depends only on its own input and on whether its choice was
-# kept.  The reference's load-balance loss is training-only; no serving
-# caller reads it, and it is not computed here.
+# kept.  The reference's Switch-style load-balance loss is training-only
+# (``apply_moe_mlp_train``, ``moe_aux``); no serving caller computes it.
 
 
 def init_moe_mlp(gen: torch.Generator, cfg: ModelConfig, plan: PaddingPlan,
@@ -438,16 +462,25 @@ def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
                       / moe.num_experts))
 
 
-def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
-              plan: PaddingPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each token's ``top_k`` experts: x (T, d) -> (topv (T, k) fp32
-    weights renormalised to sum 1, topi (T, k) int64 experts, in
-    descending gate order).  Router logits in fp32, padded experts at
-    -inf."""
+def moe_gates(router: torch.Tensor, x: torch.Tensor, plan: PaddingPlan
+              ) -> torch.Tensor:
+    """The router's gates: x (T, d) -> (T, Ep) fp32 softmax of the
+    router logits, padded experts at -inf (gate 0)."""
     logits = (x @ router).float()
     real = torch.arange(logits.shape[-1], device=x.device) < plan.num_experts
     logits = torch.where(real, logits, float("-inf"))
-    gates = torch.softmax(logits, dim=-1)
+    return torch.softmax(logits, dim=-1)
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+              plan: PaddingPlan, gates: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each token's ``top_k`` experts: x (T, d) -> (topv (T, k) fp32
+    weights renormalised to sum 1, topi (T, k) int64 experts, in
+    descending gate order), from ``moe_gates`` (or the given
+    ``gates``)."""
+    if gates is None:
+        gates = moe_gates(router, x, plan)
     topv, topi = torch.topk(gates, cfg.moe.top_k, dim=-1)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     return topv, topi
@@ -498,14 +531,14 @@ def moe_experts(p: Params, x: torch.Tensor, topv: torch.Tensor,
     return (yb[topi, torch.where(keep, pos, 0)] * w[..., None]).sum(dim=1)
 
 
-def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  plan: PaddingPlan) -> torch.Tensor:
-    """The MoE MLP of one call: x (B, S, d), every row routed together
-    (T = B * S tokens), plus the shared expert's dense MLP when the
-    config has one."""
+def _moe_call(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              plan: PaddingPlan, gates: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_moe_mlp`` under the call's ``gates`` (None: computed
+    here), and each token's choices (topi (T, k))."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
-    topv, topi = moe_route(p["router"], xt, cfg, plan)
+    topv, topi = moe_route(p["router"], xt, cfg, plan, gates)
     cap = moe_capacity(xt.shape[0], cfg)
     pos, keep = moe_positions(topi, p["wi"].shape[0], cap)
     y = moe_experts(p, xt, topv, topi, pos, keep, cap, cfg.activation)
@@ -513,7 +546,37 @@ def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if "shared_wi" in p:
         y = y + Lyr.dense_mlp(x, p["shared_wi"], p["shared_wo"],
                               cfg.activation)
-    return y
+    return y, topi
+
+
+def apply_moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  plan: PaddingPlan) -> torch.Tensor:
+    """The MoE MLP of one call: x (B, S, d), every row routed together
+    (T = B * S tokens), plus the shared expert's dense MLP when the
+    config has one."""
+    return _moe_call(p, x, cfg, plan, None)[0]
+
+
+def moe_aux(gates: torch.Tensor, first: torch.Tensor, plan: PaddingPlan
+            ) -> torch.Tensor:
+    """The reference's Switch-style load-balance loss of one call
+    (``repro/models/blocks.py:320-325``): the share of tokens whose
+    first choice (``first`` (T,)) is each expert times that expert's
+    mean gate (gates: (T, Ep) fp32), summed, times E."""
+    E = plan.num_experts
+    frac_tokens = F.one_hot(first, gates.shape[-1]).float().mean(dim=0)
+    frac_probs = gates.mean(dim=0)
+    return (frac_tokens * frac_probs).sum() * (E ** 2) / max(E, 1)
+
+
+def apply_moe_mlp_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                        plan: PaddingPlan
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_moe_mlp`` and the call's load-balance loss (training):
+    (y (B, S, d), aux scalar)."""
+    gates = moe_gates(p["router"], x.reshape(-1, x.shape[-1]), plan)
+    y, topi = _moe_call(p, x, cfg, plan, gates)
+    return y, moe_aux(gates, topi[:, 0], plan)
 
 
 # ===========================================================================
@@ -673,6 +736,34 @@ def rec_mix(kind: str, p: Params, u: torch.Tensor, h: torch.Tensor,
     return slstm_mix(p, u, state, mode, part)
 
 
+def rec_train(kind: str, p: Params, h: torch.Tensor, block: int
+              ) -> torch.Tensor:
+    """A recurrent mixer of ``kind`` over a whole sequence from a fresh
+    state, for training: the operations of ``rec_mix``'s ``seq`` mode
+    (scans in blocks of ``block`` tokens) with no state cache and no
+    write in place, so autograd runs through it; in fp32 on the CPU it
+    gives the serving form's bits.  h: the normed input (B, S, d)."""
+    u = rec_project(kind, p, h)
+    if kind == RGLRU:
+        d = u.shape[-1] // 2
+        xb, _ = Lyr.causal_conv1d(u[..., :d], p["conv_w"], p["conv_b"])
+        y, _ = Lyr.rglru(xb, xb @ p["w_gx"], xb @ p["w_ga"], p["a_param"],
+                         block=block)
+        return (y * Lyr._act("geglu", u[..., d:])) @ p["w_out"]
+    B, S = h.shape[:2]
+    if kind == MLSTM:
+        up = u.shape[-1]
+        H = p["w_if"].shape[1] // 2
+        q, k, v = (u[..., j, :].reshape(B, S, H, up // H) for j in range(3))
+        gif = h @ p["w_if"]
+        y = Lyr.mlstm_chunkwise_train(q, k, v, gif[..., :H], gif[..., H:],
+                                      block=block)
+        return (y.reshape(B, S, up) * torch.sigmoid(h @ p["w_og"])) \
+            @ p["w_out"]
+    y = Lyr.slstm_seq_train(u.reshape(B, S, 4, -1), p["r_diag"])
+    return y @ p["w_out"]
+
+
 # ===========================================================================
 # Block apply
 # ===========================================================================
@@ -733,6 +824,31 @@ def _apply_block(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
     x = x + out
     h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + _mlp(kind, p["mlp"], h, cfg, plan), kv
+
+
+def apply_block_train(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
+                      x: torch.Tensor, positions: torch.Tensor, block: int
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Whole-sequence forward for one block in training (the
+    reference's ``apply_block_seq`` as ``forward_train`` calls it):
+    attention through ``attention_train``, a recurrent mixer through
+    ``rec_train`` (scans in blocks of ``block`` tokens), no cache.
+    Returns (y, the MoE load-balance loss or None)."""
+    check_kind(kind)
+    if not has_mlp(kind):
+        h = Lyr.rmsnorm(x, p["ln"], cfg.norm_eps)
+        return x + rec_train(kind, p["rec"], h, block), None
+    h = Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind in RECURRENT_KINDS:
+        x = x + rec_train(kind, p["rec"], h, block)
+    else:
+        x = x + attention_train(p["attn"], h, cfg, plan, positions,
+                                window=_window_of(kind, cfg))
+    h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if kind == MOE:
+        y, aux = apply_moe_mlp_train(p["mlp"], h, cfg, plan)
+        return x + y, aux
+    return x + apply_mlp(p["mlp"], h, cfg), None
 
 
 def apply_block_seq(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,

@@ -2,9 +2,11 @@
 
 ``params_from_jax`` takes the tree ``repro.models.model.init_params``
 returns, with every leaf already turned into a numpy array (the caller
-does ``jax.tree.map(np.asarray, params)``), and gives a state dict for
-``Model.load_state_dict``.  This module imports neither JAX nor
-``repro``.
+does ``jax.tree.map(np.asarray, params)``) or a tensor (a reference
+checkpoint read by ``training.checkpoint.restore``), and gives a state
+dict for ``Model.load_state_dict``; any tree of the same structure
+(the reference's gradients, its AdamW moments) maps the same way.
+This module imports neither JAX nor ``repro``.
 
 The reference stacks the layers of each pattern position over G groups
 (``vmap`` in ``init_params``) and keeps R remainder layers apart; the
@@ -61,6 +63,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
     dt = dtype_of(cfg)
 
     def t(a, to=dt) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):     # e.g. a restored checkpoint
+            return a.to(to)
         # bf16 arrays arrive as ml_dtypes bfloat16; go through float32
         a = np.asarray(a)
         if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
@@ -73,7 +77,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, plan: PaddingPlan
     for g in range(G):
         for i in range(unit):
             layers.append(_index(np_tree["blocks"][i], g))
-    layers.extend(np_tree["rem"][:R])
+    # a checkpoint keeps no empty list: no remainder layers, no "rem"
+    layers.extend(np_tree.get("rem", [])[:R])
     kinds = cfg.pattern
 
     if np.shape(np_tree["embed"]) != (plan.vocab_padded, cfg.d_model):

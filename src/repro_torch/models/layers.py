@@ -406,15 +406,9 @@ def _mlstm_fresh(B: int, H: int, dh: int, device):
             torch.full((B, H), NEG_INF, dtype=f32, device=device))
 
 
-def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    i_gate: torch.Tensor, f_gate: torch.Tensor,
-                    state: Optional[Tuple[torch.Tensor, ...]] = None,
-                    block: int = 64
-                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Stabilised chunkwise mLSTM over a sequence.  q, k, v: (B, S, H,
-    dh); i_gate, f_gate: (B, S, H) pre-activations; state: (C (B, H, dh,
-    dh), n (B, H, dh), m (B, H)) carried in (fresh when None).  Returns
-    (h (B, S, H, dh) in q's dtype, (C, n, m) fp32)."""
+def _mlstm_blocks(q, k, v, i_gate, f_gate, block: int):
+    """The state-free work of every block at once: (qb, kb, vb, fcum,
+    ftot, dmat, m_intra, tail, tail_max), each (nb, B, H, ...) fp32."""
     B, S, H, dh = q.shape
     L = block
     nb = -(-S // L)
@@ -441,7 +435,52 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m_intra = dmat.amax(dim=-1)                         # (nb,B,H,L)
     tail = ftot[..., None] - fcum + ig                  # (nb,B,H,L)
     tail_max = tail.amax(dim=-1)                        # (nb,B,H)
+    return qb, kb, vb, fcum, ftot, dmat, m_intra, tail, tail_max
 
+
+def _mlstm_stabilisers(m0, ftot, tail_max):
+    """``m`` entering and leaving each block: (m_in, m_out) (nb, B, H)
+    and the last block's ``m``."""
+    m_in, m_out = [], []
+    m = m0
+    for j in range(ftot.shape[0]):
+        m_in.append(m)
+        m = torch.maximum(m + ftot[j], tail_max[j])
+        m_out.append(m)
+    return torch.stack(m_in), torch.stack(m_out), m
+
+
+def _mlstm_read(qb, kb, vb, Cs, ns, m_in, fcum, dmat, m_intra, S: int
+                ) -> torch.Tensor:
+    """Each block's output from the state entering it (``Cs`` (nb, B, H,
+    dh, dh), ``ns``) and its own tokens: h (B, S, H, dh) fp32."""
+    nb, B, H, L, dh = qb.shape
+    m_inter = m_in[..., None] + fcum                    # (nb,B,H,L)
+    m_t = torch.maximum(m_inter, m_intra)
+    w_inter = torch.exp(m_inter - m_t)
+    h_inter = torch.matmul(qb, Cs) * w_inter[..., None]
+    qn = torch.matmul(qb, ns[..., None])[..., 0] * w_inter
+    pw = torch.exp(dmat - m_t[..., None]) * torch.matmul(
+        qb, kb.transpose(-1, -2))                       # (nb,B,H,t,s)
+    num = h_inter + torch.matmul(pw, vb)
+    den = qn + pw.sum(dim=-1)
+    h = num / torch.clamp_min(den.abs(), 1.0)[..., None]
+    return h.transpose(2, 3).transpose(0, 1).reshape(B, nb * L, H, dh)[:, :S]
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    i_gate: torch.Tensor, f_gate: torch.Tensor,
+                    state: Optional[Tuple[torch.Tensor, ...]] = None,
+                    block: int = 64
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Stabilised chunkwise mLSTM over a sequence.  q, k, v: (B, S, H,
+    dh); i_gate, f_gate: (B, S, H) pre-activations; state: (C (B, H, dh,
+    dh), n (B, H, dh), m (B, H)) carried in (fresh when None).  Returns
+    (h (B, S, H, dh) in q's dtype, (C, n, m) fp32)."""
+    B, S, H, dh = q.shape
+    qb, kb, vb, fcum, ftot, dmat, m_intra, tail, tail_max = _mlstm_blocks(
+        q, k, v, i_gate, f_gate, block)
+    nb = qb.shape[0]
     C0, n0, m0 = (_mlstm_fresh(B, H, dh, q.device) if state is None
                   else tuple(s.float() for s in state))
     # Cs[j] / ns[j]: the state entering block j; each block's own
@@ -452,13 +491,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      device=q.device)
     Cs[0].copy_(C0)
     ns[0].copy_(n0)
-    m_in, m_out = [], []
-    m = m0
-    for j in range(nb):
-        m_in.append(m)
-        m = torch.maximum(m + ftot[j], tail_max[j])
-        m_out.append(m)
-    m_in, m_out = torch.stack(m_in), torch.stack(m_out)  # (nb,B,H)
+    m_in, m_out, m = _mlstm_stabilisers(m0, ftot, tail_max)
     wgt = torch.exp(tail - m_out[..., None])            # (nb,B,H,L)
     kw = kb * wgt[..., None]
     torch.matmul(kw.transpose(-1, -2), vb, out=Cs[1:])
@@ -467,18 +500,37 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         decay = torch.exp(m_in[j] + ftot[j] - m_out[j])  # (B,H)
         Cs[j + 1].add_(Cs[j] * decay[..., None, None])
         ns[j + 1].add_(ns[j] * decay[..., None])
-    m_inter = m_in[..., None] + fcum                    # (nb,B,H,L)
-    m_t = torch.maximum(m_inter, m_intra)
-    w_inter = torch.exp(m_inter - m_t)
-    h_inter = torch.matmul(qb, Cs[:nb]) * w_inter[..., None]
-    qn = torch.matmul(qb, ns[:nb, ..., None])[..., 0] * w_inter
-    pw = torch.exp(dmat - m_t[..., None]) * torch.matmul(
-        qb, kb.transpose(-1, -2))                       # (nb,B,H,t,s)
-    num = h_inter + torch.matmul(pw, vb)
-    den = qn + pw.sum(dim=-1)
-    h = num / torch.clamp_min(den.abs(), 1.0)[..., None]
-    h = h.transpose(2, 3).transpose(0, 1).reshape(B, nb * L, H, dh)[:, :S]
+    h = _mlstm_read(qb, kb, vb, Cs[:nb], ns[:nb], m_in, fcum, dmat,
+                    m_intra, S)
     return h.to(q.dtype), (Cs[nb], ns[nb], m)
+
+
+def mlstm_chunkwise_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          i_gate: torch.Tensor, f_gate: torch.Tensor,
+                          block: int = 64) -> torch.Tensor:
+    """``mlstm_chunkwise`` from a fresh state with no write in place, so
+    autograd can run through it (training): the block states are
+    stacked, not written into one buffer.  The same operations on the
+    same values, so in fp32 on the CPU it gives ``mlstm_chunkwise``'s
+    bits.  Returns h (B, S, H, dh) in q's dtype."""
+    B, S, H, dh = q.shape
+    qb, kb, vb, fcum, ftot, dmat, m_intra, tail, tail_max = _mlstm_blocks(
+        q, k, v, i_gate, f_gate, block)
+    C, n, m0 = _mlstm_fresh(B, H, dh, q.device)
+    m_in, m_out, _ = _mlstm_stabilisers(m0, ftot, tail_max)
+    kw = kb * torch.exp(tail - m_out[..., None])[..., None]
+    incC = torch.matmul(kw.transpose(-1, -2), vb)       # (nb,B,H,dh,dh)
+    incn = torch.sum(kw, dim=-2)
+    Cs, ns = [], []
+    for j in range(qb.shape[0]):
+        Cs.append(C)
+        ns.append(n)
+        decay = torch.exp(m_in[j] + ftot[j] - m_out[j])  # (B,H)
+        C = incC[j] + C * decay[..., None, None]
+        n = incn[j] + n * decay[..., None]
+    h = _mlstm_read(qb, kb, vb, torch.stack(Cs), torch.stack(ns), m_in,
+                    fcum, dmat, m_intra, S)
+    return h.to(q.dtype)
 
 
 def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -569,3 +621,20 @@ def slstm_seq(zifo: torch.Tensor, r_diag: torch.Tensor,
     for t in range(S):
         st = slstm_step(zs[t], r, st, out=hs[t])
     return hs.transpose(0, 1).to(zifo.dtype), st
+
+
+def slstm_seq_train(zifo: torch.Tensor, r_diag: torch.Tensor
+                    ) -> torch.Tensor:
+    """``slstm_seq`` from a fresh state with no write in place (each
+    token's h is kept and the tokens stacked), so autograd can run
+    through it (training); in fp32 on the CPU it gives ``slstm_seq``'s
+    bits.  Returns h (B, S, D) in zifo's dtype."""
+    B, S, _, D = zifo.shape
+    st = _slstm_fresh(B, D, zifo.device)
+    zs = zifo.float().transpose(0, 1)                   # (S,B,4,D)
+    r = r_diag.float()
+    hs = []
+    for t in range(S):
+        st = slstm_step(zs[t], r, st)
+        hs.append(st[3])
+    return torch.stack(hs).transpose(0, 1).to(zifo.dtype)

@@ -30,7 +30,17 @@ Two frontends, both stub inputs as in the reference's configs:
 Such models prefill whole prompts only (the reference's
 ``prefill_chunk`` refuses them: their memory is not causal).
 
+Training (``forward_train``) runs the whole sequence through autograd:
+attention is the plain ``layers.chunked_attention`` (the kernels have
+no backward), a recurrent mixer its functional form from a fresh state
+(``blocks.apply_block_train``), each block under activation
+checkpointing by default.  A model's weights take gradients once the
+caller turns them on (``model.requires_grad_(True)``); they are built
+without, for serving.
+
 Entry points (methods of ``Model``):
+    forward_train(tokens, frames=None, patches=None, remat=True)
+                                               -> (logits, aux)
     prefill(tokens, caches, frames=None, patches=None, cross=None)
                                                -> logits of the last token
     prefill_chunk(tokens, start_pos, caches)   -> logits of the last token
@@ -42,10 +52,12 @@ Entry points (methods of ``Model``):
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, MLSTM, MOE, RGLRU, SLSTM,
                                       ModelConfig)
@@ -188,7 +200,7 @@ class CrossKV:
 
 
 class Model(nn.Module):
-    """Inference-only decoder, with a vision model's ``vision_proj`` or
+    """The decoder, with a vision model's ``vision_proj`` or
     an encoder-decoder's ``encoder`` and per-group ``cross`` weights
     ({ln_x, wq, wk, wv, wo}) where its config has them.  Build with
     ``Model.random`` (weights from an explicit ``torch.Generator``, on a
@@ -368,6 +380,48 @@ class Model(nn.Module):
         return out
 
     # -- forward passes ---------------------------------------------------
+    def forward_train(self, tokens: torch.Tensor,
+                      frames: Optional[torch.Tensor] = None,
+                      patches: Optional[torch.Tensor] = None,
+                      remat: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole-sequence forward of training, the reference's
+        ``forward_train``: tokens (B, S) from position 0, after a
+        vision model's projected ``patches`` (B, P, d) when given; an
+        encoder-decoder's ``frames`` (B, F, d) run through the encoder
+        and each group's cross-attention follows its last layer.  No
+        cache is read or written.  ``remat``: each block under
+        activation checkpointing (its activations recomputed in the
+        backward pass).  Recurrent scans run in blocks of
+        ``PAGE_TOKENS`` tokens, as an engine's whole-prompt prefill with
+        pages of that size does.  Returns (logits (B, P+S,
+        vocab_padded) fp32, the MoE layers' summed load-balance loss,
+        an fp32 scalar)."""
+        cfg, plan = self.cfg, self.plan
+        st = self.static()
+        x, positions = embed_inputs(st, cfg, tokens, patches)
+        after = cross_after(cfg)
+        if after:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder's "
+                                 "forward takes frames")
+            mem_k, mem_v = encode_cross_kv(
+                st["cross"], cfg, plan,
+                run_encoder(st["encoder"], cfg, plan, frames, train=True))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, blk in enumerate(self.layers):
+            fn = partial(B.apply_block_train, blk.kind, blk, cfg, plan,
+                         positions=positions, block=PAGE_TOKENS)
+            x, a = (checkpoint(fn, x, use_reentrant=False) if remat
+                    else fn(x))
+            if a is not None:
+                aux = aux + a
+            if i in after:
+                g = after[i]
+                x = x + B.cross_attention(st["cross"][g], x, cfg, plan,
+                                          mem_k[g], mem_v[g])
+        return self.lm_logits(x), aux
+
     def prefill(self, tokens: torch.Tensor, caches: List,
                 frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None,
@@ -464,11 +518,12 @@ def embed_inputs(static: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def run_encoder(enc: Dict, cfg: ModelConfig, plan: PaddingPlan,
-                frames: torch.Tensor) -> torch.Tensor:
+                frames: torch.Tensor, train: bool = False) -> torch.Tensor:
     """The encoder over frame embeddings (B, F, d): ``frame_proj``, then
     each block's bidirectional self-attention (rope at positions
-    0..F-1; the flash kernel's non-causal branch on the card) and MLP,
-    then ``final_ln``.  Returns (B, F, d)."""
+    0..F-1; the flash kernel's non-causal branch on the card, the plain
+    ``chunked_attention`` in training: ``train``) and MLP, then
+    ``final_ln``.  Returns (B, F, d)."""
     x = frames.to(B.dtype_of(cfg)) @ enc["frame_proj"]
     Bt, F = x.shape[:2]
     positions = torch.arange(F, dtype=torch.int32,
@@ -476,8 +531,12 @@ def run_encoder(enc: Dict, cfg: ModelConfig, plan: PaddingPlan,
     eps = cfg.norm_eps
     for p in enc["layers"]:
         h = Lyr.rmsnorm(x, p["ln1"], eps)
-        x = x + B.attention_seq(p["attn"], h, cfg, plan, positions,
-                                causal=False)[0]
+        if train:
+            x = x + B.attention_train(p["attn"], h, cfg, plan, positions,
+                                      causal=False)
+        else:
+            x = x + B.attention_seq(p["attn"], h, cfg, plan, positions,
+                                    causal=False)[0]
         h = Lyr.rmsnorm(x, p["ln2"], eps)
         x = x + B.apply_mlp(p["mlp"], h, cfg)
     return Lyr.rmsnorm(x, enc["final_ln"], eps)

@@ -1,11 +1,13 @@
 """The port stands alone: no module of ``src/repro_torch``, neither
-``chip_smoke.py`` nor ``examples/torch_scheduler_sim.py``, imports
+``chip_smoke.py`` nor an ``examples/torch_*.py`` script, imports
 ``jax`` or anything of the JAX package ``repro`` (an AST scan, so
 imports inside functions and under
-``TYPE_CHECKING`` count too).  Every module also imports without a GPU,
-and the entry points that default to the card (``ClusterEngine`` on
-CUDA workers, the ``serve`` CLI without ``--device cpu``, ``Engine``
-for a MoE model) raise there rather than run on the CPU.
+``TYPE_CHECKING`` count too), the training modules
+(``repro_torch.training``, ``repro_torch.launch.train``) included.
+Every module also imports without a GPU, and the entry points that
+default to the card (``ClusterEngine`` on CUDA workers, the ``serve``
+and ``train`` CLIs without ``--device cpu``, ``Engine`` for a MoE
+model) raise there rather than run on the CPU.
 """
 import ast
 import importlib
@@ -16,8 +18,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-FILES = PORT + [ROOT / "chip_smoke.py",
-                ROOT / "examples" / "torch_scheduler_sim.py"]
+FILES = PORT + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -48,7 +50,10 @@ def test_every_port_module_imports_without_gpu():
             "serving/cluster.py", "launch/serve.py", "core/costmodel.py",
             "core/cluster_sim.py", "core/calibrate.py",
             "models/blocks.py", "models/model.py", "models/convert.py",
-            "serving/engine.py"} <= names
+            "serving/engine.py", "training/__init__.py",
+            "training/data.py", "training/schedule.py",
+            "training/optimizer.py", "training/checkpoint.py",
+            "training/train_step.py", "launch/train.py"} <= names
     for p in PORT:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(rel.parts)
@@ -83,3 +88,11 @@ def test_moe_entry_points_without_gpu_raise(monkeypatch):
             Engine(cfg, **kw)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "granite-moe-3b-a800m", "--requests", "1"])
+
+
+def test_train_cli_without_gpu_raises(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
