@@ -273,6 +273,25 @@ exits non-zero:
               run's within ``TRAIN_CLI_TOL``.
               Training is plain PyTorch autograd: phases 27-29 launch
               none of the six kernels (27 and 28 check it).
+30. mesh-train-parity — one train step of phase 27's families (granite
+              at capacity factor 1.25, which drops choices) at mesh
+              (2, 2) on 4 workers of the card against the single-device
+              port step on the card under the same lane plan, fp32: the
+              loss within ``MESH_LOSS_TOL``, each gradient leaf within
+              ``MESH_GRAD_TOL``, each parameter after AdamW within
+              ``MESH_PARAM_TOL`` and the sharded AdamW within
+              ``MESH_OPT_TOL`` of one device's on the same gradients; no
+              worker's tensor aliases another's and a replicated leaf's
+              copies are bit-equal.
+31. mesh-train — phase 28's run (llama3-8b, 8 layers, bf16, batch 8 x
+              1024, 16 steps) over the 2 x 2 grid (``launch.train.train
+              (..., mesh=(2, 2))``): each step's loss within
+              ``MESH_TRAIN_TOL`` of phase 28's; step wall, tokens/s,
+              peak memory, model FLOP/s, and the exchanges' bytes a step
+              by kind equal to the analytic FSDP + TP count.
+32. mesh-train-cli — phase 29 with ``--mesh 2,2``: the cut and resumed
+              runs' losses equal the unbroken run's exactly.
+              Phases 30-32 launch none of the six kernels (checked).
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
@@ -294,8 +313,9 @@ cluster-partial, calibrate, cluster-calibrated, layout-serve,
 cluster-layout, moe-serve, moe-transform, moe-cluster, moe-spill,
 rg-serve, rg-transform, xlstm-serve and xlstm-transform: 0 on those
 two, which launch none of the six; whisper-serve and vlm-serve, and
-the flash row whisper-serve's bidirectional launches; train-parity and
-train, 0), and the last
+the flash row whisper-serve's bidirectional launches; train-parity,
+train, mesh-train-parity, mesh-train and mesh-train-cli, 0), and the
+last
 line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, it fails before printing a result.
@@ -6121,8 +6141,8 @@ def train_profile(cfg, batch: int, seq: int, dev: str = "cuda") -> dict:
     return out
 
 
-def phase_train(smi: str, dev: str = "cuda", cfg=None, layers: int =
-                TRAIN_LAYERS, batch: int = 8, seq: int = 1024,
+def phase_train(smi: str, record=None, dev: str = "cuda", cfg=None,
+                layers: int = TRAIN_LAYERS, batch: int = 8, seq: int = 1024,
                 steps: int = 16):
     """``launch.train.train`` (the CLI's body) on llama3-8b at full
     width, ``layers`` of its 32, bf16, random weights from seed 0:
@@ -6133,7 +6153,8 @@ def phase_train(smi: str, dev: str = "cuda", cfg=None, layers: int =
     the first step, tokens/s, the peak allocated memory and the model
     FLOP/s against the card's dense bf16 peak; then, on the card, one
     profiled step of the same model (``train_profile``).  None of the
-    six kernels may launch."""
+    six kernels may launch.  ``record`` (a dict) receives the losses,
+    which mesh-train holds its own against."""
     from repro_torch.configs import get_config
     from repro_torch.core.padding import make_plan
     from repro_torch.launch.train import train
@@ -6151,6 +6172,8 @@ def phase_train(smi: str, dev: str = "cuda", cfg=None, layers: int =
                       log_every=1, device=dev, log=lines.append)
     launched = launch_counts()
     losses = [l for l, _ in steps_out]
+    if record is not None:
+        record["losses"] = losses
     walls = sorted(w for _, w in steps_out[1:])
     med = walls[len(walls) // 2]
     flops = train_flops(cfg, make_plan(cfg, 1), batch, seq)
@@ -6232,6 +6255,322 @@ def phase_train_cli(dev: str = "cuda", args=TRAIN_CLI):
          lines=[l for l in resumed.splitlines() if l.startswith("[train]")],
          seconds=time.monotonic() - t0)
     assert err <= TRAIN_CLI_TOL, (lw, got)
+
+
+# ---------------------------------------------------------------------------
+# slice 15: training over a grid of workers (FSDP x TP; plain PyTorch
+# autograd: none of the six kernels)
+
+MESH = (2, 2)
+MESH_LOSS_TOL = 1e-4        # mesh-train-parity: the loss, relative
+MESH_GRAD_TOL = 1e-3        # mesh-train-parity: a gradient leaf, relative
+MESH_PARAM_TOL = 1e-3       # mesh-train-parity: a parameter after AdamW
+MESH_OPT_TOL = 1e-6         # the sharded AdamW against one device's, on
+                            # the same gradients
+MESH_LR = 3e-4              # mesh-train-parity's AdamW step
+MESH_ADAM_EPS = 1e-8        # its eps (``training.adamw``'s default)
+#: mesh-train: each step's loss against the train phase's same step,
+#: relative (bf16: the grid sums its partial products in another order)
+MESH_TRAIN_TOL = 1e-2
+#: mesh-train-parity's families: train-parity's, granite at the
+#: reference's capacity factor 1.25 (the reduced config's 8 drops none)
+MESH_FAMILIES = {name: ({"capacity_factor": 1.25}
+                        if name == "granite-moe-3b-a800m" else {})
+                 for name in TRAIN_FAMILIES}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _storage_distinct(parts) -> bool:
+    return len({t.untyped_storage().data_ptr() for t in parts}) == len(parts)
+
+
+def phase_mesh_train_parity(dev: str = "cuda", names=tuple(MESH_FAMILIES),
+                            batch: int = 4, seq: int = 128, shape=MESH):
+    """One train step of each family at mesh ``shape`` on ``shape[0] *
+    shape[1]`` workers on ``dev``, held against the single-device port
+    step on ``dev`` under the same lane plan, from the same weights
+    (built on the CPU from seed 0, MLPs in the plan's per-shard layout)
+    and batch, fp32 with TF32 off: the loss within ``MESH_LOSS_TOL``,
+    each gradient leaf within ``MESH_GRAD_TOL`` in norm, each parameter
+    after the AdamW update within ``MESH_PARAM_TOL`` in norm; a leaf
+    that starts at zero is held element by element instead (Adam's first
+    step moves each element by up to the learning rate, lr * g / (|g| +
+    eps), so a gradient element near zero may move either way): every
+    element that the two steps move apart by more than ``MESH_PARAM_TOL``
+    * lr must have a gradient |g| below e + sqrt(eps' * e /
+    MESH_PARAM_TOL), e the leaf's largest gradient difference and eps'
+    Adam's eps over the clip's scale, the least |g| above which a
+    gradient difference of e cannot move an update by that much.  The
+    sharded AdamW on the sharded gradients must be within
+    ``MESH_OPT_TOL`` of the single-device AdamW on those same
+    gradients.  No worker's
+    weight, moment or gradient aliases another's; a replicated leaf's
+    copies are bit-equal after the update.  Granite runs at capacity
+    factor 1.25 and must drop choices.  None of the six kernels may
+    launch."""
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.weight_transform import relayout_block_mlp
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models import blocks as Bk
+    from repro_torch.models.model import build
+    from repro_torch.training import DataConfig, SyntheticStream, adamw
+    from repro_torch.training import sharded as TS
+    from repro_torch.training.train_step import loss_fn
+    t0 = time.monotonic()
+    reset_launch_counts()
+    out = {}
+    kept = []
+    positions = Bk.moe_positions
+
+    def record(*a):
+        got = positions(*a)
+        kept.append((int(got[1].sum()), got[1].numel()))
+        return got
+    Bk.moe_positions = record
+    try:
+        for name in names:
+            cfg = _train_cfg(name)
+            if MESH_FAMILIES[name]:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, **MESH_FAMILIES[name]))
+            plan = make_plan(cfg, shape[1], mode="lane")
+            cpu = build(cfg, plan, 0, device="cpu")
+            for blk in cpu.layers:
+                relayout_block_mlp(blk.mlp, cfg.d_ff, plan.max_tp,
+                                   cfg.activation)
+            single = copy.deepcopy(cpu).to(dev).requires_grad_(True)
+            b = batch_on(SyntheticStream(DataConfig(cfg.vocab_size, seq,
+                                                    batch)), 0, dev)
+            kept.clear()
+            step = TS.ShardedStep.from_model(
+                cpu.to(dev), Grid([dev] * (shape[0] * shape[1]), shape))
+            del cpu
+            loss, _ = step.loss(TS.split_batch(b, step.grid))
+            loss.backward()
+            ls = float(loss.detach())
+            dropped = sum(n - k for k, n in kept)
+            grads = step.reduce_grads()
+            gm = SH.gather(grads, step.specs, step.grid)
+            l1, _ = loss_fn(single, b)
+            l1.backward()
+            l1 = float(l1.detach())
+            params = dict(single.named_parameters())
+            rel = {k: _rel(gm[k], p.grad) for k, p in params.items()}
+            before = {k: p.detach().clone() for k, p in params.items()}
+            gnorm = float(torch.sqrt(sum(torch.sum(torch.square(p.grad))
+                                         for p in params.values())))
+            # Adam's eps against the clipped gradient (clip at 1.0)
+            eps = MESH_ADAM_EPS / min(1.0, 1.0 / max(gnorm, 1e-9))
+            init, update = adamw(MESH_LR, eps=MESH_ADAM_EPS, grad_clip=1.0)
+            update({k: p.grad for k, p in params.items()}, init(params),
+                   params)
+            state = TS.opt_init_sharded(step.shards)
+            state = step.apply(update, state, grads)
+            got = SH.gather(step.shards, step.specs, step.grid)
+            # the sharded AdamW against one device's, on the same gradients
+            same = {k: p.detach().clone() for k, p in before.items()}
+            update(gm, init(same), same)
+            opt_rel = max(_rel(got[k], v) for k, v in same.items())
+            prel = {k: _rel(got[k], p.detach()) for k, p in params.items()}
+            held = {k: v for k, v in prel.items()
+                    if bool(before[k].any())}
+            # leaves that start at zero: (elements moved apart, of those
+            # with a gradient too large to explain it)
+            zero_start = {}
+            for k in prel.keys() - held.keys():
+                gs = params[k].grad
+                e = float((gm[k].to(gs) - gs).abs().max())
+                least = e + math.sqrt(eps * e / MESH_PARAM_TOL)
+                apart = ((got[k].to(gs) - params[k].detach()).abs()
+                         > MESH_PARAM_TOL * MESH_LR)
+                zero_start[k] = (int(apart.sum()),
+                                 int((apart & (gs.abs() >= least)).sum()))
+            unexplained = sum(b for _, b in zero_start.values())
+            unaliased = all(
+                _storage_distinct(tree[k]) for tree in
+                (step.shards, state.mu, state.nu, grads) for k in tree)
+            g = step.grid
+            copies_equal = True
+            for k, parts in step.shards.items():
+                named = {a for e in step.specs[k] for a in
+                         (e if isinstance(e, tuple) else (e,)) if a}
+                rep = tuple(a for a in g.axis_names if a not in named)
+                for grp in g.groups(rep):
+                    copies_equal &= all(torch.equal(parts[grp[0]], parts[w])
+                                        for w in grp[1:])
+            worst = max(rel, key=rel.get)
+            wp = max(held, key=held.get)
+            out[name] = {"layers": list(cfg.pattern), "loss_mesh": ls,
+                         "loss_single": l1, "loss_rel": abs(ls - l1) / abs(l1),
+                         "worst_grad_leaf": worst, "worst_grad_rel": rel[worst],
+                         "worst_param_leaf": wp, "worst_param_rel": held[wp],
+                         "param_rel_all_leaves": max(prel.values()),
+                         "zero_start_moved_apart": sum(
+                             a for a, _ in zero_start.values()),
+                         "zero_start_unexplained": unexplained,
+                         "opt_rel_same_grads": opt_rel,
+                         "unaliased": unaliased,
+                         "replicated_copies_bit_equal": copies_equal,
+                         "moe_choices_dropped": dropped,
+                         "workers": g.W}
+            assert abs(ls - l1) <= MESH_LOSS_TOL * abs(l1), out[name]
+            assert rel[worst] <= MESH_GRAD_TOL, out[name]
+            assert held[wp] <= MESH_PARAM_TOL, out[name]
+            assert unexplained == 0, (out[name], zero_start)
+            assert opt_rel <= MESH_OPT_TOL, out[name]
+            assert unaliased and copies_equal, out[name]
+            if cfg.moe is not None:
+                assert dropped > 0, out[name]
+            del single, step, state, grads, gm, got, same, params, before
+            free_card()
+    finally:
+        Bk.moe_positions = positions
+    launched = launch_counts()
+    assert not any(launched.values()), launched
+    emit(phase="mesh-train-parity", dtype="float32", mesh=list(shape),
+         batch=batch, seq=seq, families=out, loss_tol=MESH_LOSS_TOL,
+         grad_tol=MESH_GRAD_TOL, param_tol=MESH_PARAM_TOL,
+         opt_tol=MESH_OPT_TOL, launches=launched,
+         seconds=time.monotonic() - t0)
+    return launched
+
+
+def phase_mesh_train(smi: str, train_losses, dev: str = "cuda", cfg=None,
+                     layers: int = TRAIN_LAYERS, batch: int = 8,
+                     seq: int = 1024, steps: int = 16, shape=MESH):
+    """``launch.train.train(..., mesh=shape)`` on the train phase's model,
+    depth, batch, seed, schedule and steps (llama3-8b at full width,
+    ``layers`` of 32, bf16, batch 8 x 1024, 16 steps at 3e-4) over
+    ``shape[0] * shape[1]`` workers on ``dev``: each step's loss within
+    ``MESH_TRAIN_TOL`` of the train phase's same step
+    (``train_losses``), the last below the first.  The lane plan of the
+    model axis pads nothing the single-device plan does not (held).
+    Prints the median step wall after the first, tokens/s, the peak
+    allocated memory and model FLOP/s against the dense bf16 peak, and
+    the tally's bytes a step by kind beside the analytic count
+    (``training.sharded.analytic_bytes``: FSDP gathers in the forward
+    and the recompute, a reduce-scatter a leaf, the TP all-reduces, the
+    gated ``wi``'s re-lay, the vocabulary's exchanges), which must be
+    equal.  None of the six kernels may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.launch.comm_analysis import counting
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import Model
+    from repro_torch.training import sharded as TS
+    t0 = time.monotonic()
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                                  num_layers=layers)
+    one, lane = make_plan(cfg, 1), make_plan(cfg, shape[1], mode="lane")
+    keys = ("d_ff_padded", "q_heads_padded", "kv_padded", "kv_slots",
+            "vocab_padded", "experts_padded")
+    pads = {k: (getattr(one, k), getattr(lane, k)) for k in keys}
+    assert all(a == b for a, b in pads.values()), pads
+    free_card()
+    sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lines = []
+    with counting() as tally:
+        steps_out = train(cfg, steps=steps, batch=batch, seq=seq, lr=3e-4,
+                          log_every=1, device=dev, log=lines.append,
+                          mesh=shape)
+    launched = launch_counts()
+    per_step = {k: v // steps for k, v in tally.collective_bytes().items()}
+    # the analytic count from the placements on meta workers
+    analytic = TS.analytic_bytes(
+        TS.ShardedStep.from_model(Model.empty(cfg, lane, device="meta"),
+                                  Grid(["meta"] * (shape[0] * shape[1]),
+                                       shape)),
+        batch // shape[0], seq)
+    losses = [l for l, _ in steps_out]
+    walls = sorted(w for _, w in steps_out[1:])
+    med = walls[len(walls) // 2]
+    flops = train_flops(cfg, one, batch, seq)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+    res = {"model": cfg.name, "layers": cfg.num_layers, "mesh": list(shape),
+           "workers": shape[0] * shape[1], "params": cfg.param_count(),
+           "dtype": cfg.dtype, "batch": batch, "seq": seq, "steps": steps,
+           "plan_pads": pads, "losses": losses,
+           "train_phase_losses": list(train_losses),
+           "loss_rel_to_train_phase": rel, "tol": MESH_TRAIN_TOL,
+           "step_walls_s": [w for _, w in steps_out],
+           "median_step_s": med, "tokens_per_s": batch * seq / med,
+           "max_memory_allocated_gb": (torch.cuda.max_memory_allocated()
+                                       / 1e9 if dev == "cuda" else None),
+           "model_flops_per_step": flops, "model_flops_per_s": flops / med,
+           "mfu_vs_dense_bf16_peak": flops / med / PEAK_FLOPS[torch.bfloat16],
+           "tally_bytes_per_step": per_step,
+           "analytic_bytes_per_step": analytic,
+           "gpu": smi, "launches": launched, "lines": lines}
+    free_card()
+    emit(phase="mesh-train", **res, seconds=time.monotonic() - t0)
+    assert all(math.isfinite(l) for l in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert len(rel) == steps and max(rel) <= MESH_TRAIN_TOL, rel
+    assert {k: per_step[k] for k in analytic} == analytic, (per_step,
+                                                             analytic)
+    assert not any(launched.values()), launched
+    return launched
+
+
+MESH_TRAIN_CLI = (*TRAIN_CLI, "--mesh", ",".join(map(str, MESH)))
+
+
+def phase_mesh_train_cli(dev: str = "cuda", args=MESH_TRAIN_CLI):
+    """The train CLI with ``--mesh 2,2`` on ``dev`` (the reduced
+    llama3-8b in bf16): ``python -m repro_torch.launch.train`` cut after
+    step 3 with its checkpoint, while the same CLI runs 5 steps unbroken
+    in this process; then ``main`` resumes from that checkpoint (a grid
+    built anew, every shard and moment placed from the gathered leaves
+    on disk) to step 5.  The cut and resumed runs' losses must equal the
+    unbroken run's exactly (as printed)."""
+    import io
+    import shutil
+    from repro_torch.launch.train import main as train_main
+    t0 = time.monotonic()
+    reset_launch_counts()
+    ck = os.path.join(ROOT, "build", "mesh_train_cli_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = [*args, "--device", dev]
+
+    def in_process(*extra) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_main([*argv, *extra])
+        return buf.getvalue()
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cut = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--stop-after", "3", "--ckpt-dir", ck], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    whole = in_process()
+    out, err_text = cut.communicate(timeout=600)
+    assert cut.returncode == 0, err_text[-4000:]
+    resumed = in_process("--ckpt-dir", ck)
+    launched = launch_counts()
+    lw, lc, lr = (_cli_losses(t) for t in (whole, out, resumed))
+    assert "[train] resumed from step 3" in resumed, resumed
+    assert "mesh=2x2" in whole, whole
+    assert sorted(lw) == [0, 1, 2, 3, 4] and sorted(lc) == [0, 1, 2] \
+        and sorted(lr) == [3, 4], (lw, lc, lr)
+    got = {**lc, **lr}
+    emit(phase="mesh-train-cli", args=argv, unbroken=lw, cut=lc, resumed=lr,
+         equal=got == lw, launches=launched,
+         lines=[l for l in resumed.splitlines() if l.startswith("[train]")],
+         seconds=time.monotonic() - t0)
+    assert got == lw, (lw, got)
+    assert not any(launched.values()), launched
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -6794,9 +7133,16 @@ def main():
            "vlm-serve": run("vlm-serve", phase_vlm_serve, smi)}
     run("enc-workers", phase_enc_workers)
     # slice 14: training (plain autograd: none of the six kernels)
+    trained = {}
     train = {"train-parity": run("train-parity", phase_train_parity),
-             "train": run("train", phase_train, smi)}
+             "train": run("train", phase_train, smi, trained)}
     run("train-cli", phase_train_cli)
+    # slice 15: training over a 2 x 2 grid of workers (FSDP x TP)
+    train["mesh-train-parity"] = run("mesh-train-parity",
+                                     phase_mesh_train_parity)
+    train["mesh-train"] = run("mesh-train", phase_mesh_train, smi,
+                              trained["losses"])
+    train["mesh-train-cli"] = run("mesh-train-cli", phase_mesh_train_cli)
     emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []

@@ -82,6 +82,7 @@ import torch
 
 from repro_torch.core.padding import PaddingPlan
 from repro_torch.core.weight_transform import MLP_PAIRS
+from repro_torch.launch.comm_analysis import TALLY
 from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import pool as pp
 from repro_torch.paged.recurrent import cat_rows
@@ -229,20 +230,30 @@ def reshard(ps: List[Params], src, la: Layout, dst, lb: Layout,
     source TP group (``reshard_attn`` or ``reshard_mlp``).  A worker of
     ``src`` draws on its own TP group and keeps its tensors when its
     shard does not change; an adopted worker draws on a group of
-    ``src``."""
+    ``src``.  The bytes of a new shard beyond the share of the split
+    its worker held before count as gathered from its peers
+    (``comm_analysis.TALLY``): 0 when each worker slices its own
+    replica."""
     ta, tb = la.tp, lb.tp
-    out = []
+    out, moved = [], 0
     for w, wk in enumerate(dst.workers):
         p = w % tb
+        own = 0.0      # the share of the new shard the worker held
         if wk in src.workers:
             u = src.workers.index(wk)
             if ta == tb and u % ta == p:
                 out.append(ps[u])
                 continue
             g = u // ta
+            i = u % ta
+            own = max(0.0, min((p + 1) / tb, (i + 1) / ta)
+                      - max(p / tb, i / ta)) * tb
         else:
             g = (w // tb) % (src.W // ta)
         out.append(fn(ps[g * ta:(g + 1) * ta], ta, tb, p, wk.device))
+        moved += round((1.0 - own) * sum(
+            t.numel() * t.element_size() for t in out[-1].values()))
+    TALLY.add("all-gather", moved)
     return out
 
 

@@ -42,6 +42,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import page_migrate as PM
+from repro_torch.launch.comm_analysis import TALLY
 from repro_torch.launch.mesh import Layout, place
 from repro_torch.paged import layout as L
 from repro_torch.paged.pool import PagedState
@@ -414,7 +415,7 @@ def migrate_sharded(pools: List[torch.Tensor], src, la, dst, lb,
         moved += 4 * buf.numel() * buf.element_size()  # gather, exchange
         send.append(buf)
     seg_bytes = pools[0][:1, :h].numel() * pools[0].element_size()
-    out = []
+    out, exchanged = [], 0
     for w, wk in enumerate(dst.workers):
         srcs = [u for u in range(src.W) if (u, w) in meet]
         pool = torch.empty((NPb, Hb, *pools[0].shape[2:]),
@@ -431,6 +432,7 @@ def migrate_sharded(pools: List[torch.Tensor], src, la, dst, lb,
                 n += sp.numel()
         foreign = [u for u in srcs if not own(u, w)]
         m = sum(chunk[u, w][1] - chunk[u, w][0] for u in foreign)
+        exchanged += m * seg_bytes
         assert (n + m) * h == NPb * Hb, "the sources must cover every segment"
         if not foreign:
             out.append(pool)
@@ -461,6 +463,7 @@ def migrate_sharded(pools: List[torch.Tensor], src, la, dst, lb,
             heads_per_slice=h)
         moved += 2 * recv.numel() * recv.element_size()
         out.append(pool)
+    TALLY.add("all-to-all", exchanged)
     return out, moved
 
 
@@ -476,7 +479,7 @@ def regroup_rec(states: List[RecState], src, la, dst, lb
     from repro_torch.core.instance import rows_of
     a, b = Layout.of(la), Layout.of(lb)
     B = states[0].batch * (src.W // a.degree)
-    out, moved = [], 0
+    out, moved, exchanged = [], 0, 0
     for w, wk in enumerate(dst.workers):
         lo, hi = rows_of(b, B, dst.W, w)
         if wk in src.workers:
@@ -496,8 +499,11 @@ def regroup_rec(states: List[RecState], src, la, dst, lb
             if ulo < hi and lo < uhi:
                 parts.append(states[u].rows(max(lo, ulo) - ulo,
                                             min(hi, uhi) - ulo))
+                if src.workers[u] != wk:
+                    exchanged += parts[-1].nbytes
         new = cat_rows(parts, wk.device) if len(parts) > 1 \
             else parts[0].to(wk.device)
         out.append(new)
         moved += 2 * new.nbytes
+    TALLY.add("all-gather", exchanged)
     return out, moved

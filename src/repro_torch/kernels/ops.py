@@ -2,7 +2,9 @@
 
 There is no backend switch.  A wrapper whose tensors lie on the card
 launches its CUDA kernel, and a failed build or launch raises; tensors
-on the CPU run the plain version.  Mixed devices, or any other device,
+on the CPU run the plain version.  Tensors on ``meta`` (the dry run's,
+which hold shapes and no data) run the plain version too, which then
+only carries shapes through.  Mixed devices, or any other device,
 raise.
 """
 from __future__ import annotations
@@ -15,11 +17,11 @@ import torch
 
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a CUDA device, False when every one
-    is on the CPU; raises otherwise."""
+    is on the CPU (or every one on ``meta``); raises otherwise."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     raise ValueError(f"tensors on devices {sorted(kinds)}: a kernel call "
                      "takes all CUDA or all CPU tensors")

@@ -58,6 +58,7 @@ combine launch a worker merges them before ``wo``.
 from __future__ import annotations
 
 import math
+import operator
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -74,6 +75,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import ref as KR
 from repro_torch.launch.mesh import Layout
 from repro_torch.models import layers as Lyr
+from repro_torch.models import shardhints
 from repro_torch.paged import pool as pp
 from repro_torch.paged.recurrent import CONV_K, RecState, make_state_of
 
@@ -180,16 +182,22 @@ def attention_seq(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     plan: PaddingPlan, positions: torch.Tensor,
-                    window: int = 0, causal: bool = True) -> torch.Tensor:
+                    window: int = 0, causal: bool = True,
+                    banded: bool = False) -> torch.Tensor:
     """Whole-sequence self-attention for training: the plain
     ``layers.chunked_attention``, as the reference's ``attention_seq``
     runs it, so autograd reaches ``wq``, ``wk`` and ``wv`` (the flash
-    kernel has no backward).  Returns the sub-layer's output (B, S,
-    d)."""
+    kernel has no backward); ``banded`` takes ``layers.
+    banded_attention`` where the reference does (a window, S a multiple
+    of 512 and longer than the window).  Returns the sub-layer's output
+    (B, S, d)."""
     B, S, d = x.shape
     q, k, v = _project_qkv(p, x, cfg, plan, positions)
-    attn = Lyr.chunked_attention(q, k, v, positions, positions,
-                                 causal=causal, window=window)
+    if banded and causal and window > 0 and S % 512 == 0 and S > window:
+        attn = Lyr.banded_attention(q, k, v, positions, positions, window)
+    else:
+        attn = Lyr.chunked_attention(q, k, v, positions, positions,
+                                     causal=causal, window=window)
     return attn.reshape(B, S, -1) @ p["wo"]
 
 
@@ -486,18 +494,23 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
     return topv, topi
 
 
-def moe_positions(topi: torch.Tensor, experts: int, cap: int
+def moe_positions(topi: torch.Tensor, experts: int, cap: int, nb: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each choice's position in its expert's buffer, counted in
     flattened ``(token, k)`` order (the reference's cumsum), and whether
-    it falls inside the capacity: (pos (T, k) int64, keep (T, k) bool).
-    The one-hot is laid out ``(Ep, T*k)`` so the count is a scan along
-    the inner axis, one row an expert."""
-    flat = topi.reshape(-1)
-    hit = torch.arange(experts, device=flat.device)[:, None] == flat
-    pos = (torch.cumsum(hit, dim=1).gather(0, flat[None])[0] - 1
-           ).reshape(topi.shape)
-    return pos, pos < cap
+    it falls inside the capacity ``cap``: (pos (T, k) int64, keep (T, k)
+    bool).  With ``nb`` blocks of tokens (the reference's block-local
+    cumsum), each block counts its own positions against its own
+    capacity, and pos is the block times ``cap`` plus the position in
+    the block, so an expert's buffer holds ``nb * cap`` rows, block
+    after block.  The one-hot is laid out ``(Ep, nb, T*k/nb)`` so the
+    count is a scan along the inner axis, one row an expert."""
+    T, k = topi.shape
+    blk = topi.reshape(nb, (T // nb) * k)
+    hit = torch.arange(experts, device=topi.device)[:, None, None] == blk
+    pos = torch.cumsum(hit, dim=2).gather(0, blk[None])[0] - 1
+    slot = pos + torch.arange(nb, device=topi.device)[:, None] * cap
+    return slot.reshape(T, k), (pos < cap).reshape(T, k)
 
 
 def moe_experts(p: Params, x: torch.Tensor, topv: torch.Tensor,
@@ -569,13 +582,36 @@ def moe_aux(gates: torch.Tensor, first: torch.Tensor, plan: PaddingPlan
     return (frac_tokens * frac_probs).sum() * (E ** 2) / max(E, 1)
 
 
+def moe_blocks(tokens: int) -> int:
+    """The blocks a training call routes its ``tokens`` in: the
+    ``moe_blocks`` shard hint (1, global routing, when unset) halved
+    until it divides the tokens, as the reference's ``nb``
+    (``repro/models/blocks.py:272-275``)."""
+    nb = shardhints.get("moe_blocks") or 1
+    while tokens % nb:
+        nb //= 2
+    return max(nb, 1)
+
+
 def apply_moe_mlp_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                         plan: PaddingPlan
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``apply_moe_mlp`` and the call's load-balance loss (training):
-    (y (B, S, d), aux scalar)."""
-    gates = moe_gates(p["router"], x.reshape(-1, x.shape[-1]), plan)
-    y, topi = _moe_call(p, x, cfg, plan, gates)
+    (y (B, S, d), aux scalar).  Under a ``moe_blocks`` hint the tokens
+    route in blocks (``moe_blocks``), each with the capacity of its own
+    tokens; without one, all together."""
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])
+    gates = moe_gates(p["router"], xt, plan)
+    topv, topi = moe_route(p["router"], xt, cfg, plan, gates)
+    nb = moe_blocks(xt.shape[0])
+    cap = moe_capacity(xt.shape[0] // nb, cfg)
+    slot, keep = moe_positions(topi, p["wi"].shape[0], cap, nb)
+    y = moe_experts(p, xt, topv, topi, slot, keep, nb * cap,
+                    cfg.activation).reshape(shape)
+    if "shared_wi" in p:
+        y = y + Lyr.dense_mlp(x, p["shared_wi"], p["shared_wo"],
+                              cfg.activation)
     return y, moe_aux(gates, topi[:, 0], plan)
 
 
@@ -826,29 +862,46 @@ def _apply_block(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
     return x + _mlp(kind, p["mlp"], h, cfg, plan), kv
 
 
+def train_block(kind: str, x, norm, mixer, mlp, add=operator.add):
+    """The residual skeleton of one block in training: ``norm(x, name)``
+    the RMS norm under weight ``name`` (``ln``, ``ln1``, ``ln2``),
+    ``mixer(h)`` the attention or recurrence, ``mlp(h)`` -> (y, the MoE
+    load-balance loss or None), ``add`` the residual sum.
+    ``apply_block_train`` runs it on one device's tensors and
+    ``training.sharded.ShardedStep`` on one tensor a worker.  Returns
+    (y, aux)."""
+    if not has_mlp(kind):
+        return add(x, mixer(norm(x, "ln"))), None
+    x = add(x, mixer(norm(x, "ln1")))
+    y, aux = mlp(norm(x, "ln2"))
+    return add(x, y), aux
+
+
 def apply_block_train(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,
-                      x: torch.Tensor, positions: torch.Tensor, block: int
+                      x: torch.Tensor, positions: torch.Tensor, block: int,
+                      banded: bool = False
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Whole-sequence forward for one block in training (the
     reference's ``apply_block_seq`` as ``forward_train`` calls it):
-    attention through ``attention_train``, a recurrent mixer through
-    ``rec_train`` (scans in blocks of ``block`` tokens), no cache.
-    Returns (y, the MoE load-balance loss or None)."""
+    attention through ``attention_train`` (``banded`` as there), a
+    recurrent mixer through ``rec_train`` (scans in blocks of ``block``
+    tokens), no cache.  Returns (y, the MoE load-balance loss or
+    None)."""
     check_kind(kind)
-    if not has_mlp(kind):
-        h = Lyr.rmsnorm(x, p["ln"], cfg.norm_eps)
-        return x + rec_train(kind, p["rec"], h, block), None
-    h = Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if kind in RECURRENT_KINDS:
-        x = x + rec_train(kind, p["rec"], h, block)
-    else:
-        x = x + attention_train(p["attn"], h, cfg, plan, positions,
-                                window=_window_of(kind, cfg))
-    h = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind == MOE:
-        y, aux = apply_moe_mlp_train(p["mlp"], h, cfg, plan)
-        return x + y, aux
-    return x + apply_mlp(p["mlp"], h, cfg), None
+
+    def mixer(h):
+        if kind in RECURRENT_KINDS:
+            return rec_train(kind, p["rec"], h, block)
+        return attention_train(p["attn"], h, cfg, plan, positions,
+                               window=_window_of(kind, cfg), banded=banded)
+
+    def mlp(h):
+        if kind == MOE:
+            return apply_moe_mlp_train(p["mlp"], h, cfg, plan)
+        return apply_mlp(p["mlp"], h, cfg), None
+    return train_block(kind, x, lambda h, n: Lyr.rmsnorm(h, p[n],
+                                                         cfg.norm_eps),
+                       mixer, mlp)
 
 
 def apply_block_seq(kind: str, p, cfg: ModelConfig, plan: PaddingPlan,

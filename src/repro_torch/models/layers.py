@@ -192,6 +192,37 @@ def chunked_attention(
     return out.to(q.dtype)
 
 
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                     window: int, q_chunk: int = 512) -> torch.Tensor:
+    """Sliding-window attention that computes only the band: the
+    reference's ``banded_attention``.  Each chunk of ``q_chunk`` queries
+    attends over its keys' band ``[chunk start - window, chunk end)``,
+    sliced out of K/V padded on the left by ``window`` invalid keys, so
+    the work is O(S * window) instead of O(S^2).  q and kv cover the
+    same contiguous positions (training, a whole prompt); S a multiple
+    of ``q_chunk``.  Plain PyTorch with no write in place: autograd runs
+    through it."""
+    B, S, Hq, dh = q.shape
+    q_chunk = min(q_chunk, S)
+    assert S % q_chunk == 0, "pad seq to q_chunk multiple before calling"
+    band = window + q_chunk
+    k_pad = F.pad(k, (0, 0, 0, 0, window, 0))
+    v_pad = F.pad(v, (0, 0, 0, 0, window, 0))
+    p_pad = F.pad(kv_positions, (window, 0), value=-1)
+    valid = F.pad(torch.ones((B, S), dtype=torch.bool, device=q.device),
+                  (window, 0), value=False)
+    outs = []
+    for start in range(0, S, q_chunk):
+        outs.append(chunked_attention(
+            q[:, start:start + q_chunk], k_pad[:, start:start + band],
+            v_pad[:, start:start + band],
+            q_positions[:, start:start + q_chunk],
+            p_pad[:, start:start + band], kv_valid=valid[:, start:start + band],
+            causal=True, window=window, kv_chunk=min(1024, band)))
+    return torch.cat(outs, dim=1)
+
+
 def combine_softmax_partials(m: torch.Tensor, l: torch.Tensor,
                              acc: torch.Tensor, axis: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor,

@@ -145,10 +145,28 @@ class Encoder(nn.Module):
     def tree(self) -> Dict:
         """The weights as plain dicts and lists (what ``run_encoder``
         reads and ``core.instance.place_replicas`` copies)."""
-        return {"frame_proj": self.frame_proj, "final_ln": self.final_ln,
-                "layers": [{"ln1": b.ln1, "ln2": b.ln2,
-                            "attn": dict(b.attn), "mlp": dict(b.mlp)}
-                           for b in self.layers]}
+        return tree_of(dict(self.named_parameters()))
+
+
+def tree_of(named: Dict[str, torch.Tensor]) -> Dict:
+    """Dotted parameter names -> the nested dicts they name, a run of
+    numeric parts ``0..n-1`` a list: ``Encoder.tree`` from its
+    ``named_parameters``, or from a worker's gathered leaves."""
+    root: Dict = {}
+    for name, t in named.items():
+        *path, last = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
 
 
 def cross_after(cfg: ModelConfig) -> Dict[int, int]:
@@ -383,7 +401,7 @@ class Model(nn.Module):
     def forward_train(self, tokens: torch.Tensor,
                       frames: Optional[torch.Tensor] = None,
                       patches: Optional[torch.Tensor] = None,
-                      remat: bool = True
+                      remat: bool = True, banded: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The whole-sequence forward of training, the reference's
         ``forward_train``: tokens (B, S) from position 0, after a
@@ -392,7 +410,9 @@ class Model(nn.Module):
         and each group's cross-attention follows its last layer.  No
         cache is read or written.  ``remat``: each block under
         activation checkpointing (its activations recomputed in the
-        backward pass).  Recurrent scans run in blocks of
+        backward pass).  ``banded``: a windowed layer's attention
+        computes only its band (``layers.banded_attention``) where the
+        reference's does.  Recurrent scans run in blocks of
         ``PAGE_TOKENS`` tokens, as an engine's whole-prompt prefill with
         pages of that size does.  Returns (logits (B, P+S,
         vocab_padded) fp32, the MoE layers' summed load-balance loss,
@@ -411,7 +431,8 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, blk in enumerate(self.layers):
             fn = partial(B.apply_block_train, blk.kind, blk, cfg, plan,
-                         positions=positions, block=PAGE_TOKENS)
+                         positions=positions, block=PAGE_TOKENS,
+                         banded=banded)
             x, a = (checkpoint(fn, x, use_reentrant=False) if remat
                     else fn(x))
             if a is not None:
@@ -504,17 +525,25 @@ def embed_inputs(static: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     """(x (B, P+S, d), positions (B, P+S)): the tokens' embeddings,
     after a vision model's projected ``patches`` (B, P, d) when given
     (cast to the model's dtype first, as the reference casts them)."""
-    x = static["embed"][tokens]
-    if patches is not None:
-        if cfg.vision is None:
-            raise ValueError(f"{cfg.name} has no vision frontend: no "
-                             "patches")
-        img = patches.to(x.dtype) @ static["vision_proj"]
-        x = torch.cat([img, x], dim=1)
+    x = with_patches(static["embed"][tokens], cfg, patches,
+                     static.get("vision_proj"))
     Bt, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(Bt, S)
     return x, positions
+
+
+def with_patches(x: torch.Tensor, cfg: ModelConfig,
+                 patches: Optional[torch.Tensor],
+                 vision_proj: Optional[torch.Tensor]) -> torch.Tensor:
+    """The token embeddings x (B, S, d) after the projected ``patches``
+    (B, P, d), cast to x's dtype first as the reference casts them; x
+    itself without patches."""
+    if patches is None:
+        return x
+    if cfg.vision is None:
+        raise ValueError(f"{cfg.name} has no vision frontend: no patches")
+    return torch.cat([patches.to(x.dtype) @ vision_proj, x], dim=1)
 
 
 def run_encoder(enc: Dict, cfg: ModelConfig, plan: PaddingPlan,
@@ -566,10 +595,14 @@ def lm_logits(static: Dict[str, torch.Tensor], plan: PaddingPlan,
     head = (static["embed"].T if static["lm_head"] is None
             else static["lm_head"])
     logits = (x @ head).float()
-    vp = plan.vocab_padded
-    mask = torch.where(torch.arange(vp, device=x.device) < plan.vocab, 0.0,
-                       Lyr.NEG_INF)
-    return logits + mask
+    return logits + vocab_mask(plan, 0, plan.vocab_padded, x.device)
+
+
+def vocab_mask(plan: PaddingPlan, lo: int, n: int, device) -> torch.Tensor:
+    """(n,) fp32: 0 on head columns lo..lo+n-1 that are real vocabulary,
+    -inf on the plan's padding columns (they never win)."""
+    col = torch.arange(lo, lo + n, device=device)
+    return torch.where(col < plan.vocab, 0.0, Lyr.NEG_INF)
 
 
 def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, *, device

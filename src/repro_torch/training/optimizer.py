@@ -43,14 +43,19 @@ def adamw(lr: Union[Callable[[int], float], float],
 
     @torch.no_grad()
     def update(grads: Dict[str, Optional[torch.Tensor]], state: AdamWState,
-               params: Tree) -> AdamWState:
+               params: Tree, gnorm: Optional[torch.Tensor] = None
+               ) -> AdamWState:
         """One step: ``params`` updated in place, the moments too; a
-        gradient of None (a weight the loss did not reach) is zero."""
+        gradient of None (a weight the loss did not reach) is zero.
+        ``gnorm``: the global gradient norm, when the caller holds a
+        shard of the model (``training.sharded``); else computed from
+        ``grads``."""
         step = state.step + 1
         # global-norm clip, as a device scalar (no host sync)
-        sq = [torch.sum(torch.square(g.float()))
-              for g in grads.values() if g is not None]
-        gnorm = torch.sqrt(torch.stack(sq).sum()) if sq else None
+        if gnorm is None:
+            sq = [torch.sum(torch.square(g.float()))
+                  for g in grads.values() if g is not None]
+            gnorm = torch.sqrt(torch.stack(sq).sum()) if sq else None
         scale = (1.0 if gnorm is None else torch.clamp(
             grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0))
         # the reference's fp32 scalars

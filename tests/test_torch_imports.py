@@ -3,7 +3,10 @@
 ``jax`` or anything of the JAX package ``repro`` (an AST scan, so
 imports inside functions and under
 ``TYPE_CHECKING`` count too), the training modules
-(``repro_torch.training``, ``repro_torch.launch.train``) included.
+(``repro_torch.training``, ``repro_torch.launch.train``) and the
+sharded training and dry-run modules (``training.sharded``,
+``launch.{sharding,specs,dryrun,transform_dryrun,comm_analysis}``,
+``models.shardhints``) included.
 Every module also imports without a GPU, and the entry points that
 default to the card (``ClusterEngine`` on CUDA workers, the ``serve``
 and ``train`` CLIs without ``--device cpu``, ``Engine`` for a MoE
@@ -53,7 +56,10 @@ def test_every_port_module_imports_without_gpu():
             "serving/engine.py", "training/__init__.py",
             "training/data.py", "training/schedule.py",
             "training/optimizer.py", "training/checkpoint.py",
-            "training/train_step.py", "launch/train.py"} <= names
+            "training/train_step.py", "launch/train.py",
+            "training/sharded.py", "launch/sharding.py", "launch/specs.py",
+            "launch/dryrun.py", "launch/transform_dryrun.py",
+            "launch/comm_analysis.py", "models/shardhints.py"} <= names
     for p in PORT:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(rel.parts)
@@ -96,3 +102,5 @@ def test_train_cli_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1", "--mesh", "2,2"])

@@ -190,8 +190,8 @@ def test_dispatch_is_by_device_only():
     assert ops.on_card(cpu, cpu) is False
     with pytest.raises(ValueError):
         ops.on_card(cpu, torch.zeros(2, device="meta"))
-    with pytest.raises(ValueError):
-        ops.on_card(torch.zeros(2, device="meta"))
+    # the dry run's shape-only tensors take the plain version
+    assert ops.on_card(torch.zeros(2, device="meta")) is False
     with pytest.raises(ValueError):
         ops.dtype_code(torch.zeros(2, dtype=torch.float16))
 
