@@ -82,7 +82,7 @@ exits non-zero:
               TP1x2 -> TP2 -> TP1x2 equals an untransformed engine; the
               cache bytes are equal across a migration with no decode
               between.
-6. transform-serve — llama3-8b at full width and 16 of its 32 layers
+6. transform-serve — llama3-8b at full width and 8 of its 32 layers
               (``TRANSFORM_SERVE_LAYERS``) in bf16 on two
               workers of the card serves four prompts at TP1x2,
               transforms to TP2 mid-decode, then serves a 6000-token
@@ -220,8 +220,8 @@ exits non-zero:
               reference's ``mlstm_chunkwise`` refuses whole) prefilled
               whole agrees with the same prompt in page chunks and across
               the devices within ``XL_TOL``.
-21. xlstm-serve — xlstm-1.3b at full width, 24 of its 48 layers
-              (``XL_LAYERS``: 21 mLSTM + 3 sLSTM, no MLP) in bf16 on
+21. xlstm-serve — xlstm-1.3b at full width, 16 of its 48 layers
+              (``XL_LAYERS``: 14 mLSTM + 2 sLSTM, no MLP) in bf16 on
               one device: prompts of 256-2500 tokens in
               chunks of 1024; weights, state, TTFT, TPOT, memory, a
               profiled decode step and each mixer's parts a layer at a
@@ -292,6 +292,29 @@ exits non-zero:
 32. mesh-train-cli — phase 29 with ``--mesh 2,2``: the cut and resumed
               runs' losses equal the unbroken run's exactly.
               Phases 30-32 launch none of the six kernels (checked).
+33. faithful-parity — llama3-8b at full width, 2 layers, fp32, two
+              workers, attention kept whole (``transform_attn=False``,
+              the paper's placement): TP1x2 -> TP2 -> TP1x2 mid-decode;
+              the card's faithful and default engines give the CPU
+              faithful engine's streams, the faithful sessions copy no
+              attention byte and keep every replica's storage, and with
+              no decode between steps each move keeps the pool bytes.
+34. faithful-serve — llama3-8b at full width and ``FAITHFUL_LAYERS``
+              layers, bf16, two workers, the same cycle in both modes:
+              session walls, weight and attention bytes by direction,
+              the bytes each worker holds at each degree, the card's
+              allocated memory, greedy agreement of the faithful rows
+              (teacher forced on the default engine's tokens), launches.
+35. storage-layouts — the same model on one device, the serve phase's
+              requests in each KV storage layout (``Engine(layout=
+              ...)``): token-first streams bit-equal to header-centric's;
+              by layout the decode step's wall and busy ms, the
+              canonical copy of a layer's pool and its share, launches.
+36. whisper-tp — whisper-tiny at full width and depth through the
+              serving walk at TP2 on two workers against TP1: fp32
+              logits within ``WHISPER_TP_TOL``, equal streams; bf16
+              greedy agreement; kernels 1 and 3 launch at 3 heads a
+              worker.
 
 The kernels phase also holds the page-migration and padded FFN kernels
 against their plain versions, at the shapes of phases 5-6, and every
@@ -314,7 +337,8 @@ cluster-layout, moe-serve, moe-transform, moe-cluster, moe-spill,
 rg-serve, rg-transform, xlstm-serve and xlstm-transform: 0 on those
 two, which launch none of the six; whisper-serve and vlm-serve, and
 the flash row whisper-serve's bidirectional launches; train-parity,
-train, mesh-train-parity, mesh-train and mesh-train-cli, 0), and the
+train, mesh-train-parity, mesh-train and mesh-train-cli, 0;
+faithful-serve, storage-layouts by layout and whisper-tp), and the
 last
 line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -5093,10 +5117,10 @@ XL_TOL = 1e-4
 #: the logits' tolerance against the engine at each degree
 XL_FP32_LAYERS = 16
 XL_FP32_TOL = 1e-3
-#: xlstm-serve's and xlstm-transform's bf16 depth: 24 of xlstm-1.3b's 48
-#: layers (three 7:1 units) since the train phases came, to keep
-#: the script inside its time limit
-XL_LAYERS = 24
+#: xlstm-serve's and xlstm-transform's bf16 depth: 16 of xlstm-1.3b's 48
+#: layers (two 7:1 units) since slice 16's phases came, to keep the
+#: script inside its time limit
+XL_LAYERS = 16
 
 
 def _xl_cfg(base=None, **kw):
@@ -5586,13 +5610,20 @@ def enc_cases():
     flash kernel's bidirectional branch over 1500 frames, Hq 6, kvs 6,
     dh 64: 1500 = 23 * 64 + 28, so the last key tile is ragged), its
     decoder's causal flash at the longest whisper-serve prompt and its
-    paged decode at whisper-serve's shape.  phi-3-vision's (dh 96) are
+    paged decode at whisper-serve's shape, and the same at a TP2
+    worker's 3 heads (whisper-tp).  phi-3-vision's (dh 96) are
     ``head_shape_cases``' flash and decode."""
     h = dict(Hq=6, kvs=6, dh=64)
+    # whisper-tp's: a TP2 worker's 3 heads in the encoder and the decoder
+    h2 = dict(Hq=3, kvs=3, dh=64)
     return [(ENC_MODEL, case_flash, dict(S=1500, causal=False, **h)),
             (ENC_MODEL, case_flash, dict(S=224, **h)),
             (ENC_MODEL, case_decode, dict(B=4, ctx=288, cap=WHISPER_CTX,
-                                          **h))]
+                                          **h)),
+            (ENC_MODEL, case_flash, dict(S=1500, causal=False, **h2)),
+            (ENC_MODEL, case_flash, dict(S=200, **h2)),
+            (ENC_MODEL, case_decode, dict(B=3, ctx=215, cap=WHISPER_CTX,
+                                          **h2))]
 
 
 def _front_requests(cfg, gen, lens, new):
@@ -6662,7 +6693,7 @@ CENSUS = (("paged_attention", "paged_attention", "paged_decode", _decode_key),
 PARITY_PHASES = ("parity", "transform-parity", "cluster-parity",
                  "spill-parity", "ladder-parity", "layout-parity",
                  "moe-parity", "rg-parity", "xlstm-parity", "enc-parity",
-                 "enc-workers")
+                 "enc-workers", "faithful-parity")
 
 
 class ShapeCensus:
@@ -6780,9 +6811,9 @@ def step_summary(steps) -> dict:
     return out
 
 
-#: transform-serve's depth: half of llama3-8b's 32 layers since the
-#: train phases came, to keep the script inside its time limit
-TRANSFORM_SERVE_LAYERS = 16
+#: transform-serve's depth: a quarter of llama3-8b's 32 layers since
+#: slice 16's phases came, to keep the script inside its time limit
+TRANSFORM_SERVE_LAYERS = 8
 
 
 def phase_transform_serve(smi: str):
@@ -7015,6 +7046,413 @@ def prefill_profile(eng, cfg, gen, prompt: int = 6000):
             **device_activity(prof, wall, 1)}
 
 
+# ---------------------------------------------------------------------------
+# slice 16: attention kept whole under TP, token-first KV storage on one
+# engine, whisper-tiny at TP > 1
+
+#: faithful-parity's and faithful-serve's cycle, mid-decode: TP1x2 ->
+#: TP2 -> TP1x2
+FAITHFUL_CYCLE = (2, 1)
+#: faithful-serve's and storage-layouts' bf16 depth (of llama3-8b's 32)
+FAITHFUL_LAYERS = 8
+#: the session keys faithful-serve prints
+SESSION_KEYS = ("layout_from", "layout_to", "steps", "wall_s", "exposed_s",
+                "kv_bytes", "weight_bytes", "attn_copied_bytes",
+                "attn_gathered_bytes")
+
+
+def _attn_storages(eng) -> list:
+    """Each layer's whole attention replicas, by the storage each
+    worker's ``wq`` lives in."""
+    return [[p["wq"].untyped_storage().data_ptr() for p in layer.attn_whole]
+            for layer in eng.layers]
+
+
+def _same_pool_bytes(before, after, per: int) -> int:
+    """A move keeps every live page: each layer's global cache after it
+    holds the bytes of the first pages of each of ``per`` slots before it
+    (the pool may have been trimmed).  Returns the bytes compared."""
+    n = 0
+    for x, y in zip(before, after):
+        mps = y.page_table.shape[1]
+        P = y.pool.shape[3]
+        keep = x.pool.view(per, -1, *x.pool.shape[1:])[:, :mps]
+        assert torch.equal(keep.reshape(y.pool.shape), y.pool), "pool bytes"
+        assert torch.equal(x.seq_lens, y.seq_lens), "seq_lens"
+        assert torch.equal(x.positions[:, :mps * P], y.positions), "positions"
+        n += y.pool.numel() * y.pool.element_size()
+    return n
+
+
+def phase_faithful_parity(dev: str = "cuda", cfg=None,
+                          lens=(60, 150, 250, 90), new: int = 16):
+    """llama3-8b at full width, 2 layers, fp32, two workers, attention
+    kept whole (``transform_attn=False``): TP1x2 -> TP2 -> TP1x2
+    mid-decode.  The card's faithful and default engines and the CPU's
+    faithful engine give the same streams (held token by token,
+    ``_forced_run``); the faithful engine's sessions write no attention
+    tensor (its replicas are the storages it started with) and copy 0
+    weight bytes; with no decode between the steps, every move keeps
+    the global caches' bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.core.scheduler import PrefillPolicy
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                                     dtype="float32")
+    t0 = time.monotonic()
+    model = M.build(cfg, make_plan(cfg, 2, mode="page"), seed=0,
+                    device="cpu")
+    prompts = _prompts(torch.Generator().manual_seed(61), lens,
+                       cfg.vocab_size)
+    kw = dict(max_batch=4, max_seq=512, page_tokens=64,
+              prefill_policy=PrefillPolicy(token_budget=128, mode="mixed"))
+
+    def engine(where, faithful):
+        return Engine(cfg, params=copy.deepcopy(model).to(where),
+                      devices=[where] * 2, transform_attn=not faithful,
+                      **kw)
+
+    def run(where, faithful, want=None):
+        eng = engine(where, faithful)
+        reqs = [ServeRequest(p, max_new_tokens=new, rid=k)
+                for k, p in enumerate(prompts)]
+        held = _attn_storages(eng) if faithful else None
+        _, parts = _forced_run(eng, reqs, lambda: _drive(
+            eng, reqs, 6, FAITHFUL_CYCLE), want)
+        log = [{k: x[k] for k in SESSION_KEYS} for x in eng.transform_log]
+        if faithful:
+            assert _attn_storages(eng) == held, "attention replicas moved"
+            assert all(x["attn_copied_bytes"] == x["weight_bytes"] == 0
+                       for x in log), log
+        out = ({r.rid: r.generated for r in reqs}, parts, log)
+        del eng
+        return out
+
+    host = run("cpu", True)
+    card = {"faithful": run(dev, True, host[0]),
+            "default": run(dev, False, host[0])}
+    for name, got in card.items():
+        assert got[0] == host[0], (name, got[0], host[0])
+    eng = engine(dev, True)
+    for p in prompts:
+        eng.submit(ServeRequest(p, max_new_tokens=new))
+    for _ in range(6):
+        eng.step()
+    compared = 0
+    for tp in FAITHFUL_CYCLE:
+        before = eng.global_caches()
+        eng.transform(tp)
+        while not eng._session.done:
+            eng._session.step()
+        eng._finish_transform()
+        compared += _same_pool_bytes(before, eng.global_caches(),
+                                     eng.max_batch)
+    del eng
+    if dev == "cuda":
+        free_card()
+    emit(phase="faithful-parity", layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, workers=2,
+         prompts=list(lens), cycle=list(FAITHFUL_CYCLE),
+         streams_equal_default_and_cpu=True,
+         partings_vs_cpu={k: v[1] for k, v in card.items()},
+         tie_gap=TIE_GAP, sessions={k: v[2] for k, v in card.items()},
+         pool_bytes_compared=compared, seconds=time.monotonic() - t0)
+
+
+def worker_bytes(eng) -> list:
+    """Bytes of the tensors each worker of an engine holds: its weights
+    (a whole attention replica counted once, not its views) and its
+    caches."""
+    out = []
+    for w in range(eng.W):
+        seen = {}
+
+        def add(t):
+            if t is not None:
+                s = t.untyped_storage()
+                seen[s.data_ptr()] = s.nbytes()
+
+        for layer in eng.layers:
+            for x in (layer.ln1[w], layer.ln2[w]):
+                add(x)
+            for part in (layer.attn[w], layer.mlp[w]):
+                for t in (part or {}).values():
+                    add(t)
+            add(layer.cache[w].pool)
+        for t in eng.static[w].values():
+            add(t)
+        out.append(sum(seen.values()))
+    return out
+
+
+def phase_faithful_serve(smi: str, dev: str = "cuda", cfg=None,
+                         lens=(300, 1200, 2500, 3500), new: int = 64,
+                         max_seq: int = 8192, page_tokens: int = 64,
+                         before: int = 16):
+    """llama3-8b at full width and ``FAITHFUL_LAYERS`` layers, bf16, two
+    workers of the card, in both modes: four prompts at TP1x2, TP1x2 ->
+    TP2 mid-decode, ``before`` steps, TP2 -> TP1x2.  Every decode row of
+    the faithful engine takes the default engine's token (teacher
+    forced) and is held against its row (greedy agreement).  Prints each
+    session's wall, exposed time, KV, weight and attention bytes, the
+    bytes each worker holds at TP1x2, TP2 and TP1x2 again, the card's
+    allocated memory at each, and the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"),
+                                     num_layers=FAITHFUL_LAYERS)
+    t0 = time.monotonic()
+    rows, out = {}, {}
+    for mode in ("default", "faithful"):
+        eng = Engine(cfg, devices=[dev] * 2, seed=0, max_batch=4,
+                     max_seq=max_seq, page_tokens=page_tokens,
+                     transform_attn=mode == "default")
+        gen = torch.Generator().manual_seed(71)
+        reqs = [ServeRequest(p, max_new_tokens=new)
+                for p in _prompts(gen, lens, cfg.vocab_size)]
+        rows[mode] = {}
+        record_rows(eng, reqs, rows[mode],
+                    force=rows["default"] if mode == "faithful" else None,
+                    where=stage_of)
+        reset_launch_counts()
+        mem = {}
+        for r in reqs:
+            eng.submit(r)
+        while any(not r.generated for r in reqs):
+            eng.step()
+        sync(dev)
+        mem["TP1x2"] = (worker_bytes(eng), mem_gb(dev))
+        for tp, label in zip(FAITHFUL_CYCLE, ("TP2", "TP1x2 again")):
+            assert all(r.slot is not None for r in reqs)
+            eng.transform(tp)
+            while eng.transforming:
+                eng.step()
+            for _ in range(before):
+                eng.step()
+            sync(dev)
+            mem[label] = (worker_bytes(eng), mem_gb(dev))
+        eng.run_until_done()
+        sync(dev)
+        launches = launch_counts()
+        assert all(r.done and len(r.generated) == new for r in reqs)
+        for k in ("paged_attention", "padded_ffn", "copy_page_slices",
+                  "gather_page_slices"):
+            assert launches[k] > 0 or dev != "cuda", (mode, launches)
+        out[mode] = {
+            "sessions": [{k: x[k] for k in SESSION_KEYS}
+                         for x in eng.transform_log],
+            "worker_bytes": {k: v[0] for k, v in mem.items()},
+            "card_allocated_gb": {k: v[1] for k, v in mem.items()},
+            "launches": launches}
+        if mode == "faithful":
+            assert all(x["attn_copied_bytes"] == x["weight_bytes"] == 0
+                       for x in eng.transform_log), eng.transform_log
+        del eng
+        free_card()
+    agree = held_rows(rows["faithful"], rows["default"], cfg.vocab_size)
+    extra = [f - d for f, d in zip(out["faithful"]["worker_bytes"]["TP2"],
+                                   out["default"]["worker_bytes"]["TP2"])]
+    emit(phase="faithful-serve", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, workers=2, prompts=list(lens), new_tokens=new,
+         **out, faithful_extra_bytes_a_worker_at_tp2=extra,
+         greedy_agreement_with_default=agree,
+         seconds=time.monotonic() - t0, gpu=smi)
+    return out["faithful"]["launches"]
+
+
+STORAGE_LAYOUTS = ("header_centric", "page_friendly", "raw")
+
+
+def phase_storage_layouts(smi: str, dev: str = "cuda", cfg=None,
+                          lens=(100, 350, 600, 6000), new: int = 32,
+                          max_seq: int = 8192, page_tokens: int = 64,
+                          steps: int = 4):
+    """llama3-8b at full width and ``FAITHFUL_LAYERS`` layers, bf16, one
+    device, the serve phase's requests in each KV storage layout
+    (``Engine(layout=...)``): the token-first engines' streams are
+    bit-equal to the header-centric engine's.  Prints by layout the
+    wall, TTFT, TPOT, a profiled decode step of 4 rows at 2048-token
+    contexts (``decode_profile``: its wall and busy ms), the canonical
+    copy of one layer's pool (``paged.pool.kernel_pool``) timed alone,
+    its share of the step's busy time, and the attention kernels'
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models.model import build
+    from repro_torch.paged import pool as pp
+    from repro_torch.serving import Engine, ServeRequest
+
+    cfg = cfg or dataclasses.replace(get_config("llama3-8b"),
+                                     num_layers=FAITHFUL_LAYERS)
+    t0 = time.monotonic()
+    model = build(cfg, make_plan(cfg, 1), seed=0, device=dev)
+    out, streams = {}, {}
+    for lay in STORAGE_LAYOUTS:
+        eng = Engine(cfg, params=model, max_batch=4, max_seq=max_seq,
+                     page_tokens=page_tokens, device=dev, layout=lay)
+        gen = torch.Generator().manual_seed(7)
+        warm = ServeRequest(_prompts(gen, (70,), cfg.vocab_size)[0],
+                            max_new_tokens=2)
+        eng.submit(warm)
+        eng.run_until_done()
+        reqs = [ServeRequest(p, max_new_tokens=new)
+                for p in _prompts(gen, lens, cfg.vocab_size)]
+        reset_launch_counts()
+        sync(dev)
+        t = time.monotonic()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        sync(dev)
+        wall = time.monotonic() - t
+        launches = launch_counts()
+        streams[lay] = [r.generated for r in reqs]
+        assert dev != "cuda" or all(
+            launches[k] > 0 for k in ("paged_attention", "chunk_prefill",
+                                      "flash_attention")), launches
+        rec = {"wall_s": wall, "ttft_s": [r.ttft for r in reqs],
+               "tpot_s": [r.tpot for r in reqs],
+               "launches": {k: launches[k] for k in (
+                   "paged_attention", "chunk_prefill", "flash_attention")}}
+        if dev == "cuda":
+            prof = decode_profile(eng, cfg, gen, steps=steps)
+            cache = eng.caches[0]
+            copy_ms = time_ms(lambda: pp.kernel_pool(cache), 20)
+            rec.update(decode_step=prof, canonical_copy_ms_a_layer=copy_ms,
+                       pool_mib_a_layer=cache.nbytes / 2 ** 20,
+                       canonical_share_of_busy=(
+                           copy_ms * cfg.num_layers
+                           / prof["device_busy_ms"]))
+        out[lay] = rec
+        del eng
+        if dev == "cuda":
+            free_card()
+    for lay in STORAGE_LAYOUTS[1:]:
+        assert streams[lay] == streams["header_centric"], lay
+    del model
+    if dev == "cuda":
+        free_card()
+    emit(phase="storage-layouts", model=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, prompts=list(lens), new_tokens=new,
+         streams_bit_equal=True, by_layout=out,
+         seconds=time.monotonic() - t0, gpu=smi)
+    return {lay: out[lay]["launches"] for lay in STORAGE_LAYOUTS}
+
+
+#: whisper-tp's rows: the fp32 logits at TP2 against TP1 on the card
+WHISPER_TP_TOL = 1e-4
+
+
+def whisper_walk(model, W: int, tp: int, reqs, new: int, dev: str,
+                 max_seq: int = WHISPER_CTX, page_tokens: int = 64,
+                 force=None):
+    """Requests ``(prompt, frames)`` through ``models.model.walk_layers``
+    at TP``tp`` over ``W`` workers of ``dev`` (``place_workers``), one
+    slot each in the first replica: each prefilled whole, then greedy
+    decode of every slot together (``force``: another run's tokens,
+    taken by each row: teacher forcing).  Returns (tokens a request, the
+    logits of every row, first and decode, on the host)."""
+    from repro_torch.launch.mesh import InstanceMesh, Layout
+    from repro_torch.models import model as M
+
+    lay = Layout(1, tp)
+    mesh = InstanceMesh([dev] * W, lay)
+    n = len(reqs)
+    Bt = n * (W // tp)
+    layers, static, cross = M.place_workers(model, mesh, lay, Bt, max_seq,
+                                            page_tokens, share=False)
+    cfg, plan = model.cfg, model.plan
+    toks, rows = [], []
+    with torch.no_grad():
+        for slot, (p, f) in enumerate(reqs):
+            lg = M.walk_layers(
+                layers, static, cfg, plan, mesh, M.RowSet([slot], Bt),
+                torch.tensor([p]),
+                torch.arange(len(p), dtype=torch.int32)[None], "seq",
+                frames=f[None].to(dev), cross=cross)
+            rows.append([lg[0].float().cpu()])
+            toks.append([int(lg[0].argmax()) if force is None
+                         else force[slot][0]])
+        for j in range(1, new):
+            tok = torch.zeros((Bt, 1), dtype=torch.long)
+            pos = torch.zeros((Bt, 1), dtype=torch.int32)
+            for slot, (p, _) in enumerate(reqs):
+                tok[slot, 0] = toks[slot][-1]
+                pos[slot, 0] = len(p) + j - 1
+            lg = M.walk_layers(layers, static, cfg, plan, mesh,
+                               M.RowSet(range(Bt), Bt), tok, pos, "decode",
+                               cross=cross)
+            for slot in range(n):
+                rows[slot].append(lg[slot].float().cpu())
+                toks[slot].append(int(lg[slot].argmax()) if force is None
+                                  else force[slot][j])
+    del layers, static, cross
+    return toks, rows
+
+
+def phase_whisper_tp(smi: str, dev: str = "cuda", cfg=None,
+                     lens=(4, 60, 200), new: int = 16):
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers, 1500 stub frames, 6 heads of 64) through the serving walk at
+    TP2 on two workers of the card (3 heads a worker in the encoder, the
+    decoder and the cross-attention; the gelu MLP by column blocks; the
+    cross memory of each worker's own kv slots) against TP1 on one
+    worker: fp32 logits of every row within ``WHISPER_TP_TOL``, equal
+    streams; bf16 rows at TP2 teacher forced on TP1's tokens, their
+    greedy agreement.  Kernel 3 (bidirectional and causal) and kernel 1
+    launch at TP2."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.padding import make_plan
+    from repro_torch.models.model import build
+
+    base = cfg or get_config(ENC_MODEL)
+    t0 = time.monotonic()
+    gen = torch.Generator().manual_seed(83)
+    prompts = _prompts(gen, lens, base.vocab_size)
+    frames = [torch.randn((base.encoder.num_frames, base.d_model),
+                          generator=gen) for _ in lens]
+    reqs = list(zip(prompts, frames))
+    out = {}
+    launches = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = build(cfg, make_plan(cfg, 2, mode="page"), seed=0,
+                      device=dev)
+        t1, r1 = whisper_walk(model, 1, 1, reqs, new, dev)
+        reset_launch_counts()
+        t2, r2 = whisper_walk(model, 2, 2, reqs, new, dev,
+                              force=t1 if dtype == "bfloat16" else None)
+        if dtype == "bfloat16":
+            from repro_torch.kernels import flash_attention as FA
+            launches = {**launch_counts(),
+                        "flash_attention_bidirectional":
+                            FA.bidirectional_launches}
+        err = max(float((a - b).abs().max())
+                  for x, y in zip(r1, r2) for a, b in zip(x, y))
+        agree = sum(int(a.argmax()) == int(b.argmax())
+                    for x, y in zip(r1, r2) for a, b in zip(x, y))
+        n = sum(len(x) for x in r1)
+        out[dtype] = {"rows": n, "logit_max_abs_diff": err,
+                      "greedy_agreement": agree / n}
+        if dtype == "float32":
+            assert err < WHISPER_TP_TOL, err
+            assert t1 == t2, (t1, t2)
+        del model
+        if dev == "cuda":
+            free_card()
+    assert dev != "cuda" or (launches["flash_attention_bidirectional"] > 0
+                             and launches["paged_attention"] > 0), launches
+    emit(phase="whisper-tp", model=base.name, workers=2, tp=2,
+         prompts=list(lens), new_tokens=new, frames=base.encoder.num_frames,
+         tol=WHISPER_TP_TOL, fp32_streams_equal=True, by_dtype=out,
+         launches=launches, seconds=time.monotonic() - t0, gpu=smi)
+    return launches
+
+
 KERNEL_META = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:90"),
@@ -7143,6 +7581,13 @@ def main():
     train["mesh-train"] = run("mesh-train", phase_mesh_train, smi,
                               trained["losses"])
     train["mesh-train-cli"] = run("mesh-train-cli", phase_mesh_train_cli)
+    # slice 16: attention kept whole under TP, token-first KV storage,
+    # whisper-tiny at TP2
+    run("faithful-parity", phase_faithful_parity)
+    s16 = {"faithful-serve": run("faithful-serve", phase_faithful_serve,
+                                 smi)}
+    layouts = run("storage-layouts", phase_storage_layouts, smi)
+    s16["whisper-tp"] = run("whisper-tp", phase_whisper_tp, smi)
     emit(phase="phase-seconds", **seconds)
     census.report()
     kernels = []
@@ -7174,10 +7619,15 @@ def main():
                 **{k: v.get(name, 0) for k, v in rg.items()},
                 **{k: v.get(name, 0) for k, v in xl.items()},
                 **{k: v.get(name, 0) for k, v in enc.items()},
-                **{k: v.get(name, 0) for k, v in train.items()}}})
+                **{k: v.get(name, 0) for k, v in train.items()},
+                **{k: v.get(name, 0) for k, v in s16.items()},
+                "storage-layouts": {lay: c.get(name, 0)
+                                    for lay, c in layouts.items()}}})
         if name == "flash_attention":
             kernels[-1]["launches_by_path"]["whisper-serve, bidirectional"] \
                 = enc["whisper-serve"]["flash_attention_bidirectional"]
+            kernels[-1]["launches_by_path"]["whisper-tp, bidirectional"] \
+                = s16["whisper-tp"]["flash_attention_bidirectional"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,18 @@ SLSTM layer has no MLP: its ``mlp`` and ``ln2`` entries are None, its
 ``ln1`` is the block's ``ln``, and ``move_mlp`` only flips its
 ``mlp_layout``.
 
+Attention kept whole (the reference's ``transform_attn=False``, the
+paper's own choice: its ``P()`` spec puts a whole ``wq``/``wk``/``wv``/
+``wo`` on every device, ``repro/core/instance.py:57-71``): an attention
+layer then also holds ``WorkerLayer.attn_whole``, one whole replica a
+worker in tensors of its own, and its ``attn`` entries are VIEWS of that
+worker's replica cut at the layer's tp position (``attn_views``: the
+same head bookkeeping as ``shard_attn``).  The walk reads ``attn`` as
+always.  A move keeps every replica where it lies and re-cuts the views;
+only a worker new to the layer (a merge's adopted one) receives a whole
+copy, and a split's shed workers drop theirs with nothing gathered.  A
+recurrent mixer keeps its sharded placement in both modes.
+
 ``InstanceGroup`` is the counterpart of the reference's owner of the
 same name: a thin transformable owner of ``WorkerLayer`` lists that
 serves through the engine's layer walk.
@@ -102,7 +114,9 @@ class WorkerLayer:
     the MLP weights (the ``mlp`` op); an int TP degree given here is
     turned into its ``Layout``.  Every list has one entry a worker of
     ``mesh``; ``mlp`` and ``ln2`` entries are None in a layer without
-    an MLP."""
+    an MLP.  ``attn_whole``: with attention kept whole, each worker's
+    whole replica, of which its ``attn`` entry is a view (None when the
+    attention weights are sharded)."""
     kind: str
     attn_layout: Layout
     mlp_layout: Layout
@@ -112,6 +126,7 @@ class WorkerLayer:
     mlp: List[Params]
     cache: List
     mesh: Any
+    attn_whole: Optional[List[Params]] = None
 
     def __post_init__(self):
         self.attn_layout = Layout.of(self.attn_layout)
@@ -222,7 +237,7 @@ def replicas_across(xs: List, src, dst) -> List:
 
 
 def reshard(ps: List[Params], src, la: Layout, dst, lb: Layout,
-            fn: Callable) -> List[Params]:
+            fn: Callable) -> Tuple[List[Params], int, int]:
     """One layer's weights (one dict a worker of ``src``, at layout
     ``la``) at layout ``lb`` on the workers of ``dst``.  Only the tp
     factors matter: every sp shard holds its tp position's weights.
@@ -233,9 +248,10 @@ def reshard(ps: List[Params], src, la: Layout, dst, lb: Layout,
     ``src``.  The bytes of a new shard beyond the share of the split
     its worker held before count as gathered from its peers
     (``comm_analysis.TALLY``): 0 when each worker slices its own
-    replica."""
+    replica.  Returns the shards, those gathered bytes, and the bytes
+    of every new shard tensor (a worker's own slice copied included)."""
     ta, tb = la.tp, lb.tp
-    out, moved = [], 0
+    out, moved, copied = [], 0, 0
     for w, wk in enumerate(dst.workers):
         p = w % tb
         own = 0.0      # the share of the new shard the worker held
@@ -251,10 +267,16 @@ def reshard(ps: List[Params], src, la: Layout, dst, lb: Layout,
         else:
             g = (w // tb) % (src.W // ta)
         out.append(fn(ps[g * ta:(g + 1) * ta], ta, tb, p, wk.device))
-        moved += round((1.0 - own) * sum(
-            t.numel() * t.element_size() for t in out[-1].values()))
+        new = _nbytes(out[-1])
+        copied += new
+        moved += round((1.0 - own) * new)
     TALLY.add("all-gather", moved)
-    return out
+    return out, moved, copied
+
+
+def _nbytes(p: Params) -> int:
+    return sum(t.numel() * t.element_size() for t in p.values()
+               if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +313,23 @@ def reshard_attn(group: List[Params], ta: int, tb: int, p: int,
     return {k: out[k] for k in ("wq", "wk", "wv", "wo")}
 
 
+def attn_views(p: Params, t: int, pos: int, plan: PaddingPlan) -> Params:
+    """Position ``pos``'s TP-t shard of a whole attention replica as
+    VIEWS of its tensors (no copy): the q-head columns of ``wq`` and rows
+    of ``wo``, and the ``wk``/``wv`` columns of the kv heads its kv slots
+    copy (``kv_heads_of``), the slices ``shard_attn`` copies out."""
+    if t == 1:
+        return dict(p)
+    check_degree(plan, t)
+    Hq = plan.q_heads_padded
+    dh = p["wq"].shape[1] // Hq
+    per = Hq // t
+    q0, q1 = pos * per * dh, (pos + 1) * per * dh
+    lo, hi = kv_heads_of(plan, t, pos)
+    return {"wq": p["wq"][:, q0:q1], "wk": p["wk"][:, lo * dh:hi * dh],
+            "wv": p["wv"][:, lo * dh:hi * dh], "wo": p["wo"][q0:q1]}
+
+
 def shard_attn(p: Params, t: int, pos: int, plan: PaddingPlan,
                device=None) -> Params:
     """Position ``pos``'s TP-t shard of a full attention replica."""
@@ -324,8 +363,12 @@ def reshard_mlp(group: List[Params], ta: int, tb: int, p: int, S: int,
         lead, d = wi0.shape[:-2], wi0.shape[-2]
         per = S // ta
         fs = group[0][b_key].shape[-2] // per
+        # [gate | up] halves, or one for an ungated MLP, whose S blocks
+        # are contiguous column runs of its own layout (the reference's
+        # split of ``wi``'s last axis)
+        g = wi0.shape[-1] // group[0][b_key].shape[-2]
         runs = _runs(p * S // tb, (p + 1) * S // tb, per)
-        wi = _join([group[i][a_key].view(*lead, d, 2, per, fs)[..., a:b, :]
+        wi = _join([group[i][a_key].view(*lead, d, g, per, fs)[..., a:b, :]
                     for i, a, b in runs], -2, device)
         wo = _join([group[i][b_key].view(*lead, per, fs, d)[..., a:b, :, :]
                     for i, a, b in runs], -3, device)
@@ -340,6 +383,62 @@ def shard_mlp(p: Params, t: int, pos: int, S: int, device=None) -> Params:
     return reshard_mlp([p], 1, t, pos, S, dev)
 
 
+def shard_static(st: Dict, t: int, pos: int, plan: PaddingPlan, S: int,
+                 device=None) -> Dict:
+    """Position ``pos``'s TP-t shard of one worker's static weights: an
+    encoder-decoder's encoder layers (attention by heads, the ungated MLP
+    by column blocks) and each decoder group's cross weights (``ln_x``
+    whole, {wq, wk, wv, wo} by heads), as the reference's name rules
+    place them (``repro/launch/sharding.py:72-76``); ``frame_proj``,
+    norms, the embedding and the head stay whole.  Without an encoder,
+    ``st`` itself."""
+    if "encoder" not in st or t == 1:
+        return st
+    enc = st["encoder"]
+    layers = [{**lp, "attn": shard_attn(lp["attn"], t, pos, plan, device),
+               "mlp": shard_mlp(lp["mlp"], t, pos, S, device)}
+              for lp in enc["layers"]]
+    cross = [{"ln_x": c["ln_x"], **shard_attn(c, t, pos, plan, device)}
+             for c in st["cross"]]
+    return {**st, "encoder": {**enc, "layers": layers}, "cross": cross}
+
+
+def place_at(layers: List[WorkerLayer], static: List[Dict], lay: Layout,
+             plan: PaddingPlan, batch: int, cache_of: Callable
+             ) -> List[Dict]:
+    """Re-lay layers that ``place_replicas`` put at TP1 x W at the
+    pure-TP layout ``lay`` on the same workers, in place: each worker
+    slices its own replica (mixer and MLP shards of its tp position, as
+    compact tensors), its cache a fresh one at ``lay``
+    (``cache_of(kind, batch, device)`` gives the global cache of
+    ``batch`` slots, ``split_cache`` its parts), and the layers' layouts
+    flip.  Returns the static weights sharded likewise
+    (``shard_static``): how an engine that never changes degree live
+    (an encoder-decoder) is placed at TP>1."""
+    tp, S = lay.tp, plan.max_tp
+    check_degree(plan, lay)
+    mesh = layers[0].mesh if layers else None
+    for layer in layers:
+        devs = layer.mesh.devices
+        if layer.cache[0].recurrent:
+            layer.attn = [reshard_rec([a], 1, tp, w % tp, devs[w])
+                          for w, a in enumerate(layer.attn)]
+        else:
+            layer.attn = [shard_attn(a, tp, w % tp, plan, devs[w])
+                          for w, a in enumerate(layer.attn)]
+        if layer.has_mlp:
+            layer.mlp = [{**shard_mlp(m, tp, w % tp, S, devs[w]),
+                          **({"router": m["router"]} if "router" in m
+                             else {})}
+                         for w, m in enumerate(layer.mlp)]
+        layer.cache = split_cache(cache_of(layer.kind, batch, devs[0]),
+                                  lay, devs)
+        layer.attn_layout = layer.mlp_layout = lay
+    devs = mesh.devices if mesh is not None else [None] * len(static)
+    return [shard_static(st, tp, w % tp, plan, S, devs[w])
+            for w, st in enumerate(static)]
+
+
 def move_mlp(layer: WorkerLayer, dst, lb: Layout, S: int) -> None:
     """The layer's MLP at layout ``lb`` on the workers of ``dst`` (its
     ``mesh`` still names the source assembly).  A MoE router follows as
@@ -348,7 +447,7 @@ def move_mlp(layer: WorkerLayer, dst, lb: Layout, S: int) -> None:
         layer.mlp = [None] * dst.W
         layer.mlp_layout = lb
         return
-    new = reshard(
+    new, _, _ = reshard(
         layer.mlp, layer.mesh, layer.mlp_layout, dst, lb,
         lambda g, ta, b, p, dev: reshard_mlp(g, ta, b, p, S, dev))
     if "router" in layer.mlp[0]:
@@ -392,24 +491,30 @@ def reshard_rec(group: List[Params], ta: int, tb: int, p: int, device
     return out
 
 
-def move_rec(layer: WorkerLayer, dst, lb: Layout) -> int:
+def move_rec(layer: WorkerLayer, dst, lb: Layout) -> Tuple[int, int, int]:
     """A recurrent layer's state rows (``kv_transform.regroup_rec``) and
-    mixer weights at layout ``lb`` on the workers of ``dst``; returns the
-    state bytes copied."""
+    mixer weights at layout ``lb`` on the workers of ``dst``; returns
+    ``(state bytes copied, mixer bytes gathered, mixer bytes copied)``
+    (``reshard``)."""
     from repro_torch.core.kv_transform import regroup_rec
     src, la = layer.mesh, layer.attn_layout
     layer.cache, moved = regroup_rec(layer.cache, src, la, dst, lb)
-    layer.attn = reshard(layer.attn, src, la, dst, lb, reshard_rec)
+    layer.attn, gathered, copied = reshard(layer.attn, src, la, dst, lb,
+                                           reshard_rec)
     layer.attn_layout = lb
-    return moved
+    return moved, gathered, copied
 
 
 def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
-              ) -> int:
+              ) -> Tuple[int, int, int]:
     """The layer's paged cache (``kv_transform.migrate_sharded``) and
-    attention weights at layout ``lb`` on the workers of ``dst``; returns
-    the bytes the migration's kernels and exchange moved.  A recurrent
-    layer's state and mixer move instead (``move_rec``)."""
+    attention weights at layout ``lb`` on the workers of ``dst``.
+    Returns ``(kv, gathered, copied)``: the bytes the migration's
+    kernels and exchange moved, the weight bytes that came from another
+    worker, and the weight bytes written into new tensors.  Attention
+    kept whole moves only to adopted workers and re-cuts the views
+    (``attn_views``): ``(kv, b, b)`` with b the adopted copies' bytes.  A
+    recurrent layer's state and mixer move instead (``move_rec``)."""
     from repro_torch.core.kv_transform import migrate_sharded
     if layer.cache[0].recurrent:
         return move_rec(layer, dst, lb)
@@ -418,11 +523,19 @@ def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
     new, moved = migrate_sharded([c.pool for c in layer.cache], src, la,
                                  dst, lb, mps)
     layer.cache = cache_to(layer.cache, new, src, la, dst, lb)
-    layer.attn = reshard(
-        layer.attn, src, la, dst, lb,
-        lambda g, a, b, p, dev: reshard_attn(g, a, b, p, plan, dev))
+    if layer.attn_whole is not None:
+        layer.attn_whole = replicas_across(layer.attn_whole, src, dst)
+        gathered = copied = sum(
+            _nbytes(p) for p, wk in zip(layer.attn_whole, dst.workers)
+            if wk not in src.workers)
+        layer.attn = [attn_views(p, lb.tp, w % lb.tp, plan)
+                      for w, p in enumerate(layer.attn_whole)]
+    else:
+        layer.attn, gathered, copied = reshard(
+            layer.attn, src, la, dst, lb,
+            lambda g, a, b, p, dev: reshard_attn(g, a, b, p, plan, dev))
     layer.attn_layout = lb
-    return moved
+    return moved, gathered, copied
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +543,8 @@ def move_attn(layer: WorkerLayer, dst, lb: Layout, plan: PaddingPlan
 # ---------------------------------------------------------------------------
 
 def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
-                   share: bool, batch: int, cache_of: Callable
+                   share: bool, batch: int, cache_of: Callable,
+                   whole_attn: bool = False
                    ) -> Tuple[List[WorkerLayer], List[Dict]]:
     """Layers at TP1 x W on ``mesh``: every worker a replica of
     ``blocks`` (``(kind, ln1, ln2, attn, mlp)`` a layer, ``ln2`` and
@@ -441,7 +555,9 @@ def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
     ``vision_proj``; an encoder-decoder's ``encoder`` and ``cross``
     trees, dicts and lists of tensors, placed whole on every worker).
     With ``share`` worker 0 takes the given tensors and every other
-    worker a copy; without it every worker copies."""
+    worker a copy; without it every worker copies.  ``whole_attn``:
+    attention layers keep their replicas whole at every degree
+    (``WorkerLayer.attn_whole``; at TP1 the views are the replica)."""
     devs = mesh.devices
 
     def per_worker(t):
@@ -464,6 +580,11 @@ def place_replicas(blocks: Sequence[Tuple], static: Dict, mesh,
                           per_worker(attn), per_worker(mlp),
                           [cache_of(kind, rows, dev) for dev in devs], mesh)
               for kind, ln1, ln2, attn, mlp in blocks]
+    if whole_attn:
+        for layer in layers:
+            if not layer.cache[0].recurrent:
+                layer.attn_whole = layer.attn
+                layer.attn = [dict(p) for p in layer.attn_whole]
     return layers, per_worker(static)
 
 
@@ -573,11 +694,14 @@ class InstanceGroup:
     serving engine's memory-follows-degree resize is not the group's).
     Weights: ``params`` (a ``Model`` planned for ``make_plan(cfg, W,
     "page")`` with its MLP in that plan's Eq. 2 layout) or random from
-    ``seed``; worker 0 takes them, every other worker a copy."""
+    ``seed``; worker 0 takes them, every other worker a copy.
+    ``transform_attn=False`` keeps every attention replica whole at each
+    degree (the reference's faithful mode): only the MLP and the KV
+    move."""
 
     def __init__(self, cfg, devices: Sequence, batch_per_replica: int,
                  max_seq: int, page_tokens: int = 16, seed: int = 0,
-                 params=None):
+                 params=None, transform_attn: bool = True):
         from repro_torch.core.padding import make_plan
         from repro_torch.core.weight_transform import relayout_block_mlp
         from repro_torch.launch.mesh import InstanceMesh
@@ -591,6 +715,7 @@ class InstanceGroup:
         self.batch = batch_per_replica * self.W
         self.max_seq, self.page_tokens = max_seq, page_tokens
         self.tp = 1
+        self.transform_attn = transform_attn
         self.transform_count = 0
         self._session = None
         if params is None:
@@ -604,7 +729,7 @@ class InstanceGroup:
             True, self.batch,
             lambda kind, rows, dev: init_block_cache(
                 kind, cfg, self.plan, rows, max_seq, page_tokens,
-                device=dev))
+                device=dev), whole_attn=not transform_attn)
 
     # -- the paper's §4: the transformation -----------------------------
     def transform(self, new_tp: int) -> None:

@@ -259,6 +259,11 @@ class StepReport:
     # weight bytes that crossed assemblies (copied to a merge's adopted
     # workers, gathered from a split's shed ones)
     weight_bytes: int = 0
+    # attention (token-mixer) weight bytes the kv ops wrote into new
+    # tensors, and of those the bytes that came from another worker: 0
+    # and 0 when attention is kept whole on the same workers
+    attn_copied_bytes: int = 0
+    attn_gathered_bytes: int = 0
 
 
 def _sync(devices) -> None:
@@ -373,16 +378,22 @@ class TransformSession:
         I.move_mlp(layer, self.mesh_to, self.target_layout, self.plan.max_tp)
         return self._crossed_bytes(src, old, layer.mlp)
 
-    def _run_kv(self, layer: I.WorkerLayer) -> Tuple[int, int, int]:
+    def _run_kv(self, layer: I.WorkerLayer
+                ) -> Tuple[int, int, int, int, int]:
         """Migrate the layer's pages and attention weights; returns the
-        bytes the migration's kernels and exchange read and wrote, the bytes
-        of the migrated pool and the attention bytes that crossed
-        assemblies."""
+        bytes the migration's kernels and exchange read and wrote, the
+        bytes of the migrated pool, the attention bytes that crossed
+        assemblies, and the attention bytes copied in all and gathered
+        from other workers (``core.instance.move_attn``).  Attention kept
+        whole crosses only as the adopted workers' whole copies: a
+        split's shed workers give nothing."""
         src, old = layer.mesh, layer.attn
         pool_bytes = sum(c.nbytes for c in layer.cache)
-        moved = I.move_attn(layer, self.mesh_to, self.target_layout,
-                            self.plan)
-        return moved, pool_bytes, self._crossed_bytes(src, old, layer.attn)
+        moved, gathered, copied = I.move_attn(
+            layer, self.mesh_to, self.target_layout, self.plan)
+        crossed = (gathered if layer.attn_whole is not None
+                   else self._crossed_bytes(src, old, layer.attn))
+        return moved, pool_bytes, crossed, copied, gathered
 
     def _move_norms(self, layer: I.WorkerLayer) -> int:
         """A cross-assembly layer group's last act: its norms follow the
@@ -418,6 +429,7 @@ class TransformSession:
                          "modeled": 0.0, "kernel": False, "dispatch_s": 0.0,
                          "groups": groups, "spans": [], "kv_bytes": 0,
                          "kv_pool_bytes": 0, "weight_bytes": 0,
+                         "attn_copied": 0, "attn_gathered": 0,
                          "static": self.cross and (
                              self._dispatched + 1 == self.schedule.n_steps)}
         self._dispatched += 1
@@ -452,10 +464,13 @@ class TransformSession:
             if op.component == "mlp":
                 p["weight_bytes"] += self._run_mlp(layer)
             else:
-                moved, pool_bytes, wb = self._run_kv(layer)
+                moved, pool_bytes, wb, copied, gathered = self._run_kv(
+                    layer)
                 p["kv_bytes"] += moved
                 p["kv_pool_bytes"] += pool_bytes
                 p["weight_bytes"] += wb
+                p["attn_copied"] += copied
+                p["attn_gathered"] += gathered
                 p["kernel"] = True
         p["weight_bytes"] += self._move_norms(layer)
         dt = time.perf_counter() - td
@@ -498,7 +513,9 @@ class TransformSession:
                          overlapped=overlapped, layer_spans=p["spans"],
                          kv_bytes=p["kv_bytes"],
                          kv_pool_bytes=p["kv_pool_bytes"],
-                         weight_bytes=p["weight_bytes"])
+                         weight_bytes=p["weight_bytes"],
+                         attn_copied_bytes=p["attn_copied"],
+                         attn_gathered_bytes=p["attn_gathered"])
         self.reports.append(rep)
         self._next += 1
         return rep

@@ -38,9 +38,11 @@ reference's one buffer of the batch's capacity is shared out; its
 record's ``moe_expert_flops_factor`` says how many times the
 reference's expert FLOPs ``flops_total`` then counts.  The
 compiler's keys (``compile_s``, ``bytes_accessed_total``, the
-temporaries and code sizes) have no counterpart and are null.  A
-combination the port cannot run on meta is recorded as skipped with its
-reason, as the reference records ``long_500k`` on whisper.
+temporaries and code sizes) have no counterpart and are null.  The
+only skips are the reference's own (``specs.supports_shape``: whisper's
+``long_500k``), recorded with its reason.  An encoder-decoder at TP > 1
+runs its encoder and cross-attention by heads over each TP group
+(``core.instance.place_at``).
 
 Meta tensors still cost Python time an operation, and the port loops
 over workers, so a full-depth combination on 256 workers takes minutes;
@@ -63,7 +65,6 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core import instance as I
 from repro_torch.core.padding import make_plan
 from repro_torch.core.weight_transform import relayout_block_mlp
 from repro_torch.launch import sharding as SH
@@ -72,7 +73,6 @@ from repro_torch.launch.comm_analysis import counting
 from repro_torch.launch.mesh import (Grid, InstanceMesh, Layout,
                                      batch_axes, make_production_mesh,
                                      model_axis_size)
-from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.models import shardhints
 from repro_torch.training import adamw
@@ -146,40 +146,14 @@ def _serve(cfg, shape: ShapeConfig, grid: Grid, plan, decode_mode: str
            ) -> Dict[str, Any]:
     page_tokens = M.PAGE_TOKENS
     lay, Bw = serve_layout(cfg, grid, shape.global_batch, decode_mode)
-    if cfg.encoder is not None and lay.tp > 1:
-        raise _Skip("an encoder-decoder serves at TP1 x W in the port "
-                    "(models.model.walk_layers); the reference's "
-                    "placement puts its kv heads over model")
-    if cfg.activation not in ("swiglu", "geglu") and lay.tp > 1:
-        raise _Skip("an ungated MLP is held whole (TP1 only) in the "
-                    "port's serving walk")
     model = SP.param_specs(cfg, plan)
     for blk in model.layers:
         relayout_block_mlp(blk.mlp, cfg.d_ff, plan.max_tp, cfg.activation)
     mesh = InstanceMesh([SP.META] * grid.W, lay)
-    tp, S = lay.tp, plan.max_tp
-    layers, static = I.place_replicas(
-        [b.parts() for b in model.layers], model.static(), mesh, False, Bw,
-        lambda kind, rows, dev: B.init_block_cache(
-            kind, cfg, plan, rows, shape.seq_len, page_tokens, device=dev))
-    if tp > 1:
-        for layer in layers:
-            full = [(a, m) for a, m in zip(layer.attn, layer.mlp)]
-            if layer.kind in B.RECURRENT_KINDS:
-                layer.attn = [I.reshard_rec([a], 1, tp, w % tp, SP.META)
-                              for w, (a, _) in enumerate(full)]
-            else:
-                layer.attn = [I.shard_attn(a, tp, w % tp, plan, SP.META)
-                              for w, (a, _) in enumerate(full)]
-            if layer.has_mlp:
-                layer.mlp = [{**I.shard_mlp(m, tp, w % tp, S, SP.META),
-                              **({"router": m["router"]} if "router" in m
-                                 else {})}
-                             for w, (_, m) in enumerate(full)]
-            layer.cache = I.split_cache(B.init_block_cache(
-                layer.kind, cfg, plan, Bw, shape.seq_len, page_tokens,
-                device=SP.META), lay, mesh.devices)
-            layer.attn_layout = layer.mlp_layout = lay
+    tp = lay.tp
+    layers, static, cross = M.place_workers(model, mesh, lay, Bw,
+                                            shape.seq_len, page_tokens,
+                                            share=False)
     inputs = SP.model_inputs(cfg, shape)
     per = []
     for w in range(grid.W):
@@ -195,10 +169,6 @@ def _serve(cfg, shape: ShapeConfig, grid: Grid, plan, decode_mode: str
                     // shape.global_batch // max(1, grid.W // tp),
                     "cache_bytes": cache})
     rows = M.RowSet(range(Bw), Bw)
-    cross = None
-    if cfg.encoder is not None:
-        cross = [M.CrossKV.make(cfg, plan, Bw // mesh.W, device=SP.META)
-                 for _ in range(mesh.W)]
     with counting() as tally, FlopCounterMode(display=False) as fc, \
             torch.no_grad():
         if shape.kind == "prefill":
@@ -233,10 +203,6 @@ def _leaves(tree) -> List[torch.Tensor]:
     return [] if tree is None else [tree]
 
 
-class _Skip(Exception):
-    """A combination the port does not run, with its reason."""
-
-
 def run_one(arch: str, shape_name: str, multi_pod: bool,
             decode_mode: str = "tp", variant: int = 0, save: bool = True,
             moe_hints=False, banded: bool = False, mesh_shape=None
@@ -269,23 +235,17 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     grid = meta_grid(multi_pod, mesh_shape)
     plan = make_plan(cfg, model_axis_size(grid), mode="lane")
     t0 = time.time()
-    try:
-        if shape.kind == "train":
-            hint = {}
-            if moe_hints and cfg.moe is not None:
-                em = (moe_hints if moe_hints in ("dp", "tp") else
-                      SH.decide_expert_mode(cfg, plan, grid.shape["data"]))
-                hint = SH.moe_hint_specs(em, grid.shape["data"])
-            with (shardhints.hints(**hint) if hint
-                  else contextlib.nullcontext()):
-                out = _train(cfg, shape, grid, plan, moe_hints, banded)
-        else:
-            out = _serve(cfg, shape, grid, plan, decode_mode)
-    except _Skip as e:
-        rec = {**base, "skipped": True, "reason": str(e),
-               "decode_mode": decode_mode, "variant": variant}
-        _save(tag, rec, save)
-        return rec
+    if shape.kind == "train":
+        hint = {}
+        if moe_hints and cfg.moe is not None:
+            em = (moe_hints if moe_hints in ("dp", "tp") else
+                  SH.decide_expert_mode(cfg, plan, grid.shape["data"]))
+            hint = SH.moe_hint_specs(em, grid.shape["data"])
+        with (shardhints.hints(**hint) if hint
+              else contextlib.nullcontext()):
+            out = _train(cfg, shape, grid, plan, moe_hints, banded)
+    else:
+        out = _serve(cfg, shape, grid, plan, decode_mode)
     per = out["per"]
     worst = {k: max(p[k] for p in per) for k in per[0]}
     coll = out["tally"].collective_bytes()

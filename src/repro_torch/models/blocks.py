@@ -213,12 +213,17 @@ def attention_chunk(p: Params, x: torch.Tensor, cfg: ModelConfig,
     chunk-prefill kernel, which updates the pool in place.
     ``first_chunk=True`` skips the (known-empty) prefix walk; on an sp
     shard (``shard``) it is the whole attention of a first chunk, and
-    only the tokens whose page the shard holds are written."""
+    only the tokens whose page the shard holds are written.  A
+    token-first pool runs the kernel on its canonical copy, scattered
+    into and written back in the storage order (``paged.pool.
+    kernel_pool``); a header-centric one in place, with no copy."""
     B, S, d = x.shape
     q, k, v = _project_qkv(p, x, cfg, plan, positions)
+    pool_c = pp.kernel_pool(cache)
     attn = CP.chunk_prefill_attention(
-        q, k, v, cache.pool, cache.page_table, cache.positions, positions,
+        q, k, v, pool_c, cache.page_table, cache.positions, positions,
         window=window, attend_prefix=not first_chunk, shard=shard)
+    pp.commit_kernel_pool(cache, pool_c)
     cache = pp.adopt_chunk_pool(cache, positions, shard)
     out = attn.reshape(B, S, -1) @ p["wo"]
     return out, cache
@@ -231,11 +236,12 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """One-token decode. x: (B,1,d); positions: (B,1) global positions.
     The token's K/V are appended at each row's cursor, then the
     paged-decode kernel walks the pool in place, masked by the stored
-    positions."""
+    positions (a token-first pool: its canonical copy, which the kernel
+    only reads)."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, plan, positions)
     cache = pp.append_token(cache, k[:, 0], v[:, 0])
-    attn = PA.paged_decode(q[:, 0].contiguous(), cache.pool,
+    attn = PA.paged_decode(q[:, 0].contiguous(), pp.kernel_pool(cache),
                            cache.page_table, cache.positions,
                            positions[:, 0].contiguous(), window=window)
     out = attn.reshape(B, 1, -1) @ p["wo"]
@@ -368,11 +374,14 @@ def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig,
     reference's ``encode_cross_kv`` repeats them."""
     dh = cfg.resolved_head_dim
     B, F = enc_out.shape[:2]
-    k = (enc_out @ p["wk"]).reshape(B, F, plan.kv_padded, dh)
-    v = (enc_out @ p["wv"]).reshape(B, F, plan.kv_padded, dh)
+    # heads by -1: a worker's TP shard holds the kv heads its slots copy
+    k = (enc_out @ p["wk"]).reshape(B, F, -1, dh)
+    v = (enc_out @ p["wv"]).reshape(B, F, -1, dh)
     if plan.kv_replication > 1:
-        k = torch.repeat_interleave(k, plan.kv_replication, dim=2)
-        v = torch.repeat_interleave(v, plan.kv_replication, dim=2)
+        slots = (p["wq"].shape[1] // dh * plan.kv_slots
+                 // plan.q_heads_padded)
+        k = torch.repeat_interleave(k, slots // k.shape[2], dim=2)
+        v = torch.repeat_interleave(v, slots // v.shape[2], dim=2)
     return k, v
 
 
@@ -380,11 +389,12 @@ def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     plan: PaddingPlan, mem_k: torch.Tensor,
                     mem_v: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); mem_k, mem_v: (B, F, kv_slots, dh).  Returns the
-    sub-layer's output (B, S, d), before the residual."""
+    sub-layer's output (B, S, d), before the residual; on a worker's TP
+    shard of the weights and its own kv slots of the memory, the
+    partial output (before the group's all-reduce)."""
     B, S, d = x.shape
     h = Lyr.rmsnorm(x, p["ln_x"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, S, plan.q_heads_padded,
-                              cfg.resolved_head_dim)
+    q = (h @ p["wq"]).reshape(B, S, -1, cfg.resolved_head_dim)
     qpos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
     kpos = torch.zeros((B, mem_k.shape[1]), dtype=torch.int32,
                        device=x.device)
@@ -942,16 +952,17 @@ def slot_pages(kind: str, cfg: ModelConfig, max_seq: int,
 
 def init_block_cache(kind: str, cfg: ModelConfig, plan: PaddingPlan,
                      batch: int, max_seq: int, page_tokens: int, *,
-                     device):
-    """The block's slot-partitioned header-centric paged cache (the
-    kernels' canonical layout): full attention holds
-    ``max_seq`` tokens per slot, a window holds ``min(max_seq, window)``
-    (a ring), page-rounded.  A recurrent block's is its fresh state
-    (``RecState``), scanned in blocks of the page size."""
+                     device, layout: str = "header_centric"):
+    """The block's slot-partitioned paged cache, stored in ``layout``
+    (default header-centric, the kernels' canonical order): full
+    attention holds ``max_seq`` tokens per slot, a window holds
+    ``min(max_seq, window)`` (a ring), page-rounded.  A recurrent
+    block's is its fresh state (``RecState``), scanned in blocks of the
+    page size."""
     check_kind(kind)
     if kind in RECURRENT_KINDS:
         return make_state_of(kind, cfg, batch, page_tokens, device=device)
     mps = slot_pages(kind, cfg, max_seq, page_tokens)
     return pp.make_state(batch * mps, plan.kv_slots, page_tokens,
                          cfg.resolved_head_dim, batch, mps, dtype_of(cfg),
-                         device=device)
+                         layout, device=device)

@@ -191,8 +191,10 @@ class CrossKV:
 
     @classmethod
     def make(cls, cfg: ModelConfig, plan: PaddingPlan, batch: int, *,
-             device) -> "CrossKV":
-        shape = (batch, cfg.encoder.num_frames, plan.kv_slots,
+             device, tp: int = 1) -> "CrossKV":
+        """Zeros for ``batch`` slots; at TP ``tp`` a worker's memory holds
+        its own kv slots, ``kv_slots / tp`` of them."""
+        shape = (batch, cfg.encoder.num_frames, plan.kv_slots // tp,
                  cfg.resolved_head_dim)
         n = len(cross_after(cfg))
 
@@ -364,11 +366,14 @@ class Model(nn.Module):
 
     # -- caches -----------------------------------------------------------
     def init_decode_caches(self, batch: int, max_seq: int,
-                           page_tokens: int = PAGE_TOKENS) -> List:
-        """One slot-partitioned header-centric cache per attention layer,
+                           page_tokens: int = PAGE_TOKENS,
+                           layout: str = "header_centric") -> List:
+        """One slot-partitioned cache per attention layer, its pool
+        stored in ``layout`` (``paged.layout``; default header-centric),
         one fresh ``RecState`` per recurrent layer."""
         return [B.init_block_cache(blk.kind, self.cfg, self.plan, batch,
-                                   max_seq, page_tokens, device=self.device)
+                                   max_seq, page_tokens, device=self.device,
+                                   layout=layout)
                 for blk in self.layers]
 
     def init_cross_cache(self, batch: int) -> Optional[CrossKV]:
@@ -553,29 +558,56 @@ def run_encoder(enc: Dict, cfg: ModelConfig, plan: PaddingPlan,
     0..F-1; the flash kernel's non-causal branch on the card, the plain
     ``chunked_attention`` in training: ``train``) and MLP, then
     ``final_ln``.  Returns (B, F, d)."""
-    x = frames.to(B.dtype_of(cfg)) @ enc["frame_proj"]
-    Bt, F = x.shape[:2]
-    positions = torch.arange(F, dtype=torch.int32,
-                             device=x.device)[None].expand(Bt, F)
+    return run_encoder_workers([enc], cfg, plan, [frames], None, 1,
+                               train)[0]
+
+
+def run_encoder_workers(encs: List[Dict], cfg: ModelConfig,
+                        plan: PaddingPlan, frames: List[Optional[torch.Tensor]],
+                        mesh, tp: int, train: bool = False
+                        ) -> List[Optional[torch.Tensor]]:
+    """``run_encoder`` over the workers of ``mesh`` at TP ``tp`` (encs:
+    each worker's encoder tree; frames: its rows, None where it holds
+    none): every worker of a TP group projects the frames
+    (``frame_proj`` replicated), runs its heads' bidirectional attention
+    and its columns of the ungated MLP (its shards of the encoder,
+    ``core.instance.shard_static``), and the group sums each sub-layer's
+    partial outputs before the residual, as the decoder's sub-layers
+    do.  Returns each worker's encoder output (R_w, F, d)."""
     eps = cfg.norm_eps
-    for p in enc["layers"]:
-        h = Lyr.rmsnorm(x, p["ln1"], eps)
+    xs = [None if f is None
+          else f.to(B.dtype_of(cfg)) @ encs[w]["frame_proj"]
+          for w, f in enumerate(frames)]
+    poss = [None if x is None
+            else torch.arange(x.shape[1], dtype=torch.int32,
+                              device=x.device)[None].expand(x.shape[:2])
+            for x in xs]
+
+    def attn(p, h, pos):
         if train:
-            x = x + B.attention_train(p["attn"], h, cfg, plan, positions,
-                                      causal=False)
-        else:
-            x = x + B.attention_seq(p["attn"], h, cfg, plan, positions,
-                                    causal=False)[0]
-        h = Lyr.rmsnorm(x, p["ln2"], eps)
-        x = x + B.apply_mlp(p["mlp"], h, cfg)
-    return Lyr.rmsnorm(x, enc["final_ln"], eps)
+            return B.attention_train(p, h, cfg, plan, pos, causal=False)
+        return B.attention_seq(p, h, cfg, plan, pos, causal=False)[0]
+
+    for i in range(len(encs[0]["layers"])):
+        ps = [e["layers"][i] for e in encs]
+        outs = [None if x is None
+                else attn(ps[w]["attn"], Lyr.rmsnorm(x, ps[w]["ln1"], eps),
+                          poss[w]) for w, x in enumerate(xs)]
+        xs = _residual(xs, outs, tp, mesh)
+        outs = [None if x is None else B.apply_mlp(
+            ps[w]["mlp"], Lyr.rmsnorm(x, ps[w]["ln2"], eps), cfg)
+            for w, x in enumerate(xs)]
+        xs = _residual(xs, outs, tp, mesh)
+    return [None if x is None else Lyr.rmsnorm(x, e["final_ln"], eps)
+            for x, e in zip(xs, encs)]
 
 
 def encode_cross_kv(cross: List[Dict], cfg: ModelConfig, plan: PaddingPlan,
                     enc_out: torch.Tensor
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Each decoder group's cross-attention keys and values from the
-    encoder's output: two lists of (B, F, kv_slots, dh)."""
+    encoder's output: two lists of (B, F, kv_slots, dh); a worker's TP
+    shards of the groups' weights give its own kv slots."""
     kv = [B.cross_kv(p, enc_out, cfg, plan) for p in cross]
     return [k for k, _ in kv], [v for _, v in kv]
 
@@ -638,6 +670,38 @@ def build(cfg: ModelConfig, plan: PaddingPlan, seed: int, *, device
 # (``blocks.attention_decode_sp`` / ``attention_chunk_sp``: partial
 # states exchanged and combined inside each sp group); a whole prompt
 # runs the flash kernel on every shard, which writes its own pages.
+
+
+def place_workers(model: "Model", mesh, lay: Layout, batch: int,
+                  max_seq: int, page_tokens: int, share: bool = True
+                  ) -> Tuple[List["I.WorkerLayer"], List[Dict],
+                             Optional[List[CrossKV]]]:
+    """``model`` (planned for the workers' padding plan, its MLP in that
+    plan's Eq. 2 layout) laid out over ``mesh``'s workers at the pure-TP
+    layout ``lay``, with empty caches of ``batch`` slots of ``max_seq``
+    tokens: ``(layers, static, cross)``, what ``walk_layers`` takes
+    (``cross``: an encoder-decoder's memory, one ``CrossKV`` a worker
+    for its replica's slots and its own kv slots, else None).  At TP1 x
+    W every worker holds a replica (``core.instance.place_replicas``;
+    ``share``: worker 0 takes the model's tensors), at TP > 1 its tp
+    position's shards (``core.instance.place_at``).  How the dry run
+    places a configuration, and how an encoder-decoder, which never
+    changes degree live, runs at TP > 1."""
+    cfg, plan = model.cfg, model.plan
+
+    def cache_of(kind, rows, dev):
+        return B.init_block_cache(kind, cfg, plan, rows, max_seq,
+                                  page_tokens, device=dev)
+
+    layers, static = I.place_replicas(
+        [b.parts() for b in model.layers], model.static(), mesh, share,
+        batch, cache_of)
+    if lay.tp > 1:
+        static = I.place_at(layers, static, lay, plan, batch, cache_of)
+    cross = None if cfg.encoder is None else [
+        CrossKV.make(cfg, plan, batch // (mesh.W // lay.tp), device=dev,
+                     tp=lay.tp) for dev in mesh.devices]
+    return layers, static, cross
 
 
 class RowSet:
@@ -725,14 +789,20 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
     issued (the transform session's hook).  ``caches``: one batch-1
     state a layer that replaces the worker's view of a one-row set (a
     spilled slot's extended view, the layers at TP1).  The MLP replicas
-    are in the Eq. 2 layout of ``plan.max_tp`` shards (an ungated MLP is
-    held whole: TP1 only).  A vision model's ``seq`` rows take their
+    are in the Eq. 2 layout of ``plan.max_tp`` shards (an ungated MLP's
+    shards are contiguous column blocks of its own layout: the
+    reference's split).  A vision model's ``seq`` rows take their
     ``patches`` (R, P, d) first; an encoder-decoder's ``seq`` rows run
-    their ``frames`` (R, F, d) through the encoder on the worker that
-    holds them, into that worker's ``cross`` memory (one ``CrossKV`` a
-    worker, of its own slots), which every group's cross-attention
-    reads; both models sit at TP1 x W.  Returns the last token's logits
-    (R, vocab_padded) on ``static_mesh``'s worker 0."""
+    their ``frames`` (R, F, d) through the encoder on the workers that
+    hold them (``run_encoder_workers``: by heads and MLP columns over
+    each TP group), into those workers' ``cross`` memory (one
+    ``CrossKV`` a worker: its replica's slots, its own kv slots), which
+    every group's cross-attention reads on each worker's heads before
+    the group's all-reduce.  An encoder-decoder's layers, encoder and
+    cross weights all sit at one pure-TP layout on the static workers
+    (``core.instance.place_at``): it never changes degree live.
+    Returns the last token's logits (R, vocab_padded) on
+    ``static_mesh``'s worker 0."""
     eps = cfg.norm_eps
     S = plan.max_tp
 
@@ -753,21 +823,24 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
     after = cross_after(cfg)
     mems: List[Optional[CrossKV]] = []
     if after:
-        # the frontend and the cross memory live with each worker's own
-        # slots: TP1 x W on the static workers
-        assert here[0].degree == 1 and all(
-            l.attn_layout.degree == 1 and l.mlp_layout.degree == 1
+        # the frontend and the cross memory live with each TP group's own
+        # slots, at the one layout of every layer, on the static workers
+        lay0 = here[0]
+        assert lay0.sp == 1 and all(
+            l.attn_layout == lay0 and l.mlp_layout == lay0
             and l.mesh.same_workers(static_mesh) for l in layers), (
-            "an encoder-decoder serves at TP1 x W")
-        mems = [rows.view_of(cross[w], here[0], static_mesh.W, w)
+            "an encoder-decoder's layers sit at one TP layout")
+        mems = [rows.view_of(cross[w], lay0, static_mesh.W, w)
                 for w in range(static_mesh.W)]
         if mode == "seq":
+            encs = run_encoder_workers(
+                [st["encoder"] for st in static], cfg, plan,
+                [None if mem is None else part(frames, lay0, static_mesh, w)
+                 for w, mem in enumerate(mems)], static_mesh, lay0.tp)
             for w, mem in enumerate(mems):
                 if mem is not None:
-                    enc = run_encoder(static[w]["encoder"], cfg, plan,
-                                      part(frames, here[0], static_mesh, w))
                     mem.write_(*encode_cross_kv(static[w]["cross"], cfg,
-                                                plan, enc))
+                                                plan, encs[w]))
     for i, layer in enumerate(layers):
         window = B._window_of(layer.kind, cfg)
         mesh = layer.mesh
@@ -825,18 +898,20 @@ def walk_layers(layers: List["I.WorkerLayer"], static: List[Dict],
                         else B.apply_padded_mlp(layer.mlp[w], h, cfg, tp, ff)
                         for w, h in enumerate(hs)]
             else:
-                # an ungated MLP, whole on every worker (TP1 x W): the
-                # padded FFN kernel is gated only, as the reference's is
-                assert layer.mlp_layout.tp == 1, layer.mlp_layout
+                # an ungated MLP: plain products over each worker's
+                # column block (the padded FFN kernel is gated only, as
+                # the reference's is)
                 outs = [None if h is None
                         else B.apply_mlp(layer.mlp[w], h, cfg)
                         for w, h in enumerate(hs)]
             xs = _residual(xs, outs, layer.mlp_layout.tp, mesh)
         if i in after:
-            xs = [x if mem is None
-                  else _cross(static[w]["cross"][after[i]], cfg, plan, x,
-                              mem, after[i])
-                  for w, (x, mem) in enumerate(zip(xs, mems))]
+            g = after[i]
+            outs = [None if mem is None
+                    else B.cross_attention(static[w]["cross"][g], x, cfg,
+                                           plan, mem.k[g], mem.v[g])
+                    for w, (x, mem) in enumerate(zip(xs, mems))]
+            xs = _residual(xs, outs, here[0].tp, mesh)
         if on_layer is not None:
             on_layer(i)
     if not here[1].same_workers(static_mesh):

@@ -30,7 +30,7 @@ positions whose page the shard holds, at its local page; the cursor
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import ClassVar, List, Sequence, Tuple
+from typing import ClassVar, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,11 +47,14 @@ class PagedState:
     seq_lens: (B,) int32 tokens written so far (global, may exceed
           capacity)
     positions: (B, capacity) int32 global position stored in each slot
+    layout: the pool's storage order (``paged.layout.LAYOUTS``); every op
+          below defaults to it
     """
     pool: torch.Tensor
     page_table: torch.Tensor
     seq_lens: torch.Tensor
     positions: torch.Tensor
+    layout: str = L.CANONICAL
 
     #: the engine's per-slot cache protocol, shared with
     #: ``paged.recurrent.RecState``: ``slot``, ``clone``, ``copy_``,
@@ -74,7 +77,8 @@ class PagedState:
     def clone(self) -> "PagedState":
         """A copy of the pool and the cursors (the page table shared)."""
         return PagedState(self.pool.clone(), self.page_table,
-                          self.seq_lens.clone(), self.positions.clone())
+                          self.seq_lens.clone(), self.positions.clone(),
+                          self.layout)
 
     def copy_(self, src: "PagedState") -> None:
         """Overwrite the pool and cursors with ``src``'s."""
@@ -120,7 +124,7 @@ def make_state(num_pages: int, kv_slots: int, page_tokens: int,
     pos = torch.full((batch, max_pages_per_seq * page_tokens), -1,
                      dtype=torch.int32, device=device)
     seq = torch.zeros((batch,), dtype=torch.int32, device=device)
-    return PagedState(pool, pt, seq, pos)
+    return PagedState(pool, pt, seq, pos, storage_layout)
 
 
 def canonical(pool: torch.Tensor, storage_layout: str) -> torch.Tensor:
@@ -132,23 +136,40 @@ def from_canonical(pool_c: torch.Tensor, storage_layout: str
     return L.to_layout(pool_c, L.CANONICAL, storage_layout)
 
 
+def kernel_pool(state: PagedState) -> torch.Tensor:
+    """The pool in the kernels' canonical order, contiguous: the pool
+    itself when it is stored header-centric (no copy), else a copy
+    (``commit_kernel_pool`` writes a kernel's in-place changes back)."""
+    if state.layout == L.CANONICAL:
+        return state.pool
+    return canonical(state.pool, state.layout).contiguous()
+
+
+def commit_kernel_pool(state: PagedState, pool_c: torch.Tensor) -> None:
+    """Write ``kernel_pool``'s copy back in the storage order (nothing
+    to do when it is the pool itself)."""
+    if pool_c is not state.pool:
+        state.pool.copy_(from_canonical(pool_c, state.layout))
+
+
 def slot_view(state: PagedState, slot: int,
-              storage_layout: str = L.CANONICAL) -> PagedState:
+              storage_layout: Optional[str] = None) -> PagedState:
     """Batch-1 view of ``slot`` in a slot-partitioned state: the slot's
     own page range, a fresh identity page table, and ``seq_lens`` /
     ``positions`` rows that alias the engine's.  Writes through the view
     land in ``state`` (the reference extracts a copy and adopts it back;
     the bytes end up the same)."""
+    lay = storage_layout or state.layout
     mps = state.page_table.shape[-1]
-    pool = state.pool.narrow(L.block_axis(storage_layout), slot * mps, mps)
+    pool = state.pool.narrow(L.block_axis(lay), slot * mps, mps)
     pt = torch.arange(mps, dtype=state.page_table.dtype,
                       device=state.page_table.device)[None, :]
     return PagedState(pool, pt, state.seq_lens[slot:slot + 1],
-                      state.positions[slot:slot + 1])
+                      state.positions[slot:slot + 1], lay)
 
 
 def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
-                  storage_layout: str = L.CANONICAL,
+                  storage_layout: Optional[str] = None,
                   shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Write a full prompt's K/V. k, v: (B, S, kv_slots, head_dim).
 
@@ -156,7 +177,7 @@ def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
     prompt).  For ring caches (capacity < S) only the trailing
     ``capacity`` tokens are kept.  On an sp shard, the shard's slots of
     the row's global ring."""
-    pool_c = canonical(state.pool, storage_layout)
+    pool_c = canonical(state.pool, storage_layout or state.layout)
     NP, kvs, _, P, dh = pool_c.shape
     B, S = k.shape[:2]
     s, sp = shard
@@ -195,7 +216,7 @@ def write_prefill(state: PagedState, k: torch.Tensor, v: torch.Tensor,
 
 def write_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
                 positions: torch.Tensor,
-                storage_layout: str = L.CANONICAL,
+                storage_layout: Optional[str] = None,
                 identity_pages: bool = False,
                 shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Write one prefill CHUNK — a contiguous run of prompt tokens
@@ -209,7 +230,7 @@ def write_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
 
 def scatter_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor,
-                  storage_layout: str = L.CANONICAL,
+                  storage_layout: Optional[str] = None,
                   identity_pages: bool = False,
                   shard: Tuple[int, int] = (0, 1)) -> None:
     """Pool half of ``write_chunk``: the chunk's K/V bytes only (on an
@@ -218,7 +239,7 @@ def scatter_chunk(state: PagedState, k: torch.Tensor, v: torch.Tensor,
     A padding token (position < 0) keeps the old bytes, as the CUDA
     chunk scatter does; the reference would write it into ring slot
     ``capacity - 1``.  Chunks the engine builds hold no padding."""
-    pool_c = canonical(state.pool, storage_layout)
+    pool_c = canonical(state.pool, storage_layout or state.layout)
     P = pool_c.shape[3]
     B, S = positions.shape
     s, sp = shard
@@ -265,14 +286,14 @@ def adopt_chunk_pool(state: PagedState, positions: torch.Tensor,
 
 
 def append_token(state: PagedState, k: torch.Tensor, v: torch.Tensor,
-                 storage_layout: str = L.CANONICAL,
+                 storage_layout: Optional[str] = None,
                  shard: Tuple[int, int] = (0, 1)) -> PagedState:
     """Append one token per sequence at its ``seq_lens`` cursor.
     k, v: (B, kv_slots, head_dim).  On an sp shard only the rows whose
     cursor lies in the shard's pages write (the others rewrite a slot of
     their own row with the bytes it holds: no host sync), and every
     row's cursor advances."""
-    pool_c = canonical(state.pool, storage_layout)
+    pool_c = canonical(state.pool, storage_layout or state.layout)
     P = pool_c.shape[3]
     B = k.shape[0]
     pos = state.seq_lens.long()                       # (B,) global position
@@ -301,7 +322,7 @@ def append_token(state: PagedState, k: torch.Tensor, v: torch.Tensor,
 
 
 def concat_spilled(states: Sequence[PagedState],
-                   storage_layout: str = L.CANONICAL) -> PagedState:
+                   storage_layout: Optional[str] = None) -> PagedState:
     """Distributed-pool READ view (the reference's ``concat_spilled``):
     stitch a batch-1 slot state together from its local pages and the
     overflow page segments hosted in neighbour pools, as one
@@ -315,18 +336,19 @@ def concat_spilled(states: Sequence[PagedState],
     decode and chunk-prefill kernels run on it unchanged.  The result
     is a copy: nothing of it aliases a part."""
     head = states[0]
+    lay = storage_layout or head.layout
     dev = head.pool.device
     pool = torch.cat([s.pool.to(dev) for s in states],
-                     dim=L.block_axis(storage_layout))
+                     dim=L.block_axis(lay))
     mps = sum(int(s.page_table.shape[-1]) for s in states)
     pt = torch.arange(mps, dtype=head.page_table.dtype, device=dev).expand(
         *head.page_table.shape[:-1], mps).contiguous()
     pos = torch.cat([s.positions.to(dev) for s in states], dim=-1)
-    return PagedState(pool, pt, head.seq_lens.clone(), pos)
+    return PagedState(pool, pt, head.seq_lens.clone(), pos, lay)
 
 
 def split_spilled(state: PagedState, page_counts: Sequence[int],
-                  storage_layout: str = L.CANONICAL) -> List[PagedState]:
+                  storage_layout: Optional[str] = None) -> List[PagedState]:
     """Inverse of ``concat_spilled``: cut the extended state back into
     its local and host segments (``page_counts`` pages each, summing to
     the state's page count).  Each part is a self-contained batch-1
@@ -338,7 +360,8 @@ def split_spilled(state: PagedState, page_counts: Sequence[int],
     assert total == int(state.page_table.shape[-1]), (
         page_counts, tuple(state.page_table.shape))
     P = state.positions.shape[-1] // total
-    axis = L.block_axis(storage_layout)
+    lay = storage_layout or state.layout
+    axis = L.block_axis(lay)
     out: List[PagedState] = []
     page0 = 0
     for i, n in enumerate(page_counts):
@@ -349,17 +372,17 @@ def split_spilled(state: PagedState, page_counts: Sequence[int],
         pos = state.positions.narrow(-1, page0 * P, n * P)
         seq = (state.seq_lens if i == 0
                else torch.zeros_like(state.seq_lens))
-        out.append(PagedState(pool, pt, seq, pos))
+        out.append(PagedState(pool, pt, seq, pos, lay))
         page0 += n
     return out
 
 
-def gather_kv(state: PagedState, storage_layout: str = L.CANONICAL
+def gather_kv(state: PagedState, storage_layout: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
     """Materialize (k, v, kv_positions, valid) for attention — the dense
     plain path.  k, v: (B, capacity, kv_slots, dh)."""
-    pool_c = canonical(state.pool, storage_layout)
+    pool_c = canonical(state.pool, storage_layout or state.layout)
     NP, kvs, _, P, dh = pool_c.shape
     B, n = state.page_table.shape
     pages = pool_c[state.page_table.long()]           # (B, n, kvs, 2, P, dh)

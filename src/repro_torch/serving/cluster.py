@@ -96,7 +96,10 @@ class ClusterEngine:
     first engine's first worker takes the model's tensors; every other
     worker copies engine 0's replica, and a revived donor copies the
     split engine's (weights are identical cluster-wide), so the cluster
-    keeps no extra copy of the weights."""
+    keeps no extra copy of the weights.  ``transform_attn=False`` reaches
+    every engine (the reference's faithful mode: attention replicas stay
+    whole, a merge copies a whole one to each adopted worker and a split
+    returns its loans without gathering any)."""
 
     def __init__(self, cfg: ModelConfig, devices: Sequence,
                  n_instances: int = 2, max_batch: int = 2,
@@ -104,7 +107,7 @@ class ClusterEngine:
                  scheduler: Optional[BaseScheduler] = None, seed: int = 0,
                  params: Optional[M.Model] = None, dwell_steps: int = 8,
                  prefill_policy: Optional[PrefillPolicy] = None,
-                 clock=None):
+                 clock=None, transform_attn: bool = True):
         if n_instances < 1 or len(devices) < n_instances:
             raise ValueError(f"{n_instances} instances need at least "
                              f"{n_instances} of {len(devices)} devices")
@@ -130,7 +133,8 @@ class ClusterEngine:
                 max_batch=max_batch, max_seq=max_seq,
                 page_tokens=page_tokens,
                 devices=workers[k * W:(k + 1) * W], iid=k, plan=self.plan,
-                prefill_policy=self.prefill_policy, clock=self._clock))
+                prefill_policy=self.prefill_policy, clock=self._clock,
+                transform_attn=transform_attn))
         del params
         if scheduler is None:
             scheduler = GygesScheduler(SchedulerConfig(

@@ -97,6 +97,12 @@ degree live, moves a slot to another engine or spills: the reference's
 per-layer paths refuse them (``live_change_refusal``), and so does
 ``transform`` (and the cluster's merge and spill).
 
+The reference's other serving modes: ``transform_attn=False`` keeps
+every attention replica whole on each worker at every degree (the
+paper's placement: only the MLP and the KV move), and
+``layout="page_friendly"`` or ``"raw"`` stores a one-device engine's
+pools token-first (each attention kernel runs on a canonical copy).
+
 ``Engine(cfg)`` runs on the card.  Without a GPU it raises unless the
 caller asks for ``device="cpu"`` (or ``devices=["cpu"] * W``), where
 every kernel call runs its plain PyTorch version.
@@ -124,6 +130,7 @@ from repro_torch.models import model as M
 from repro_torch.models.blocks import (ATTENTION_KINDS, init_block_cache,
                                       slot_pages)
 from repro_torch.paged import pool as pp
+from repro_torch.paged.layout import CANONICAL, LAYOUTS
 from repro_torch.paged.recurrent import RecState
 from repro_torch.serving.request import ServeRequest, State
 
@@ -147,11 +154,24 @@ class Engine:
                  prefill_policy: Optional[PrefillPolicy] = None,
                  device=None, devices: Optional[List] = None,
                  iid: Optional[int] = None,
-                 plan: Optional[PaddingPlan] = None, clock=None):
+                 plan: Optional[PaddingPlan] = None, clock=None,
+                 layout: str = "header_centric",
+                 transform_attn: bool = True):
         """``params`` is a ``Model`` (or, for a cluster's engines, another
         engine at TP1 whose replica is copied); without one the engine
-        builds random weights from ``seed``.  The KV pools are
-        header-centric (the kernels' canonical layout).
+        builds random weights from ``seed``.
+
+        ``layout`` is the KV pools' storage order (``paged.layout``, the
+        paper's Table 2): ``header_centric`` (the kernels' canonical
+        order), or on one device ``page_friendly`` or ``raw``, whose
+        pools each attention call copies into the canonical order
+        around its kernel (``models.blocks``).  An engine with workers
+        refuses a token-first layout, as the reference's does.
+        ``transform_attn=False`` keeps every attention replica whole on
+        every worker at each degree (the reference's faithful mode, the
+        paper's own placement: ``core.instance``): a transform moves the
+        MLP and the KV only, and copies attention weights only to a
+        merge's adopted workers.
 
         One device (``devices=None``): ``params`` lives on ``device``.
         W workers (``devices=[...]``: devices, or ``launch.mesh.Worker``
@@ -167,6 +187,14 @@ class Engine:
         cluster passes its own, a replay a ``core.events.VirtualClock``).
         Transform measurements stay on the wall clock."""
         self.cfg = cfg
+        self.layout = layout
+        self.transform_attn = transform_attn
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown KV layout {layout!r}: one of "
+                             f"{sorted(LAYOUTS)}")
+        if devices is not None and layout != CANONICAL:
+            raise ValueError(f"layout {layout!r}: mesh placement shards "
+                             "the canonical header-centric pool")
         self._clock = clock if clock is not None else time.monotonic
         self.iid = iid if iid is not None else next(Engine._ids)
         self.max_batch = max_batch
@@ -208,7 +236,7 @@ class Engine:
                                  f"engine on {self.device}")
             self.model = params
             self.caches: List[pp.PagedState] = self.model.init_decode_caches(
-                max_batch, max_seq, page_tokens)
+                max_batch, max_seq, page_tokens, layout=layout)
             self.cross = self.model.init_cross_cache(max_batch)
         else:
             if device is not None:
@@ -290,7 +318,8 @@ class Engine:
             blocks, static, self.mesh, share, self.max_batch,
             lambda kind, rows, dev: init_block_cache(
                 kind, self.cfg, self.plan, rows, self.max_seq_alloc,
-                self.page_tokens, device=dev))
+                self.page_tokens, device=dev),
+            whole_attn=not self.transform_attn)
         # an encoder-decoder's cross memory: each worker's own slots
         self.cross = None if self.cfg.encoder is None else [
             M.CrossKV.make(self.cfg, self.plan, self.max_batch // self.W,
@@ -780,7 +809,7 @@ class Engine:
         src, dst = self.mesh, InstanceMesh(target, lay)
         moved = 0
         for layer in self.layers:
-            moved += I.move_attn(layer, dst, lay, self.plan)
+            moved += I.move_attn(layer, dst, lay, self.plan)[0]
             I.move_mlp(layer, dst, lay, self.plan.max_tp)
             layer.ln1 = I.replicas_across(layer.ln1, src, dst)
             layer.ln2 = I.replicas_across(layer.ln2, src, dst)
@@ -827,6 +856,11 @@ class Engine:
             # weights copied to workers that held none
             "kv_bytes": sum(r.kv_bytes for r in reps),
             "weight_bytes": sum(r.weight_bytes for r in reps),
+            # attention weights written into new tensors, and those
+            # gathered from other workers (0 and 0 kept whole in place)
+            "attn_copied_bytes": sum(r.attn_copied_bytes for r in reps),
+            "attn_gathered_bytes": sum(r.attn_gathered_bytes
+                                       for r in reps),
         })
         self._session_cross = False
         if self._pending_devices is not None:

@@ -13,9 +13,9 @@ pattern (``--variant 1``):
 * ``banded=True`` gives a train shape's windowed layer fewer FLOPs and
   the same exchanges; a MoE train record under global routing carries
   ``moe_expert_flops_factor``, one under the dispatch hints does not;
-* a combination the port does not serve (whisper's kv heads over
-  ``model``) is recorded as skipped with its reason, as whisper's
-  ``long_500k`` is;
+* the reference's own skip (whisper's ``long_500k``) is recorded with
+  its reason, and whisper with its kv heads over ``model`` runs, its
+  all-reduces tallied;
 * 4 x (TP1) -> TP4 through the port's live transform on meta: 0 weight
   bytes between workers, and pool all-to-all bytes of (k-1)/k of its
   pages;
@@ -180,7 +180,13 @@ def test_skips_are_recorded(small, tmp_path, monkeypatch):
     small("decode_32k", 512, 8)
     rec = DR.run_one("whisper-tiny", "decode_32k", False, variant=1,
                      mesh_shape=(2, 4))
-    assert rec["skipped"] and "TP1" in rec["reason"]
+    # whisper's kv heads over model run: TP4 in two groups of four, and
+    # one decoder layer's self-attention, MLP and cross-attention each
+    # end in an all-reduce of its group's 4 rows (bf16, d_model wide)
+    assert not rec.get("skipped") and rec["layout"] == "TP4"
+    d = get_config("whisper-tiny").d_model
+    assert rec["collectives"]["count"] == 3 * 2
+    assert rec["collectives"]["all-reduce"] == 3 * 2 * (2 * 3 * 4 * d * 2)
     saved = {p.name: json.loads(p.read_text()) for p in tmp_path.iterdir()}
     assert saved["whisper-tiny_decode_32k_pod1_v1_mesh2x4.json"] == rec
     assert len(saved) == 2
