@@ -18,10 +18,7 @@ actions, placements, streams and metric keys to a file.  Actions,
 placements and greedy streams must be EQUAL.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -44,20 +41,11 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.metrics import METRIC_KEYS
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 CASES = {"2x2": 4, "2x1": 2}       # instances x workers: pool width
 KW = dict(n_instances=2, max_batch=4, max_seq=64, page_tokens=16,
           dwell_steps=4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The port's side runs many tiny ops: on one thread they do not wait
-    on a pool that the suite's other workers crowd out."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _trace():
@@ -118,21 +106,13 @@ JAX_SCRIPT = """
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax")
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"trace": _trace(), "kw": KW,
                                           "post": POST}
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-c", body, str(tmp / name), str(ndev)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for name, ndev in CASES.items()}
+    refs = {name: start(body, tmp / name, ndev, devices=4, timeout=300)
+            for name, ndev in CASES.items()}
     out = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err[-4000:]
+    for name, ref in refs.items():
+        ref.wait()
         with open(tmp / name, "rb") as f:
             out[name] = pickle.load(f)
     return out

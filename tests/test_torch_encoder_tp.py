@@ -49,16 +49,6 @@ PAGE = 8
 CASES = ((2, 1), (2, 2), (4, 1), (4, 4))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The port's side runs many tiny ops: on one thread they do not wait
-    on a pool that the suite's other workers crowd out."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def setup():
     cfg = dataclasses.replace(jget("whisper-tiny").reduced(), dtype="float32")

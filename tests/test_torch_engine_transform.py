@@ -10,10 +10,7 @@ main pytest process must keep seeing one); it writes its weights and
 greedy streams to a file the port reads.  Streams must be EQUAL.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import pytest
@@ -27,7 +24,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import run
+
 D_FFS = (512, 448)
 KW = dict(max_batch=2, max_seq=64, page_tokens=16)
 
@@ -84,16 +82,8 @@ JAX_SCRIPT = """
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax") / "streams.pkl"
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"))
     body = textwrap.dedent(JAX_SCRIPT) % {"d_ffs": D_FFS, "kw": KW}
-    out = subprocess.run([sys.executable, "-c", body, str(path)],
-                         capture_output=True, text=True, env=env,
-                         timeout=600)
-    assert out.returncode == 0, out.stderr[-4000:]
+    run(body, path, devices=8, timeout=200)
     with open(path, "rb") as f:
         return pickle.load(f)
 

@@ -157,16 +157,7 @@ def test_clock_and_pressure_equal_reference():
     assert vals[0] == vals[1]
 
 
-@pytest.fixture
-def one_thread():
-    """Tiny ops on one thread: no pool for the suite's workers to crowd."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_live_replay_plane_serves_a_trace_on_virtual_time(one_thread):
+def test_live_replay_plane_serves_a_trace_on_virtual_time():
     from repro_torch.configs import get_config
     from repro_torch.serving.cluster import ClusterEngine, LiveReplayPlane
 

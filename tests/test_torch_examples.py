@@ -4,12 +4,11 @@ live TP change keeps every stream equal to an untransformed engine's,
 the cluster merges and splits with no stall, and the training driver
 lowers the loss and writes a checkpoint (each script asserts its own
 claims and exits non-zero otherwise)."""
-import os
 import pathlib
-import subprocess
-import sys
 
 import pytest
+
+from _jaxref import start
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -25,18 +24,17 @@ RUNS = {
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     ck = tmp_path_factory.mktemp("ck")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="2")
     procs = {}
     for name, (args, _) in RUNS.items():
         extra = ["--ckpt", str(ck)] if name == "torch_train_driver" else []
-        procs[name] = subprocess.Popen(
-            [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+        procs[name] = start(
+            [str(ROOT / "examples" / f"{name}.py"),
              "--device", "cpu", *args, *extra],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env, cwd=ROOT)
-    out = {name: (p.communicate(timeout=300)[0], p.returncode)
-           for name, p in procs.items()}
+            threads=2, cwd=ROOT, timeout=80)
+    out = {}
+    for name, p in procs.items():
+        rc, stdout, stderr = p.wait(check=False)
+        out[name] = (stdout + stderr, rc)
     return out, ck
 
 

@@ -30,10 +30,7 @@ heads) keeps every replica in place through TP2 and tracks an
 untransformed group's logits within the reference test's 3e-2.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -50,17 +47,7 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The port's side runs many tiny ops: on one thread they do not wait
-    on a pool that the suite's other workers crowd out."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _jaxref import QUICK_COMPILES, start
 
 
 def _short(n, new):
@@ -90,11 +77,6 @@ PLANS = {
 }
 CLUSTER_KW = dict(n_instances=2, max_batch=4, max_seq=64, page_tokens=16,
                   dwell_steps=4)
-
-#: XLA's quicker CPU compiles: the reference's runs are compile-bound
-#: (each session step compiles its layer walk)
-FAST = ("--xla_backend_optimization_level=0 "
-        "--xla_llvm_disable_expensive_passes=true")
 
 #: the reference's runs: a subprocess runs its engine plans, or the
 #: cluster
@@ -174,24 +156,20 @@ def _trace():
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax")
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu")
     w2 = {k: v for k, v in PLANS.items() if v["W"] == 2}
     runs = {"w2": (w2, False, 2), "w4": ({"w4": PLANS["w4"]}, False, 4),
             "cluster": ({}, True, 2)}
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(SCRIPT % {
+    # the reference's runs are compile-bound (each session step compiles
+    # its layer walk)
+    refs = {name: start(
+        textwrap.dedent(SCRIPT % {
             "plans": plans, "cluster": cluster, "trace": _trace(),
-            "kw": CLUSTER_KW}), str(tmp / name)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(env, XLA_FLAGS=f"--xla_force_host_platform_device_count="
-                                f"{ndev} --xla_cpu_collective_call_"
-                                "terminate_timeout_seconds=600 " + FAST))
+            "kw": CLUSTER_KW}), tmp / name, devices=ndev, timeout=250,
+        xla_flags=QUICK_COMPILES)
         for name, (plans, cluster, ndev) in runs.items()}
     out = {"params": {}}
-    for name, proc in procs.items():
-        _, err = proc.communicate(timeout=900)
-        assert proc.returncode == 0, err[-4000:]
+    for name, ref in refs.items():
+        ref.wait()
         with open(tmp / name, "rb") as f:
             got = pickle.load(f)
         out["params"].update(got.pop("params"))

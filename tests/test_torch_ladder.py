@@ -19,10 +19,7 @@ break; and a same-degree move onto one worker and back, mid-chunked-
 prefill, leaves the streams of an engine that never moved.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import pytest
@@ -39,7 +36,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 KW = dict(max_batch=4, max_seq=64, page_tokens=16)
 CYCLE = (2, 4, 1, 2)
 LENS = (6, 9, 5, 7)          # prompt + 8 new tokens <= 16: TP1 holds each
@@ -85,39 +83,22 @@ def _start_reference(reference):
     """Start the JAX run before the first test of the module."""
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The JAX run, started when the module's first test starts (the
     port-only tests run while it works) and waited for on first use."""
     path = tmp_path_factory.mktemp("jax") / "ladder.pkl"
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"))
     body = textwrap.dedent(JAX_SCRIPT) % {"kw": KW, "lens": LENS,
                                           "cycle": CYCLE}
-    proc = subprocess.Popen([sys.executable, "-c", body, str(path)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
+    ref = start(body, path, devices=8, timeout=300)
 
     def wait():
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err[-4000:]
+        ref.wait()
         with open(path, "rb") as f:
             return pickle.load(f)
 
     yield wait
-    if proc.poll() is None:
-        proc.kill()
+    ref.close()
 
 
 def _cfg():

@@ -45,10 +45,7 @@ The JAX runs start in two subprocesses (one device; 4 fake host
 devices for the ``--mesh`` step) with the module's first test.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -69,7 +66,7 @@ from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import sharded as TS
 from repro_torch.training import train_step as TT
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
 
 TOL = 1e-5
 OPT_TOL = 1e-6
@@ -184,45 +181,26 @@ def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax")
     body = textwrap.dedent(SCRIPT) % dict(families=FAMILIES, cut=CUT, B=B,
                                           S=S, lr=LR)
-    procs = {}
-    for part, ndev in (("families", 1), ("mesh", 4)):
-        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-                   JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=f"--xla_force_host_platform_device_count="
-                             f"{ndev} --xla_cpu_collective_call_"
-                             f"terminate_timeout_seconds=600")
-        procs[part] = subprocess.Popen(
-            [sys.executable, "-c", body, str(tmp / part), part],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env)
+    refs = {part: start(body, tmp / part, part, devices=ndev, timeout=210)
+            for part, ndev in (("families", 1), ("mesh", 4))}
     box = {}
 
     def wait():
         if not box:
-            for part, proc in procs.items():
-                _, err = proc.communicate(timeout=900)
-                assert proc.returncode == 0, err[-4000:]
+            for part, ref in refs.items():
+                ref.wait()
                 with open(tmp / part, "rb") as f:
                     box.update(pickle.load(f))
         return box
 
     yield wait
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
+    for ref in refs.values():
+        ref.close()
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _start_reference(reference):
     """Start the JAX runs before the first test of the module."""
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(name, **moe):

@@ -33,10 +33,7 @@ init_params`` carried over by ``params_from_jax``.
   the module).
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -65,7 +62,8 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine as TEngine
 from repro_torch.serving.request import ServeRequest as TReq
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 TOL = 1e-4        # whole-model logits (the frameworks sum in other orders)
 TOL_MLP = 1e-5    # one MoE MLP's output
 MODELS = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b")
@@ -185,14 +183,6 @@ def oracle(mlp, x, topv, topi, keep, cap, pos, overwrite=False):
 @pytest.fixture(scope="module", autouse=True)
 def _start_reference(cluster_reference):
     """Start the JAX cluster before the first test of the module."""
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -566,26 +556,17 @@ def cluster_reference(tmp_path_factory):
     """The JAX cluster, started when the module's first test starts and
     waited for on first use."""
     path = tmp_path_factory.mktemp("jax") / "moe_cluster.pkl"
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=2 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"name": GRANITE, "trace": _trace(),
                                           "kw": KW}
-    proc = subprocess.Popen([sys.executable, "-c", body, str(path)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
+    ref = start(body, path, devices=2, timeout=300)
 
     def wait():
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err[-4000:]
+        ref.wait()
         with open(path, "rb") as f:
             return pickle.load(f)
 
     yield wait
-    if proc.poll() is None:
-        proc.kill()
+    ref.close()
 
 
 def test_cluster_merge_and_split_equal_reference(cluster_reference):

@@ -25,10 +25,7 @@ plane writes decode filler over spilled KV (ROADMAP queue 3), so:
   devices, started when the module's first test starts.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -52,7 +49,8 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 NAME = "granite-moe-3b-a800m"
 KW = dict(n_instances=2, max_batch=4, max_seq=64, page_tokens=16,
           dwell_steps=4)
@@ -112,32 +110,20 @@ def _reference(tmp_path_factory):
     """The JAX cluster, started with the module's first test; tests that
     need it wait for it."""
     path = tmp_path_factory.mktemp("jax") / "moe_spill.pkl"
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=2 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"name": NAME, "trace": _trace(),
                                           "kw": KW, "sched": SCHED}
-    proc = subprocess.Popen([sys.executable, "-c", body, str(path)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
+    ref = start(body, path, devices=2, timeout=120)
     result = {}
 
     def wait():
         if not result:
-            _, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, err[-4000:]
+            ref.wait()
             with open(path, "rb") as f:
                 result.update(pickle.load(f))
         return result
 
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     yield wait
-    torch.set_num_threads(n)
-    if proc.poll() is None:
-        proc.kill()
+    ref.close()
 
 
 @pytest.fixture(scope="module")

@@ -15,10 +15,7 @@ split returns every loan, and the streams equal each request served
 alone by a static engine.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -35,7 +32,8 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 Q = 16
 KW = dict(n_instances=4, max_batch=2, max_seq=2 * Q, dwell_steps=4)
 LENS = [(0, 12), (1, 12), (2, 12), (3, 12), (9, 40)]
@@ -107,38 +105,21 @@ def reference(tmp_path_factory):
     """Both JAX runs, started together when the module's first test
     starts; ``reference(case)`` waits for one."""
     tmp = tmp_path_factory.mktemp("jax")
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"Q": Q, "kw": KW, "lens": LENS}
-    procs = {c: subprocess.Popen(
-        [sys.executable, "-c", body, str(tmp / c), c],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for c in CASES}
+    refs = {c: start(body, tmp / c, c, devices=8, timeout=220)
+            for c in CASES}
     got = {}
 
     def wait(case):
         if case not in got:
-            _, err = procs[case].communicate(timeout=600)
-            assert procs[case].returncode == 0, err[-4000:]
+            refs[case].wait()
             with open(tmp / case, "rb") as f:
                 got[case] = pickle.load(f)
         return got[case]
 
     yield wait
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    for ref in refs.values():
+        ref.close()
 
 
 def _cfg():

@@ -16,10 +16,7 @@ after a TP1 -> TPW -> TP1 cycle with no decode between its steps are
 bit-equal to the pools before it.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import pytest
@@ -34,7 +31,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 CASES = {"llama3-8b": 8, "gemma-2b": 4}
 
 JAX_SCRIPT = """
@@ -74,48 +72,27 @@ JAX_SCRIPT = """
 def reference(tmp_path_factory):
     """Both JAX runs, started together when the module's first test
     starts; ``reference(name)`` waits for one."""
-    # XLA's CPU collectives abort the process (SIGABRT) when one of the 8
-    # device threads reaches an all-reduce more than 40 s (its default)
-    # after the others, which a machine loaded by the rest of the suite
-    # can cause; the rendezvous waits as long as ``communicate`` does
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"))
     body = textwrap.dedent(JAX_SCRIPT)
     procs = {}
     for name, W in CASES.items():
         path = tmp_path_factory.mktemp("jax") / f"{name}.pkl"
-        procs[name] = (path, subprocess.Popen(
-            [sys.executable, "-c", body, str(path), name, str(W)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env))
+        procs[name] = (path, start(body, path, name, W, devices=8,
+                                   timeout=240))
 
     def wait(name):
-        path, proc = procs[name]
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err[-4000:]
+        path, ref = procs[name]
+        ref.wait()
         with open(path, "rb") as f:
             return pickle.load(f)
 
     yield wait
-    for _, proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
+    for _, ref in procs.values():
+        ref.close()
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _start_reference(reference):
     """Start the JAX runs before the first test of the module."""
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(name):

@@ -29,10 +29,7 @@ the reference's ``init_params`` through ``params_from_jax``.
   filler: without the restore, the stream departs.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -63,7 +60,8 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import QUICK_COMPILES, start
+
 TOL = 1e-4          # whole-model logits (the frameworks sum in other orders)
 TOL_LAYER = 1e-5    # one layer's output
 NAME = "recurrentgemma-9b"
@@ -191,31 +189,22 @@ CLUSTER_SCRIPT = COMMON + """
 
 def _start(tmp_path_factory, name, script, **fill):
     path = tmp_path_factory.mktemp("jax") / f"{name}.pkl"
-    # the reference engines run most ops eagerly, each a small XLA
-    # compile: unoptimised compiles halve their time
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=2 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600 "
-                         "--xla_backend_optimization_level=0 "
-                         "--xla_llvm_disable_expensive_passes=true",
-               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(script) % dict(name=NAME, pattern=PATTERN,
                                           budget=BUDGET, **fill)
-    proc = subprocess.Popen([sys.executable, "-c", body, str(path)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
+    # the reference engines run most ops eagerly, each a small XLA
+    # compile: unoptimised compiles halve their time
+    ref = start(body, path, devices=2, timeout=300,
+                xla_flags=QUICK_COMPILES)
     result = {}
 
     def wait():
         if not result:
-            _, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, err[-4000:]
+            ref.wait()
             with open(path, "rb") as f:
                 result.update(pickle.load(f))
         return result
 
-    return proc, wait
+    return ref, wait
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -232,13 +221,9 @@ def _references(tmp_path_factory):
                           trace=_cluster_trace(), ckw=CKW,
                           layers=CLUSTER_LAYERS),
     }
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     yield {k: wait for k, (_, wait) in procs.items()}
-    torch.set_num_threads(n)
-    for proc, _ in procs.values():
-        if proc.poll() is None:
-            proc.kill()
+    for ref, _ in procs.values():
+        ref.close()
 
 
 @pytest.fixture(scope="module")

@@ -18,13 +18,10 @@ patches from ``--seed``: the reference's engine cannot serve whisper
 They serve every request at TP1, and a trace with long requests, which
 would make the scheduler transform them, is refused at start.
 """
-import os
-import subprocess
-import sys
-
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 ARGS = ["--requests", "6", "--long-every", "3", "--gen-tokens", "4"]
 SCHEDULERS = ("gyges",)
 ARCHS = ("llama3-8b", "granite-moe-3b-a800m")
@@ -35,29 +32,17 @@ IDS = [s if a == ARCHS[0] else f"{s}-{a}" for s, a in CASES]
 
 @pytest.fixture(scope="module")
 def outputs():
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600")
     procs = {}
     for s, arch in CASES:
         args = ARGS + ["--scheduler", s, "--arch", arch]
-        procs[("reference", s, arch)] = subprocess.Popen(
-            [sys.executable, "-m", "repro.launch.serve", *args],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env)
-        # one torch thread: its many tiny ops would otherwise wait on a
-        # pool the suite's other workers crowd out
-        procs[("port", s, arch)] = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.serve", *args,
-             "--device", "cpu", "--workers", "4"],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=dict(env, OMP_NUM_THREADS="1"))
+        procs[("reference", s, arch)] = start(
+            ["-m", "repro.launch.serve", *args], devices=4, timeout=220)
+        procs[("port", s, arch)] = start(
+            ["-m", "repro_torch.launch.serve", *args,
+             "--device", "cpu", "--workers", "4"], timeout=60)
     out = {}
     for key, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=600)
-        assert proc.returncode == 0, (key, stderr[-4000:])
+        stdout = proc.wait()
         out[key] = [l for l in stdout.splitlines() if l.startswith("[serve]")]
     return out
 
@@ -88,20 +73,12 @@ FRONTEND_ARGS = ["--device", "cpu", "--workers", "2", "--instances", "1",
 
 @pytest.fixture(scope="module")
 def frontend_outputs():
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               OMP_NUM_THREADS="1")
     runs = {a: FRONTEND_ARGS + ["--arch", a] for a in FRONTEND_ARCHS}
     # the default trace has long requests: refused for these models
     runs["refused"] = ["--device", "cpu", "--arch", FRONTEND_ARCHS[0]]
-    procs = {k: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for k, args in runs.items()}
-    out = {}
-    for k, p in procs.items():
-        stdout, stderr = p.communicate(timeout=300)
-        out[k] = (p.returncode, stdout, stderr)
-    return out
+    procs = {k: start(["-m", "repro_torch.launch.serve", *args], timeout=60)
+             for k, args in runs.items()}
+    return {k: p.wait(check=False) for k, p in procs.items()}
 
 
 @pytest.mark.parametrize("arch", FRONTEND_ARCHS)

@@ -16,10 +16,7 @@ hints and the grid's exchanges against the JAX reference (CPU).
 * The counterparts of ``tests/test_sharding.py``'s
   ``test_shardhints_scoping`` and ``test_long_context_variant``.
 """
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -43,7 +40,7 @@ from repro_torch.launch.mesh import (Grid, batch_axes, data_axis_size,
 from repro_torch.models import shardhints
 from repro_torch.models.convert import params_from_jax
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
 
 SHARDS_SCRIPT = r'''
 import pickle, sys
@@ -77,25 +74,19 @@ with open(sys.argv[1], "wb") as f:
 @pytest.fixture(scope="module")
 def reference_shards(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax") / "shards.pkl"
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(SHARDS_SCRIPT), str(path)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    ref = start(textwrap.dedent(SHARDS_SCRIPT), path, devices=4,
+                timeout=80)
     box = {}
 
     def wait():
         if not box:
-            _, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, err[-4000:]
+            ref.wait()
             with open(path, "rb") as f:
                 box.update(pickle.load(f))
         return box
 
     yield wait
-    if proc.poll() is None:
-        proc.kill()
+    ref.close()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -60,14 +60,6 @@ def _fresh_sim_ids():
     SimInstance._ids = itertools.count()
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _cfg():
     return dataclasses.replace(get_config("llama3-8b").reduced(),
                                dtype="float32")

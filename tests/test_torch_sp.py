@@ -30,10 +30,7 @@ with 2) start together in subprocesses of their own when the module's
 first test starts.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import jax.numpy as jnp
@@ -62,7 +59,8 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import start
+
 TOL = dict(rtol=2e-6, atol=2e-6)
 
 #: test_elastic_sp.py's sweeps: B, Hq, kvs, P, n, dh, sp and B, S, Hq,
@@ -215,42 +213,22 @@ def reference(tmp_path_factory):
             "cluster": (2, textwrap.dedent(CLUSTER_SCRIPT)
                         % {"trace": _trace(), "kw": CLUSTER_KW,
                            "sched": CLUSTER_SCHED})}
-    procs = {}
-    for name, (ndev, body) in runs.items():
-        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-                   JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=f"--xla_force_host_platform_device_count="
-                             f"{ndev} --xla_cpu_collective_call_"
-                             f"terminate_timeout_seconds=600")
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-c", body, str(tmp / name)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env)
+    refs = {name: start(body, tmp / name, devices=ndev, timeout=300)
+            for name, (ndev, body) in runs.items()}
 
     def wait(name):
-        proc = procs[name]
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err[-4000:]
+        refs[name].wait()
         with open(tmp / name, "rb") as f:
             return pickle.load(f)
 
     yield wait
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
+    for ref in refs.values():
+        ref.close()
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _start_reference(reference):
     """Start the JAX runs before the first test of the module."""
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg():

@@ -25,10 +25,7 @@ batched decode; every other request's stream equals the reference
 cluster's.
 """
 import dataclasses
-import os
 import pickle
-import subprocess
-import sys
 import textwrap
 
 import jax.numpy as jnp
@@ -51,18 +48,11 @@ from repro_torch.serving.cluster import ClusterEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import ServeRequest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _jaxref import run
+
 KW = dict(n_instances=2, max_batch=4, max_seq=64, page_tokens=16,
           dwell_steps=4)
 SCHED = dict(long_threshold=64, target_tp=2, spill=True, spill_slack=2.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -220,16 +210,9 @@ JAX_SCRIPT = """
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax_spill") / "out.pkl"
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=2 "
-                         "--xla_cpu_collective_call_terminate_"
-                         "timeout_seconds=600",
-               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     body = textwrap.dedent(JAX_SCRIPT) % {"trace": _trace(), "kw": KW,
                                           "sched": SCHED}
-    proc = subprocess.run([sys.executable, "-c", body, str(tmp)], env=env,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    run(body, tmp, devices=2, timeout=160)
     with open(tmp, "rb") as f:
         return pickle.load(f)
 

@@ -53,16 +53,6 @@ KW = dict(max_batch=3, max_seq=64, page_tokens=8)
 POLICIES = {"whole": None, "chunked": dict(token_budget=16, mode="mixed")}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The port's side runs many tiny ops: on one thread they do not wait
-    on a pool that the suite's other workers crowd out."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def pair():
     cfg = dataclasses.replace(jget("llama3-8b").reduced(), dtype="float32")

@@ -96,17 +96,6 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / max(float(a.norm()), 1e-30))
 
 
-@pytest.fixture
-def one_thread():
-    """One CPU thread: bit-equality across runs (a busy machine cannot
-    change how a product's sums are split between threads), and bf16
-    products that stay fast when other processes hold the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module", params=FAMILIES)
 def family(request):
     """(name, port config, plan, reference params, batch, reference loss,
@@ -198,7 +187,7 @@ def test_loss_and_gradients_match_reference(family):
         assert jmetrics["aux"] > 0
 
 
-def test_remat_on_and_off_give_the_same_bits(family, one_thread):
+def test_remat_on_and_off_give_the_same_bits(family):
     name, tcfg, tp, params, batch, *_ = family
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     runs = []
@@ -219,7 +208,7 @@ def test_remat_on_and_off_give_the_same_bits(family, one_thread):
 # the reference's 40-step run, mirrored
 # ---------------------------------------------------------------------------
 
-def test_forty_steps_mirror_reference(rng, one_thread):
+def test_forty_steps_mirror_reference(rng):
     cfg = jget("llama3-8b").reduced()
     tcfg = tget("llama3-8b").reduced()
     params = JM.init_params(rng, cfg, jplan(cfg, 2))
@@ -250,7 +239,7 @@ def test_forty_steps_mirror_reference(rng, one_thread):
 # checkpoints
 # ---------------------------------------------------------------------------
 
-def test_restore_reads_reference_checkpoint(tmp_path, rng, one_thread):
+def test_restore_reads_reference_checkpoint(tmp_path, rng):
     name = "granite-moe-3b-a800m"          # bf16: uint16 bit patterns
     cfg, tcfg = jget(name).reduced(), tget(name).reduced()
     plan, tp = jplan(cfg, 1), tplan(tcfg, 1)
@@ -277,7 +266,7 @@ def test_restore_reads_reference_checkpoint(tmp_path, rng, one_thread):
     assert torch.equal(la, lb)
 
 
-def test_cli_cut_and_resumed_equals_unbroken(tmp_path, one_thread):
+def test_cli_cut_and_resumed_equals_unbroken(tmp_path):
     cfg = tget("llama3-8b").reduced()
     kw = dict(steps=5, batch=2, seq=16, lr=3e-3, device="cpu",
               log=lambda _: None)
@@ -298,7 +287,7 @@ def test_cli_cut_and_resumed_equals_unbroken(tmp_path, one_thread):
             assert torch.equal(v, b["opt"][i][k]), k
 
 
-def test_cli_main_runs_on_cpu(tmp_path, capsys, one_thread):
+def test_cli_main_runs_on_cpu(tmp_path, capsys):
     TL.main(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
              "--seq", "8", "--log-every", "1",
              "--ckpt-dir", str(tmp_path / "ck")])
